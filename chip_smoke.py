@@ -3,12 +3,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout, holds each against its
-plain PyTorch version (bit-exact: all state is int32/bool), holds the fused
-apply and the pipeline step against the JAX outputs committed in
-fluidframework_tpu_torch/testing/golden/, then drives the north-star step
-(10,000 docs x 100 ops, capacity 256, ticket table K=8) through the
-kernels, checks it against the plain composition, and times it with CUDA
-events. Prints one {"kernels": [...]} line, and as its last line
+plain PyTorch version (bit-exact: all state is int32/int16/bool), holds the
+fused apply, the pipeline step and one serving ring against the JAX outputs
+committed in fluidframework_tpu_torch/testing/golden/, then drives the two
+main paths through the kernels, checks each against its plain composition
+and times it with CUDA events:
+  - the north-star step (10,000 docs x 100 ops, capacity 256, ticket table
+    K=8): phases 1-5;
+  - the paged serving megakernel: the fused apply's runs= and extract=True
+    variants (phase 6), the golden ring (phase 7), and two rings back to
+    back of a 10,000-document partition (testing/serving.py FULL_RING:
+    8 windows x 16 ticket steps, ~214k merge ops per ring in three page
+    groups, 1,000 LWW lanes), the second one timed (phase 8).
+Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
 """
@@ -29,6 +36,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 DEVICE = "cuda"
 DOCS, OPS, CAPACITY, ANNO, TICKET_K = 10_000, 100, 256, 1, 8
 TRIALS = 5
+RUN_K = 8          # mergetree/oppack.RUN_K (checked in main)
+K_SLOTS, A_SLOTS = 3, 4   # the serving defaults: MAX_OVERLAP_CLIENTS, anno
+RING_STAGES = ("gather", "ticket", "admit", "apply_extract",
+               "apply_runs_extract", "lww", "pack", "scatter")
+RING_SPEC = "FULL_RING"   # testing/serving.py fleet of the timed rings
+VARIANT_BATCH = 2048      # documents of phase 6's first variant batch
 # H100 SXM published peaks: HBM bytes/s, and the
 # non-tensor 32-bit rate used for the integer lane operations.
 PEAK_BYTES_PER_S = 3.35e12
@@ -68,6 +81,38 @@ def ms_of(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, reps: int) -> dict:
+    """Device milliseconds per call of each CUDA kernel fn launches, from
+    torch.profiler's CUPTI trace over `reps` calls (after one warm-up):
+    {kernel name: (ms per call, launches per call)}. Unlike ms_of, the
+    host's pace between launches is not counted."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = ev.self_device_time_total
+        if us > 0:
+            out[ev.key] = (us / 1e3 / reps, ev.count / reps)
+    return out
+
+
+def one_kernel_ms(fn, reps: int, kernel: str):
+    """kernel_device_ms of the kernels whose name contains `kernel`; None
+    (not measured) when the trace holds no such kernel."""
+    got = [ms for name, (ms, _n) in kernel_device_ms(fn, reps).items()
+           if kernel in name]
+    return sum(got) if got else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def max_abs_err(a, b) -> int:
@@ -137,19 +182,104 @@ def fused_apply_lane_ops(kinds: np.ndarray, capacity: int, k: int,
                          a: int) -> float:
     """Integer lane operations the fused apply's formulation needs for the
     [B, T] op kinds (every phase touches every slot of the document):
-    visibility + scan (8 + K per slot), boundary test (4), shift of all planes (2 per plane),
-    insert stop test (8) and fill (P), remove (10 + 3K), annotate (4 + A),
-    ack (6). Counted from the kinds actually in the stream."""
+    visibility + scan (8 + K per slot), boundary test (4), shift of all
+    planes (2 per plane), insert stop test (8) and fill (P), remove
+    (10 + 3K), annotate (4 + A), ack (6), and for an INSERT_RUN a boundary
+    test, a visibility pass, the stop test, a shift of every plane, the
+    RUN_K-term member selects of length/seq/op_id (2 per term), the
+    live/dead masks (4) and the fill (P). Counted from the kinds actually
+    in the stream."""
     planes = 8 + k + a
     vis = 8 + k
     boundary = vis + 4 + 2 * planes
-    n = {kind: int((kinds == kind).sum()) for kind in range(6)}
+    n = {kind: int((kinds == kind).sum()) for kind in range(7)}
     per_slot = (
         n[1] * (boundary + vis + 8 + 2 * planes + planes)       # insert
         + n[2] * (2 * boundary + vis + 10 + 3 * k)              # remove
         + n[3] * (2 * boundary + vis + 4 + a)                   # annotate
-        + (n[4] + n[5]) * 6)                                    # acks
+        + (n[4] + n[5]) * 6                                     # acks
+        + n[6] * (boundary + vis + 8 + 2 * planes + 3 * 2 * RUN_K + 4
+                  + planes))                                    # runs
     return float(per_slot) * capacity
+
+
+def fused_apply_bytes(batch: int, capacity: int, steps: int, k: int, a: int,
+                      runs: bool, extract: bool) -> float:
+    """Bytes the fused apply must move: the state read once and written
+    once ((8 + K + A) int32 planes + three int32 scalars + the overflow
+    byte per document), the 10 op columns, the 3 RunCols columns with
+    runs=, and the 14 narrow bytes per document with extract=True."""
+    state = (8 + k + a) * capacity * 4 + 13
+    per_doc = 2 * state + 10 * steps * 4 + \
+        (3 * steps * RUN_K * 4 if runs else 0) + (14 if extract else 0)
+    return float(batch * per_doc)
+
+
+def assert_trees_equal(got, want, what: str) -> None:
+    """Two output trees of the same structure (NamedTuples, tuples,
+    tensors): every leaf equal in dtype, shape and value."""
+    if want is None:
+        require(got is None, f"{what}: expected None")
+    elif hasattr(want, "_fields"):
+        for name, g, w in zip(want._fields, got, want):
+            assert_trees_equal(g, w, f"{what}.{name}")
+    elif isinstance(want, (tuple, list)):
+        require(len(got) == len(want), f"{what}: length")
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_trees_equal(g, w, f"{what}[{i}]")
+    else:
+        require(got.dtype == want.dtype and got.shape == want.shape,
+                f"{what}: dtype/shape {got.dtype}{tuple(got.shape)} vs "
+                f"{want.dtype}{tuple(want.shape)}")
+        if not bool((got == want).all()):
+            raise SmokeFailure(f"{what}: differs in "
+                               f"{int((got != want).sum())} elements")
+
+
+def long_table(dev, batch: int, capacity: int, rows: int):
+    """`rows` one-char segments at seq 0 per document, so every shift
+    moves lanes across the 1,024-thread chunk boundary."""
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.mergetree.state import make_state
+    st = interop.to_numpy(make_state(capacity, A_SLOTS, batch=batch,
+                                     device="cpu"))
+    st["length"][:, :rows] = 1
+    st["ins_seq"][:, :rows] = 0
+    st["ins_client"][:, :rows] = 0
+    st["origin_op"][:, :rows] = np.arange(rows)
+    st["count"][:] = rows
+    return interop.doc_state_from_numpy(st, dev)
+
+
+def ring_trial(serve, ts, pool_pre, lww, args, stage_names=None):
+    """One timed megakernel ring from a copy of the pre-ring pool: (device
+    ms, host ms, {stage: device ms} when stage_names is given)."""
+    pool = type(pool_pre)(*(t.clone() for t in pool_pre))
+    torch.cuda.synchronize()
+    marks = []
+
+    def stage(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    e0.record()
+    serve(ts, pool, lww, *args, stats=True,
+          stage=stage if stage_names is not None else None)
+    e1.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - h0) * 1e3
+    split = None
+    if stage_names is not None:
+        split = dict.fromkeys(stage_names, 0.0)
+        prev = e0
+        for name, ev in marks:
+            split[name] += prev.elapsed_time(ev)
+            prev = ev
+    return e0.elapsed_time(e1), host, split
 
 
 def main() -> int:
@@ -254,11 +384,22 @@ def main() -> int:
     wrappers = {"selftest": kernels.selftest,
                 "summary_len": pallas_ops.summary_lengths,
                 "fused_apply": pallas_apply.apply_ops_fused}
-    for fn in wrappers.values():
-        fn.launches = 0
+
+    def reset_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+        pallas_apply.reset_launches()
+
+    def read_counts():
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        got.update({f"fused_apply[{v}]": n for v, n in
+                    pallas_apply.apply_ops_fused.variant_launches.items()})
+        return got
+
+    reset_counts()
     tout, mout, ticketed, total = pipeline.full_step(*fresh(), raw, ops)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = read_counts()
     require(launches["fused_apply"] > 0 and launches["summary_len"] > 0,
             f"main path did not launch every kernel: {launches}")
     require(not bool(mout.overflow.any()), "north-star step overflowed")
@@ -313,48 +454,60 @@ def main() -> int:
           f"{[round(v, 3) for v in step_ms]}), stage p50 ms {split}; "
           f"card {card}", flush=True)
 
-    # -- phase 5: per-kernel numbers at the main path's shapes -----------
+    # -- phase 5: per-kernel numbers at the north-star path's shapes -------
     mstate0 = fresh()[1]
     admitted = pipeline.admit_ops(ops, ticketed)
     x = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
-    state_bytes = (8 + 3 + ANNO) * CAPACITY * 4 + 13
-    apply_bytes = DOCS * (2 * state_bytes + 10 * OPS * 4)
-    apply_ops_n = fused_apply_lane_ops(admitted.kind.cpu().numpy(),
-                                       CAPACITY, 3, ANNO)
     summary_bytes = DOCS * (3 * CAPACITY * 4 + 3 * 4)
     rows = [
-        dict(name="selftest", source="fluidframework_tpu_torch/kernels/"
-             "csrc/selftest.cu",
+        dict(name="selftest", variant=None, source="fluidframework_tpu_"
+             "torch/kernels/csrc/selftest.cu",
              replaces="fluidframework_tpu/mergetree/pallas_ops.py:42",
-             on_main_path=False,
+             on_main_path=False, launches=launches["selftest"],
              err=max_abs_err([kernels.selftest(x)], [x * 2]),
              ms=ms_of(lambda: kernels.selftest(x), 200),
+             device_ms=one_kernel_ms(lambda: kernels.selftest(x), 200,
+                                     "selftest_kernel"),
              plain_ms=ms_of(lambda: kernels.selftest_plain(x), 200),
              library_ms=ms_of(lambda: torch.mul(x, 2), 200),
              bytes=8 * 128 * 4 * 2, ops=8 * 128),
-        dict(name="summary_len", source="fluidframework_tpu_torch/kernels/"
-             "csrc/summary_len.cu",
+        dict(name="summary_len", variant=None, source="fluidframework_tpu_"
+             "torch/kernels/csrc/summary_len.cu",
              replaces="fluidframework_tpu/mergetree/pallas_ops.py:58",
-             on_main_path=True,
+             on_main_path=True, launches=launches["summary_len"],
              err=max_abs_err([pallas_ops.summary_lengths(mout)],
                              [pallas_ops.summary_lengths_plain(mout)]),
              ms=ms_of(lambda: pallas_ops.summary_lengths(mout), 50),
+             device_ms=one_kernel_ms(
+                 lambda: pallas_ops.summary_lengths(mout), 50,
+                 "summary_len_kernel"),
              plain_ms=ms_of(lambda: pallas_ops.summary_lengths_plain(mout),
                             10),
              library_ms=None, bytes=summary_bytes,
              ops=DOCS * CAPACITY * 6),
-        dict(name="fused_apply", source="fluidframework_tpu_torch/kernels/"
-             "csrc/fused_apply.cu",
+        dict(name="fused_apply", variant="plain", source="fluidframework_"
+             "tpu_torch/kernels/csrc/fused_apply.cu",
              replaces="fluidframework_tpu/mergetree/pallas_apply.py:462",
-             on_main_path=True,
+             on_main_path=True, launches=launches["fused_apply[plain]"],
              err=max_abs_err(pallas_apply.apply_ops_fused(mstate0, admitted),
                              p_mout),
              ms=ms_of(lambda: pallas_apply.apply_ops_fused(mstate0,
                                                            admitted), 5),
+             device_ms=one_kernel_ms(
+                 lambda: pallas_apply.apply_ops_fused(mstate0, admitted), 5,
+                 "fused_apply_kernel"),
              plain_ms=ms_of(lambda: pallas_apply.apply_ops_fused_plain(
                  mstate0, admitted), 1),
-             library_ms=None, bytes=apply_bytes, ops=apply_ops_n),
+             library_ms=None,
+             bytes=fused_apply_bytes(DOCS, CAPACITY, OPS, 3, ANNO, False,
+                                     False),
+             ops=fused_apply_lane_ops(admitted.kind.cpu().numpy(),
+                                      CAPACITY, 3, ANNO)),
     ]
+    del mstate0, mout, p_mout, tout, p_tout, ticketed, p_ticketed, admitted
+
+    rows += serving_phases(dev, card)
+
     out = []
     for r in rows:
         b_ms = r["bytes"] / PEAK_BYTES_PER_S * 1e3
@@ -362,10 +515,11 @@ def main() -> int:
         require(r["err"] == 0, f"{r['name']}: max_abs_err {r['err']}")
         out.append({
             "name": r["name"], "route": "cuda", "source": r["source"],
-            "replaces": r["replaces"], "launches": launches[r["name"]],
-            "on_main_path": r["on_main_path"], "max_abs_err": r["err"],
-            "bit_exact": True, "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": max(b_ms, o_ms),
+            "replaces": r["replaces"], "variant": r["variant"],
+            "launches": r["launches"], "on_main_path": r["on_main_path"],
+            "max_abs_err": r["err"], "bit_exact": True, "ms": r["ms"],
+            "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": out}))
@@ -374,6 +528,213 @@ def main() -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def serving_phases(dev, card: str) -> list:
+    """Phases 6-8, the paged serving megakernel; returns the kernel rows
+    of the fused apply's extract and runs+extract variants."""
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.mergetree import oppack
+    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.mergetree.paging import PagedMergeStore
+    from fluidframework_tpu_torch.mergetree.state import make_state
+    from fluidframework_tpu_torch.server import serve_step
+    from fluidframework_tpu_torch.server import ticket_kernel as tk
+    from fluidframework_tpu_torch.server.lww_kernel import make_lww_state
+    from fluidframework_tpu_torch.testing import golden, serving
+    from fluidframework_tpu_torch.testing.traces import (gen_run_traces,
+                                                         gen_traces)
+
+    require(oppack.RUN_K == RUN_K, "RUN_K differs from mergetree/oppack")
+
+    # -- phase 6: the runs= and extract=True variants vs plain -----------
+    def check_variants(what, state, cols, runs_np):
+        ops = interop.packed_ops_from_numpy(cols, dev)
+        runs = interop.run_cols_from_numpy(runs_np, dev)
+        plain_ops = interop.packed_ops_from_numpy(
+            gen_traces(state.length.shape[0], cols["kind"].shape[1],
+                       seed=7), dev)
+        for o, r, ex in ((ops, runs, False), (plain_ops, None, True),
+                         (ops, runs, True)):
+            got = pa.apply_ops_fused(state, o, runs=r, extract=ex)
+            want = pa.apply_ops_fused_plain(state, o, runs=r, extract=ex)
+            torch.cuda.synchronize()
+            assert_trees_equal(got, want, f"{what} "
+                               f"[{pa.variant_name(r, ex)}]")
+        print(f"phase 6: runs / extract / runs+extract bit-exact: {what}",
+              flush=True)
+
+    cols, runs = gen_run_traces(VARIANT_BATCH, 64, seed=11)
+    check_variants(f"gen_run_traces({VARIANT_BATCH}, 64) C=512",
+                   make_state(512, A_SLOTS, batch=VARIANT_BATCH,
+                              device=dev), cols, runs)
+    cols, runs = gen_run_traces(8, 6, seed=12)
+    check_variants("C=1100, 1030 rows: shifts by 8 across the chunk "
+                   "boundary", long_table(dev, 8, 1100, 1030), cols, runs)
+    cols, runs = gen_run_traces(128, 100, seed=13)
+    check_variants("1,024-row page-group view, gen_run_traces(128, 100)",
+                   make_state(1024, A_SLOTS, batch=128, device=dev),
+                   cols, runs)
+
+    # -- phase 7: the golden ring vs the JAX outputs ---------------------
+    g = golden.load(golden.SERVE_GOLDEN_PATH)
+    n_lww = sum(1 for k in g if k.startswith("lww_in_"))
+    ring = interop.ring_args_from_numpy(serving.ring_from_arrays(g["ring"]),
+                                        dev)
+    ts, pool, lww, flat16_k, msn_k, pre = serve_step.serve_megakernel(
+        interop.ticket_state_from_numpy(g["tstate_in"], dev),
+        interop.page_pool_from_numpy(g["pool_in"], dev),
+        [interop.lww_state_from_numpy(g[f"lww_in_{i}"], dev)
+         for i in range(n_lww)], *ring, stats=True)
+    assert_matches_numpy(ts, g["tstate_out"], "golden ring tstate")
+    assert_matches_numpy(pool, g["pool_out"], "golden ring pool")
+    for i, s in enumerate(lww):
+        assert_matches_numpy(s, g[f"lww_out_{i}"], f"golden ring lww {i}")
+    for i, v in enumerate(pre):
+        assert_matches_numpy(v, g[f"pre_{i}"], f"golden ring pre view {i}")
+    require(np.array_equal(flat16_k.cpu().numpy(), g["wire"]["flat16_k"]),
+            "golden ring flat16_k")
+    require(np.array_equal(msn_k.cpu().numpy(), g["wire"]["msn_k"]),
+            "golden ring msn_k")
+    print("phase 7: serve_megakernel equals the JAX golden ring (tstate, "
+          "pool, LWW, flat16_k, msn_k, pre views)", flush=True)
+
+    # -- phase 8: two full-size rings through the kernels ----------------
+    fleet = serving.ServingFleet(getattr(serving, RING_SPEC), seed=0)
+    spec = fleet.spec
+    store = PagedMergeStore(pages=16384, device=dev)
+    plain_serve = serve_step.make_serve_megakernel(keep=True, plain=True)
+    wrappers = (pa.apply_ops_fused,)
+
+    def run_ring(ts, lww):
+        t0 = time.perf_counter()
+        staged = fleet.stage_ring(store)
+        stage_s = time.perf_counter() - t0
+        args = interop.ring_args_from_numpy(staged.args, dev)
+        pool_pre = type(store.pool)(*(t.clone() for t in store.pool))
+        want = plain_serve(ts, pool_pre, lww, *args, stats=True)
+        torch.cuda.synchronize()
+        pa.reset_launches()
+        got = serve_step.serve_megakernel(ts, store.pool, lww, *args,
+                                          stats=True)
+        torch.cuda.synchronize()
+        counts = dict(wrappers[0].variant_launches)
+        assert_trees_equal(got, want, "ring vs the plain composition")
+        b, t = spec.docs, spec.steps
+        layout = serve_step.flat16_layout(b, t, staged.merge_lanes,
+                                          staged.lww_lanes, True, True)
+        lo, _hi = layout["overflow"]
+        over = got[3][-1, lo:lo + sum(staged.merge_lanes)].cpu().numpy()
+        expected = np.concatenate(staged.expected_overflow)
+        require(np.array_equal(over != 0, expected),
+                f"ring overflow lanes {np.flatnonzero(over)} differ from "
+                f"the mispredicted-run lanes {np.flatnonzero(expected)}")
+        serving.adopt_ring(store, staged, got[3][-1].cpu().numpy(),
+                           stats=True)
+        return staged, args, pool_pre, got, counts, stage_s
+
+    ts0 = tk.make_ticket_state(serving.TICKET_CLIENTS, spec.docs,
+                               device=dev)
+    lww0 = [make_lww_state(spec.lww_capacity, fleet.lww_lanes, device=dev)]
+    r1 = run_ring(ts0, lww0)
+    print(f"phase 8: ring 1 (from empty) {r1[0].counts}, groups "
+          f"{[tuple(p.shape) for p in r1[0].args.page_ids]}, staged in "
+          f"{r1[5]:.2f} s, equal to the plain composition", flush=True)
+    ts1, lww1 = r1[3][0], r1[3][2]
+    staged, args, pool_pre, got, counts, stage_s = run_ring(ts1, lww1)
+    require(counts["extract"] > 0 and counts["runs_extract"] > 0,
+            f"the ring did not launch both variants: {counts}")
+    print(f"phase 8: ring 2 {staged.counts}, groups "
+          f"{[tuple(p.shape) for p in staged.args.page_ids]} x Tm "
+          f"{[m.shape[-1] for m in staged.args.merge_xs]}, pages in use "
+          f"{store.pages_in_use}, staged in {stage_s:.2f} s; launches "
+          f"{counts}; equal to the plain composition; overflow only on "
+          f"the {staged.counts['mispredicted_docs']} mispredicted-run "
+          "lanes", flush=True)
+
+    trials = [ring_trial(serve_step.serve_megakernel, ts1, pool_pre, lww1,
+                         args) for _ in range(TRIALS)]
+    splits = [ring_trial(serve_step.serve_megakernel, ts1, pool_pre, lww1,
+                         args, RING_STAGES)[2] for _ in range(TRIALS)]
+    ring_ms = float(np.median([t[0] for t in trials]))
+    host_ms = float(np.median([t[1] for t in trials]))
+    split = {k: round(float(np.median([s[k] for s in splits])), 3)
+             for k in RING_STAGES}
+    n_ops = staged.counts["merge_ops"] + staged.counts["lww_ops"]
+    pool_copy = type(pool_pre)(*(t.clone() for t in pool_pre))
+    trace = kernel_device_ms(lambda: serve_step.serve_megakernel(
+        ts1, pool_copy, lww1, *args, stats=True), 1)
+    if trace:
+        busy = sum(ms for ms, _n in trace.values())
+        apply_ms = sum(ms for name, (ms, _n) in trace.items()
+                       if "fused_apply_kernel" in name)
+        print(f"serve_megakernel ring device trace (torch.profiler, one "
+              f"ring): {sum(n for _ms, n in trace.values()):.0f} kernel "
+              f"launches, device busy {busy:.3f} ms of the {ring_ms:.3f} "
+              f"ms p50 ring (idle share {1 - busy / ring_ms:.3f}), "
+              f"fused_apply kernels {apply_ms:.3f} ms", flush=True)
+    else:
+        print("serve_megakernel ring device trace: not measured "
+              "(torch.profiler recorded no device activity)", flush=True)
+    print(f"serve_megakernel ring: {n_ops / (ring_ms / 1e3):.0f} ops/s "
+          f"({staged.counts['merge_ops']} merge + "
+          f"{staged.counts['lww_ops']} LWW ops, "
+          f"{staged.counts['messages']} messages), p50 {ring_ms:.3f} ms "
+          f"(host clock p50 {host_ms:.3f} ms, trials "
+          f"{[round(t[0], 3) for t in trials]}), stage p50 ms {split}; "
+          f"card {card}", flush=True)
+
+    # -- per-variant numbers at the ring's shapes: window 0 of each group
+    _ts, ticketed = tk.scan_tickets(
+        ts1, tk.RawOps(client=args.ticket_xs[0, 1],
+                       client_seq=args.ticket_xs[0, 2],
+                       ref_seq=args.ticket_xs[0, 3],
+                       kind=args.ticket_xs[0, 0]), require_join=True)
+    per_group = []
+    for gi, view in enumerate(got[5]):
+        ops2, runs, _over = serve_step.admit_merge_ops(
+            ticketed.seq, ticketed.min_seq, args.merge_xs[gi][0],
+            None if args.runs_xs[gi] is None else args.runs_xs[gi][0])
+        b, c = view.length.shape
+        kern = pa.apply_ops_fused(view, ops2, runs=runs, extract=True)
+        plain = pa.apply_ops_fused_plain(view, ops2, runs=runs,
+                                         extract=True)
+        torch.cuda.synchronize()
+        variant = pa.variant_name(runs, True)
+        r = dict(
+            name=f"fused_apply_{variant}", variant=variant, group=gi,
+            source="fluidframework_tpu_torch/kernels/csrc/fused_apply.cu",
+            replaces="fluidframework_tpu/mergetree/pallas_apply.py:462",
+            on_main_path=True, launches=counts[variant],
+            err=max_abs_err(kern[0] + kern[1], plain[0] + plain[1]),
+            ms=ms_of(lambda: pa.apply_ops_fused(view, ops2, runs=runs,
+                                                extract=True), 20),
+            device_ms=one_kernel_ms(lambda: pa.apply_ops_fused(
+                view, ops2, runs=runs, extract=True), 20,
+                "fused_apply_kernel"),
+            plain_ms=ms_of(lambda: pa.apply_ops_fused_plain(
+                view, ops2, runs=runs, extract=True), 1),
+            library_ms=None, cells=b * c,
+            bytes=fused_apply_bytes(b, c, ops2.steps, K_SLOTS, A_SLOTS,
+                                    runs is not None, True),
+            ops=fused_apply_lane_ops(ops2.kind.cpu().numpy(), c, K_SLOTS,
+                                     A_SLOTS))
+        bound = max(r["bytes"] / PEAK_BYTES_PER_S,
+                    r["ops"] / PEAK_OPS_PER_S) * 1e3
+        print(f"  fused_apply[{variant}] window 0 of group {gi} "
+              f"[{b} x {c}] x Tm {ops2.steps}: {r['ms']:.4f} ms back to "
+              f"back, {fmt_ms(r['device_ms'])} kernel device time (bound "
+              f"{bound:.4f} ms), plain {r['plain_ms']:.3f} ms, "
+              f"max_abs_err {r['err']}", flush=True)
+        require(r["err"] == 0, f"group {gi}: kernel vs plain differ")
+        per_group.append(r)
+    # the JSON row of a variant is its largest group
+    rows = []
+    for variant in ("extract", "runs_extract"):
+        mine = [r for r in per_group if r["variant"] == variant]
+        require(bool(mine), f"no page group runs the {variant} variant")
+        rows.append(max(mine, key=lambda r: r["cells"]))
+    return rows
 
 
 if __name__ == "__main__":

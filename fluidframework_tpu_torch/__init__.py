@@ -11,11 +11,18 @@ easy to find:
   mergetree/state.py      DocState segment tables as int32 tensors
   mergetree/oppack.py     PackedOps op columns (pure numpy packer)
   mergetree/pallas_ops.py summary_lengths + its CUDA kernel
-  mergetree/pallas_apply.py  the fused whole-stream apply + its CUDA kernel
+  mergetree/pallas_apply.py  the fused whole-stream apply (plain, runs=,
+                          extract=True) + its CUDA kernel
+  mergetree/paging.py     page allocator and paged lane store
+  mergetree/kernel.py     gather / scatter of documents by page id
   server/ticket_kernel.py deli ticketing, batched over documents
+  server/lww_kernel.py    LWW lanes (map / cell / counter)
   server/pipeline.py      full_step: ticket -> fused apply -> summary length
+  server/serve_step.py    serving windows and the paged serving megakernel
+  telemetry/device_stats.py  the serving stats plane's slot layout
   kernels/                nvcc build of csrc/*.cu and the ctypes bindings
   interop.py              numpy <-> tensor converters for the conformance tests
+  testing/                seeded traces and serving rings, golden JAX outputs
 
 Wrappers run the CUDA kernel for CUDA tensors and the plain PyTorch version
 only for CPU tensors. The package imports neither `jax` nor

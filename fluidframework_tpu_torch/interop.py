@@ -15,8 +15,10 @@ import numpy as np
 import torch
 
 from .core.device import resolve_device
-from .mergetree.oppack import PackedOps
+from .mergetree.oppack import PackedOps, RunCols
 from .mergetree.state import DocState
+from .server.lww_kernel import LwwState
+from .server.serve_step import RingArgs
 from .server.ticket_kernel import RawOps, TicketState
 
 
@@ -52,6 +54,38 @@ def raw_ops_from_numpy(arrays: Dict[str, np.ndarray],
                        device=None) -> RawOps:
     """RawOps; the `kind` column is optional (absent or None = no column)."""
     return _build(RawOps, arrays, device, optional=("kind",))
+
+
+def run_cols_from_numpy(arrays: Dict[str, np.ndarray],
+                        device=None) -> RunCols:
+    return _build(RunCols, arrays, device)
+
+
+def lww_state_from_numpy(arrays: Dict[str, np.ndarray],
+                         device=None) -> LwwState:
+    return _build(LwwState, arrays, device)
+
+
+def page_pool_from_numpy(arrays: Dict[str, np.ndarray],
+                         device=None) -> DocState:
+    """A page pool: a DocState whose leading axis is pages and whose
+    capacity axis is PAGE_ROWS."""
+    return _build(DocState, arrays, device)
+
+
+def ring_args_from_numpy(ring: RingArgs, device=None) -> RingArgs:
+    """A staged megakernel ring (numpy arrays, testing/serving.py) on
+    `device`, entry by entry; None entries of runs_xs stay None."""
+    dev = resolve_device(device)
+
+    def put(x):
+        if x is None:
+            return None
+        return torch.from_numpy(np.ascontiguousarray(x).copy()).to(dev)
+
+    return RingArgs(*(tuple(put(x) for x in field)
+                      if isinstance(field, (tuple, list)) else put(field)
+                      for field in ring))
 
 
 def to_numpy(tup: NamedTuple) -> Dict[str, np.ndarray]:

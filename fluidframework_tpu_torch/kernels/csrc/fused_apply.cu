@@ -2,13 +2,17 @@
 // to its segment table held in shared memory.
 //
 // Replaces: fluidframework_tpu/mergetree/pallas_apply.py,
-//   apply_ops_fused_pallas -> _kernel, the plain variant (runs=None,
-//   extract=False). What it computes is _apply_one_batched for op
-//   t = 0..T-1 of every document: boundary splits at pos1 (and pos2 for
-//   ranges), then insert / remove with overlap clients / annotate ring,
-//   then acks, then seq/min_seq. The capacity gate (count + 2 <= C) and
-//   every overflow rule are the same, and every lane of the table (the
-//   padding past `count` too) ends bit-identical to the JAX result.
+//   apply_ops_fused_pallas -> _kernel, all three of its variants: plain
+//   (runs=None, extract=False), INSERT_RUN (runs=, pallas_apply.py:198-247)
+//   and in-kernel extract (extract=True, :514-522), alone or together.
+//   What it computes is _apply_one_batched for op t = 0..T-1 of every
+//   document: boundary splits at pos1 (and pos2 for ranges), then insert /
+//   insert run / remove with overlap clients / annotate ring, then acks,
+//   then seq/min_seq. The capacity gate (count + 2 <= C; count + RUN_K + 1
+//   for a run) and every overflow rule are the same, and every lane of the
+//   table (the padding past `count` too) ends bit-identical to the JAX
+//   result. The variants are template parameters (kRuns, kExtract), so the
+//   plain variant's code is what it was before they existed.
 //
 // Bound on the H100. Bytes: the state is read once and written once,
 // (8 + K + A) int32 planes plus four scalars per document, and the ten op
@@ -21,6 +25,11 @@
 // practice so do the block-wide barriers: every op needs a prefix sum and
 // one or two block reductions and structural shifts, each of which ends in
 // __syncthreads(), about fifteen barriers per op.
+//
+// The INSERT_RUN variant adds, on run steps only, one visibility pass, a
+// shift of every plane by RUN_K = 8 and 8 row fills: the same barriers as
+// one plain insert for up to 8 inserts. The extract variant adds four [B]
+// stores per document after the last op.
 //
 // Design, in answer to that bound:
 // - One block per document (grid = B), one thread per segment slot
@@ -37,9 +46,16 @@
 // - Block primitives: the exclusive prefix sum is a warp-shuffle scan plus
 //   per-warp totals; first_true / masked sums are one fused reduction
 //   (__reduce_min_sync / __reduce_add_sync, then per-warp partials);
-//   any_lane is __syncthreads_or; the shift right reads lane-1 into
+//   any_lane is __syncthreads_or; the shift right reads lane-by into
 //   registers, barriers, and writes back. Per-op scalars (count, seq,
 //   min_seq, overflow) are block-uniform registers.
+// - The run shift moves lanes >= slot + 8 from lane - 8. JAX rolls
+//   cyclically over lanes >= slot, but lanes [slot, slot + 8) are then
+//   overwritten on every plane by the fills, so no wrapped value survives
+//   and the kernel never reads across the end of the table. A fill indexes
+//   its member directly by rel = lane - slot (JAX's 8-term select). Run
+//   member lengths are >= 0 (RunCols: 0 marks padding); a fill treats
+//   length 0 as a dead row and > 0 as a live one, as JAX does.
 // - Integer adds wrap in unsigned arithmetic as int32 does in JAX, and no
 //   comparison widens the INT32_MAX-1 / INT32_MAX sentinels.
 
@@ -58,9 +74,10 @@ constexpr int kMaxPlanes = 32;
 constexpr int kShiftGroup = 16;
 constexpr int kMaxThreads = 1024;
 constexpr int kScratchInts = 128;        // 3 x 32 reduction + 32 scan slots
+constexpr int kRunK = 8;                 // oppack.RUN_K
 
 enum OpKindCode { NOOP = 0, INSERT = 1, REMOVE = 2, ANNOTATE = 3,
-                  ACK_INSERT = 4, ACK_REMOVE = 5 };
+                  ACK_INSERT = 4, ACK_REMOVE = 5, INSERT_RUN = 6 };
 enum Plane { LEN = 0, INS_SEQ, INS_CLIENT, LOCAL_SEQ, REM_SEQ,
              REM_LOCAL_SEQ, ORIGIN_OP, ORIGIN_OFF, SEG_PLANES };
 enum OpField { F_KIND = 0, F_SEQ, F_REF_SEQ, F_CLIENT, F_POS1, F_POS2,
@@ -84,6 +101,13 @@ struct Args {
   int* out_seq;
   uint8_t* out_overflow;
   const int* op[N_OP_FIELDS];
+  const int* run_len;   // [B, T, kRunK] RunCols, kRuns only
+  const int* run_seq;
+  const int* run_id;
+  int16_t* ex_overflow;  // [B] narrow outputs, kExtract only
+  int* ex_count;
+  int* ex_min_seq;
+  int* ex_seq;
   int capacity, k_slots, a_slots, steps;
 };
 
@@ -189,13 +213,14 @@ __device__ void visibility(Blk& b, int ref, int client, int count) {
   }
 }
 
-// Lanes l >= start take lane l-1 on every plane. Lane 0 is never a
-// destination: callers that shift from 0 overwrite it on every plane.
-// Chunks go high to low so a chunk reads its lower neighbour unmodified;
-// planes move kShiftGroup at a time so the staging stays in registers under
-// the 64-register cap of a 1024-thread block.
-__device__ void shift_right(Blk& b, int start) {
-  const int lo = max(start, 1);
+// Lanes l >= lo take lane l - kBy on every plane; callers keep lo >= kBy
+// (lanes below lo that JAX's cyclic roll would fill are overwritten on
+// every plane by the caller). Chunks go high to low so a chunk reads its
+// lower neighbour unmodified (kBy < blockDim); planes move kShiftGroup at a
+// time so the staging stays in registers under the 64-register cap of a
+// 1024-thread block.
+template <int kBy>
+__device__ void shift_right(Blk& b, int lo) {
   const int nchunks = (b.C + b.nthr - 1) / b.nthr;
   for (int j = nchunks - 1; j >= 0; --j) {
     if ((j + 1) * b.nthr <= lo) break;  // uniform
@@ -205,7 +230,7 @@ __device__ void shift_right(Blk& b, int start) {
       int tmp[kShiftGroup];
 #pragma unroll
       for (int q = 0; q < kShiftGroup; ++q)
-        if (g + q < b.P && act) tmp[q] = b.S[(g + q) * b.C + l - 1];
+        if (g + q < b.P && act) tmp[q] = b.S[(g + q) * b.C + l - kBy];
       __syncthreads();
 #pragma unroll
       for (int q = 0; q < kShiftGroup; ++q)
@@ -236,7 +261,7 @@ __device__ void ensure_boundary(Blk& b, int pos, int ref, int client,
   if (mn >= b.C) return;  // no lane inside: nothing to split
   const int slot = mn;
   const int off = wsub(pos, static_cast<int>(scum));
-  shift_right(b, slot + 1);
+  shift_right<1>(b, slot + 1);
   count += 1;
   if (b.tid == 0) {
     b.at(LEN, slot) = off;
@@ -267,7 +292,7 @@ __device__ void insert_phase(Blk& b, const Op& op, int& count,
     return;
   }
   const int slot = mn;
-  shift_right(b, slot);
+  shift_right<1>(b, max(slot, 1));  // lane 0 is overwritten below
   count += 1;
   for (int p = b.tid; p < b.P; p += b.nthr) {
     int v = -1;  // rem_clients and anno slots
@@ -283,6 +308,52 @@ __device__ void insert_phase(Blk& b, const Op& op, int& count,
       default: break;
     }
     b.S[p * b.C + slot] = v;
+  }
+  __syncthreads();
+}
+
+// pallas_apply._insert_run_phase (vis/cum hold the post-boundary view): the
+// members of run row `run` ([kRunK] in each RunCols column) land as
+// contiguous rows at the first member's tie-break slot.
+__device__ void insert_run_phase(Blk& b, const Args& a, long long run,
+                                 const Op& op, int& count, bool& overflow) {
+  int mn = b.C;
+  for (int l = b.tid; l < b.C; l += b.nthr) {
+    const bool in_run = b.cum[l] == op.pos1;
+    const bool tomb = b.at(REM_SEQ, l) <= op.ref_seq;
+    const bool acked_ins = b.at(INS_SEQ, l) != kUnassigned;
+    const bool stop = in_run && (b.vis[l] || (!tomb && acked_ins) ||
+                                 l >= count);
+    if (stop) mn = min(mn, l);
+  }
+  mn = reduce_min(b, mn);
+  if (mn >= b.C) {  // no tie-break slot: flagged, state unchanged
+    overflow = true;
+    return;
+  }
+  const int slot = mn;
+  shift_right<kRunK>(b, slot + kRunK);
+  count += kRunK;
+  for (int e = b.tid; e < kRunK * b.P; e += b.nthr) {
+    const int rel = e % kRunK;
+    const int p = e / kRunK;
+    const int l = slot + rel;
+    if (l >= b.C) continue;
+    const int len = __ldg(a.run_len + run + rel);
+    const bool live = len > 0;
+    int v = -1;  // rem_clients and anno slots
+    switch (p) {
+      case LEN: v = len; break;
+      case INS_SEQ: v = live ? __ldg(a.run_seq + run + rel) : 0; break;
+      case INS_CLIENT: v = live ? op.client : -1; break;
+      case LOCAL_SEQ: v = 0; break;
+      case REM_SEQ: v = live ? kNoRemove : 0; break;
+      case REM_LOCAL_SEQ: v = 0; break;
+      case ORIGIN_OP: v = __ldg(a.run_id + run + rel); break;
+      case ORIGIN_OFF: v = 0; break;
+      default: break;
+    }
+    b.S[p * b.C + l] = v;
   }
   __syncthreads();
 }
@@ -382,13 +453,17 @@ __device__ void ack_phase(Blk& b, const Op& op) {
 }
 
 // pallas_apply._apply_one_batched for one document. Only the phase of the
-// op's kind runs: the others are identities on their disabled masks.
-__device__ void apply_one(Blk& b, const Op& op, int& count, int& min_seq,
-                          int& seq, bool& overflow) {
+// op's kind runs: the others are identities on their disabled masks. `run`
+// is the op's row offset into the RunCols columns (kRuns only).
+template <bool kRuns>
+__device__ void apply_one(Blk& b, const Args& a, long long run, const Op& op,
+                          int& count, int& min_seq, int& seq, bool& overflow) {
   const int kind = op.kind;
-  bool is_edit = kind == INSERT || kind == REMOVE || kind == ANNOTATE;
+  const bool is_run = kRuns && kind == INSERT_RUN;
+  bool is_edit = kind == INSERT || kind == REMOVE || kind == ANNOTATE ||
+                 is_run;
   bool is_range = kind == REMOVE || kind == ANNOTATE;
-  const bool fits = count + 2 <= b.C;
+  const bool fits = count + (is_run ? kRunK + 1 : 2) <= b.C;
   if (is_edit && !fits) overflow = true;
   is_edit = is_edit && fits;
   is_range = is_range && fits;
@@ -397,6 +472,7 @@ __device__ void apply_one(Blk& b, const Op& op, int& count, int& min_seq,
   if (is_edit) {
     visibility(b, op.ref_seq, op.client, count);
     if (kind == INSERT) insert_phase(b, op, count, overflow);
+    else if (is_run) insert_run_phase(b, a, run, op, count, overflow);
     else if (kind == REMOVE) remove_phase(b, op, overflow);
     else annotate_phase(b, op, overflow);
   }
@@ -407,6 +483,7 @@ __device__ void apply_one(Blk& b, const Op& op, int& count, int& min_seq,
   }
 }
 
+template <bool kRuns, bool kExtract>
 __global__ void __launch_bounds__(kMaxThreads) fused_apply_kernel(Args a) {
   extern __shared__ int smem[];
   Blk b;
@@ -452,7 +529,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_apply_kernel(Args a) {
     op.new_len = __ldg(a.op[F_NEW_LEN] + orow + t);
     op.local_seq = __ldg(a.op[F_LOCAL_SEQ] + orow + t);
     op.msn = __ldg(a.op[F_MSN] + orow + t);
-    apply_one(b, op, count, min_seq, seq, overflow);
+    apply_one<kRuns>(b, a, (orow + t) * kRunK, op, count, min_seq, seq,
+                     overflow);
   }
   __syncthreads();
 
@@ -467,7 +545,28 @@ __global__ void __launch_bounds__(kMaxThreads) fused_apply_kernel(Args a) {
     a.out_min_seq[doc] = min_seq;
     a.out_seq[doc] = seq;
     a.out_overflow[doc] = overflow ? 1 : 0;
+    if (kExtract) {  // _kernel's last-step narrow outputs
+      a.ex_overflow[doc] = static_cast<int16_t>(overflow ? 1 : 0);
+      a.ex_count[doc] = count;
+      a.ex_min_seq[doc] = min_seq;
+      a.ex_seq[doc] = seq;
+    }
   }
+}
+
+template <bool kRuns, bool kExtract>
+cudaError_t launch(const Args& a, int batch, size_t smem,
+                   cudaStream_t stream) {
+  auto kern = fused_apply_kernel<kRuns, kExtract>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int threads = std::min(((a.capacity + 31) / 32) * 32, kMaxThreads);
+  if (batch > 0 && a.capacity > 0) kern<<<batch, threads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -480,10 +579,12 @@ static size_t smem_bytes(int capacity, int k_slots, int a_slots) {
 }
 
 // ptrs: 14 input DocState pointers, 14 output DocState pointers (DocState
-// field order), then 10 PackedOps column pointers. Returns cudaGetLastError.
+// field order), 10 PackedOps column pointers, then with with_runs the 3
+// RunCols pointers (length, seq, op_id), then with extract the 4 narrow
+// outputs (overflow int16, count, min_seq, seq). Returns cudaGetLastError.
 extern "C" int fluid_fused_apply(void** ptrs, int batch, int capacity,
                                  int k_slots, int a_slots, int steps,
-                                 void* stream) {
+                                 int with_runs, int extract, void* stream) {
   if (k_slots < 1 || k_slots > kMaxK ||
       SEG_PLANES + k_slots + a_slots > kMaxPlanes || a_slots < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -511,22 +612,31 @@ extern "C" int fluid_fused_apply(void** ptrs, int batch, int capacity,
   a.out_overflow = static_cast<uint8_t*>(ptrs[i++]);
   for (int f = 0; f < N_OP_FIELDS; ++f)
     a.op[f] = static_cast<const int*>(ptrs[i++]);
+  a.run_len = a.run_seq = a.run_id = nullptr;
+  if (with_runs) {
+    a.run_len = static_cast<const int*>(ptrs[i++]);
+    a.run_seq = static_cast<const int*>(ptrs[i++]);
+    a.run_id = static_cast<const int*>(ptrs[i++]);
+  }
+  a.ex_overflow = nullptr;
+  a.ex_count = a.ex_min_seq = a.ex_seq = nullptr;
+  if (extract) {
+    a.ex_overflow = static_cast<int16_t*>(ptrs[i++]);
+    a.ex_count = static_cast<int*>(ptrs[i++]);
+    a.ex_min_seq = static_cast<int*>(ptrs[i++]);
+    a.ex_seq = static_cast<int*>(ptrs[i++]);
+  }
   a.capacity = capacity;
   a.k_slots = k_slots;
   a.a_slots = a_slots;
   a.steps = steps;
 
   const size_t smem = smem_bytes(capacity, k_slots, a_slots);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = std::min(((capacity + 31) / 32) * 32, kMaxThreads);
-  if (batch > 0 && capacity > 0) {
-    fused_apply_kernel<<<batch, threads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (with_runs && extract) err = launch<true, true>(a, batch, smem, st);
+  else if (with_runs) err = launch<true, false>(a, batch, smem, st);
+  else if (extract) err = launch<false, true>(a, batch, smem, st);
+  else err = launch<false, false>(a, batch, smem, st);
+  return static_cast<int>(err);
 }

@@ -8,18 +8,23 @@ memory for all T ops. `apply_ops_fused_plain` is the plain PyTorch version,
 a transcription of `_apply_one_batched` and its phases over [B, C] planes
 stepping over T; the wrapper uses it only for CPU tensors. Neither mutates
 its input.
+
+Both take the two variants of the TPU kernel: `runs=` (RunCols [B, T,
+RUN_K]: INSERT_RUN steps land up to RUN_K rows at one tie-break slot) and
+`extract=True` (also return the narrow tuple (overflow int16, count,
+min_seq, seq) that the serving megakernel reads).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..kernels import build
 from .constants import DEV_NO_REMOVE, DEV_UNASSIGNED
-from .oppack import OpKind, PackedOps
+from .oppack import RUN_K, OpKind, PackedOps, RunCols
 from .state import DocState
 
 # Shared memory a block may use on Hopper (227 KB), and the kernel's layout:
@@ -88,10 +93,10 @@ def _plane_names(k_slots, a_slots):
         tuple(f"an{i}" for i in range(a_slots))
 
 
-def _shift_right(st, shift_mask, k_slots, a_slots):
+def _shift_right(st, shift_mask, k_slots, a_slots, by: int = 1):
     out = dict(st)
     for name in _plane_names(k_slots, a_slots):
-        out[name] = torch.where(shift_mask, torch.roll(st[name], 1, dims=1),
+        out[name] = torch.where(shift_mask, torch.roll(st[name], by, dims=1),
                                 st[name])
     return out
 
@@ -140,6 +145,56 @@ def _insert_phase(st, op, enabled, view, k_slots, a_slots):
     g["rem_seq"] = torch.where(here, DEV_NO_REMOVE, g["rem_seq"])
     g["rem_local_seq"] = torch.where(here, 0, g["rem_local_seq"])
     g["origin_op"] = torch.where(here, op["op_id"], g["origin_op"])
+    g["origin_off"] = torch.where(here, 0, g["origin_off"])
+    for i in range(k_slots):
+        g[f"rc{i}"] = torch.where(here, -1, g[f"rc{i}"])
+    for i in range(a_slots):
+        g[f"an{i}"] = torch.where(here, -1, g[f"an{i}"])
+    g["overflow"] = g["overflow"] | bad
+    return g
+
+
+def _insert_run_phase(st, op, enabled, view, k_slots, a_slots):
+    """Up to RUN_K packed cursor-advance inserts land as contiguous rows at
+    one tie-break slot: one shift by RUN_K and RUN_K masked fills; padding
+    rows (length 0) are born dead."""
+    vis, _vlen, cum = view
+    lane = _lanes(st["length"])
+    in_run = cum == op["pos1"]
+    tomb = st["rem_seq"] <= op["ref_seq"]
+    acked_ins = st["ins_seq"] != DEV_UNASSIGNED
+    stop = in_run & (vis | (~tomb & acked_ins) | (lane >= st["count"]))
+    found = _any_lane(stop)
+    bad = enabled & ~found
+    enabled = enabled & found
+    slot = _first_true(stop)
+    g = _shift_right(st, (lane >= slot) & enabled, k_slots, a_slots,
+                     by=RUN_K)
+    g["count"] = st["count"] + enabled.to(torch.int32) * RUN_K
+    rel = lane - slot
+    here = enabled & (rel >= 0) & (rel < RUN_K)
+
+    def pick(prefix, pad):
+        out = torch.full_like(st["length"], pad)
+        for k_i in range(RUN_K):
+            out = torch.where(rel == k_i, op[f"{prefix}{k_i}"], out)
+        return out
+
+    row_len = pick("rl", 0)
+    row_seq = pick("rs", 0)
+    row_id = pick("ri", -1)
+    live = here & (row_len > 0)
+    dead = here & (row_len == 0)
+    g["length"] = torch.where(here, row_len, g["length"])
+    g["ins_seq"] = torch.where(live, row_seq,
+                               torch.where(dead, 0, g["ins_seq"]))
+    g["ins_client"] = torch.where(live, op["client"],
+                                  torch.where(dead, -1, g["ins_client"]))
+    g["local_seq"] = torch.where(here, 0, g["local_seq"])
+    g["rem_seq"] = torch.where(live, DEV_NO_REMOVE,
+                               torch.where(dead, 0, g["rem_seq"]))
+    g["rem_local_seq"] = torch.where(here, 0, g["rem_local_seq"])
+    g["origin_op"] = torch.where(here, row_id, g["origin_op"])
     g["origin_off"] = torch.where(here, 0, g["origin_off"])
     for i in range(k_slots):
         g[f"rc{i}"] = torch.where(here, -1, g[f"rc{i}"])
@@ -227,17 +282,20 @@ def _ack_phase(st, op):
     return g
 
 
-def _apply_one_batched(st, op, k_slots, a_slots):
+def _apply_one_batched(st, op, k_slots, a_slots, with_runs=False):
     """One op per document; op fields are [B, 1]."""
     kind = op["kind"]
+    is_run = (kind == OpKind.INSERT_RUN) if with_runs else False
     is_edit = (kind == OpKind.INSERT) | (kind == OpKind.REMOVE) | \
-        (kind == OpKind.ANNOTATE)
+        (kind == OpKind.ANNOTATE) | is_run
     is_range = (kind == OpKind.REMOVE) | (kind == OpKind.ANNOTATE)
-    fits = st["count"] + 2 <= st["length"].shape[-1]
+    need = torch.where(is_run, RUN_K + 1, 2) if with_runs else 2
+    fits = st["count"] + need <= st["length"].shape[-1]
     st = dict(st)
     st["overflow"] = st["overflow"] | (is_edit & ~fits)
     is_edit = is_edit & fits
     is_range = is_range & fits
+    is_run = is_run & fits
 
     r, cl = op["ref_seq"], op["client"]
     s1 = _ensure_boundary(st, op["pos1"], r, cl, is_edit, k_slots, a_slots)
@@ -245,6 +303,8 @@ def _apply_one_batched(st, op, k_slots, a_slots):
     view2 = _visibility(s2, r, cl, k_slots)
     s_ins = _insert_phase(s2, op, is_edit & (kind == OpKind.INSERT), view2,
                           k_slots, a_slots)
+    if with_runs:
+        s_ins = _insert_run_phase(s_ins, op, is_run, view2, k_slots, a_slots)
     s_rem = _remove_phase(s_ins, op, is_range & (kind == OpKind.REMOVE),
                           view2, k_slots)
     s_ann = _annotate_phase(s_rem, op, is_range & (kind == OpKind.ANNOTATE),
@@ -258,6 +318,21 @@ def _apply_one_batched(st, op, k_slots, a_slots):
                                  torch.maximum(out["min_seq"], op["msn"]),
                                  out["min_seq"])
     return out
+
+
+def op_cols(ops: PackedOps, runs: Optional[RunCols]):
+    """Flatten PackedOps (+ optional RunCols) into named [B, T] columns:
+    the INSERT_RUN member columns ride as rl*/rs*/ri* per-step op
+    scalars."""
+    fields = list(PackedOps._fields)
+    cols = dict(zip(PackedOps._fields, ops))
+    if runs is not None:
+        for prefix, arr in (("rl", runs.length), ("rs", runs.seq),
+                            ("ri", runs.op_id)):
+            for i in range(RUN_K):
+                fields.append(f"{prefix}{i}")
+                cols[f"{prefix}{i}"] = arr[..., i]
+    return fields, cols
 
 
 def _to_planes(state: DocState) -> Dict[str, torch.Tensor]:
@@ -283,21 +358,37 @@ def _from_planes(st, k_slots, a_slots) -> DocState:
     )
 
 
-def apply_ops_fused_plain(state: DocState, ops: PackedOps) -> DocState:
-    """Plain PyTorch version: apply [B, T] op streams to B documents."""
+Narrow = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def narrow_of(state: DocState) -> Narrow:
+    """The narrow tuple the extract variant writes: (overflow int16,
+    count, min_seq, seq), each [B]."""
+    return (state.overflow.to(torch.int16), state.count.clone(),
+            state.min_seq.clone(), state.seq.clone())
+
+
+def apply_ops_fused_plain(state: DocState, ops: PackedOps,
+                          runs: Optional[RunCols] = None,
+                          extract: bool = False):
+    """Plain PyTorch version: apply [B, T] op streams to B documents.
+    Returns the new DocState, or (DocState, narrow) with extract=True."""
     k, a = state.overlap_slots, state.anno_slots
     st = _to_planes(state)
+    fields, cols = op_cols(ops, runs)
     for t in range(ops.steps):
-        op = {f: col[:, t:t + 1] for f, col in zip(PackedOps._fields, ops)}
-        st = _apply_one_batched(st, op, k, a)
-    return _from_planes(st, k, a)
+        op = {f: cols[f][:, t:t + 1] for f in fields}
+        st = _apply_one_batched(st, op, k, a, with_runs=runs is not None)
+    out = _from_planes(st, k, a)
+    return (out, narrow_of(out)) if extract else out
 
 
 # ---------------------------------------------------------------------------
 # the kernel wrapper
 # ---------------------------------------------------------------------------
 
-def _check_launchable(state: DocState, ops: PackedOps) -> None:
+def _check_launchable(state: DocState, ops: PackedOps,
+                      runs: Optional[RunCols]) -> None:
     b = state.length.shape[0]
     for name, t in zip(DocState._fields, state):
         want = torch.bool if name == "overflow" else torch.int32
@@ -311,10 +402,26 @@ def _check_launchable(state: DocState, ops: PackedOps) -> None:
                 or t.shape != (b, ops.steps):
             raise ValueError(f"apply_ops_fused: ops.{name} must be a "
                              f"contiguous int32 CUDA [{b}, T] tensor")
+    for name, t in zip(RunCols._fields, runs or ()):
+        if t.device.type != "cuda" or t.dtype != torch.int32 \
+                or not t.is_contiguous() \
+                or t.shape != (b, ops.steps, RUN_K):
+            raise ValueError(f"apply_ops_fused: runs.{name} must be a "
+                             f"contiguous int32 CUDA [{b}, T, {RUN_K}] "
+                             "tensor")
 
 
-def apply_ops_fused(state: DocState, ops: PackedOps) -> DocState:
-    """Apply [B, T] op streams to B documents; returns a new DocState.
+def variant_name(runs: Optional[RunCols], extract: bool) -> str:
+    """Launch-count key of a kernel variant: "plain", "runs", "extract"
+    or "runs_extract"."""
+    return "_".join(n for n, on in (("runs", runs is not None),
+                                    ("extract", extract)) if on) or "plain"
+
+
+def apply_ops_fused(state: DocState, ops: PackedOps,
+                    runs: Optional[RunCols] = None, extract: bool = False):
+    """Apply [B, T] op streams to B documents; returns a new DocState, or
+    (DocState, narrow) with extract=True (narrow_of).
 
     For CUDA tensors this launches the CUDA kernel, and a capacity above
     max_fused_capacity raises ValueError; for CPU tensors it runs the plain
@@ -326,19 +433,33 @@ def apply_ops_fused(state: DocState, ops: PackedOps) -> DocState:
             f"shared-memory limit max_fused_capacity={limit} "
             f"(K={state.overlap_slots}, A={state.anno_slots})")
     if state.length.device.type == "cpu":
-        return apply_ops_fused_plain(state, ops)
-    _check_launchable(state, ops)
+        return apply_ops_fused_plain(state, ops, runs, extract)
+    _check_launchable(state, ops, runs)
     b, c = state.length.shape
+    dev = state.length.device
     out = DocState(*(torch.empty_like(t) for t in state))
+    narrow = (torch.empty(b, dtype=torch.int16, device=dev),
+              *(torch.empty(b, dtype=torch.int32, device=dev)
+                for _ in range(3))) if extract else ()
     ptrs = [t.data_ptr() for t in state] + [t.data_ptr() for t in out] + \
-        [t.data_ptr() for t in ops]
+        [t.data_ptr() for t in ops] + [t.data_ptr() for t in runs or ()] + \
+        [t.data_ptr() for t in narrow]
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     lib = build.library()
     apply_ops_fused.launches += 1
+    apply_ops_fused.variant_launches[variant_name(runs, extract)] += 1
     build.check(lib.fluid_fused_apply(
         arr, b, c, state.overlap_slots, state.anno_slots, ops.steps,
+        int(runs is not None), int(extract),
         ctypes.c_void_p(build.stream_handle())), "apply_ops_fused")
-    return out
+    return (out, narrow) if extract else out
 
 
-apply_ops_fused.launches = 0
+def reset_launches() -> None:
+    """Zero the wrapper's launch counts (total and per variant)."""
+    apply_ops_fused.launches = 0
+    apply_ops_fused.variant_launches = dict.fromkeys(
+        ("plain", "runs", "extract", "runs_extract"), 0)
+
+
+reset_launches()

@@ -1,6 +1,7 @@
-"""The committed golden inputs and JAX outputs (golden/fused_apply_golden.npz).
+"""The committed golden inputs and JAX outputs (golden/*.npz).
 
-The file holds, as numpy arrays keyed "<section>.<field>":
+golden/fused_apply_golden.npz holds, as numpy arrays keyed
+"<section>.<field>":
   apply_in / apply_op / apply_out   a rich-schedule batch (annotates,
       overlapping removes, pending local ops and acks, a capacity-overflow
       doc and an overlap-overflow doc): DocState in, PackedOps, and the
@@ -9,9 +10,17 @@ The file holds, as numpy arrays keyed "<section>.<field>":
       step (with duplicate clientSeqs, so some ops are dropped);
   step_tout / step_mout / step_ticketed / step_total   the JAX package's
       full_step outputs.
-tests/test_torch_golden.py regenerates it from the JAX package and requires
-equality, so the values cannot drift; chip_smoke.py holds the CUDA kernels
-against it on a machine without JAX.
+golden/serve_megakernel_golden.npz (SERVE_GOLDEN_PATH) holds one small
+staged serving ring (testing/serving.py SMALL_RING, page groups of 16-row
+pages, INSERT_RUN slots, a mispredicted run, nacks, LWW lanes) and the JAX
+package's serve_megakernel_keep outputs with stats on:
+  tstate_in / pool_in / lww_in_<i>   the states before the ring;
+  ring                               serving.ring_to_arrays of its args;
+  tstate_out / pool_out / lww_out_<i> / wire (flat16_k, msn_k) /
+  pre_<g>                            the JAX outputs.
+tests/test_torch_golden.py regenerates both files from the JAX package and
+requires equality, so the values cannot drift; chip_smoke.py holds the CUDA
+kernels against them on a machine without JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import numpy as np
 
 GOLDEN_PATH = Path(__file__).resolve().parent / "golden" / \
     "fused_apply_golden.npz"
+SERVE_GOLDEN_PATH = GOLDEN_PATH.with_name("serve_megakernel_golden.npz")
 
 
 def load(path: Path = GOLDEN_PATH) -> Dict[str, Dict[str, np.ndarray]]:

@@ -248,3 +248,167 @@ class TestWrapper:
             assert t.dtype == (torch.bool if name == "overflow"
                                else torch.int32), name
             assert t.is_contiguous(), name
+
+
+# ---------------------------------------------------------------------------
+# the runs= (INSERT_RUN) and extract=True variants
+# ---------------------------------------------------------------------------
+
+def _slot_key(s):
+    """A RunSlot or HostOp of either package as plain tuples."""
+    return (tuple(map(tuple, s.ops)) if type(s).__name__ == "RunSlot"
+            else tuple(s))
+
+
+def keystroke_runs(n_docs, n_ops, seed):
+    """Per-document keystroke traces of the JAX package (typing bursts,
+    pastes, deletes, format sweeps; 1 or 2 clients), run-packed by both
+    packages: ((port, JAX) slots per doc, port numpy columns, port run
+    columns)."""
+    from fluidframework_tpu.mergetree.catchup import wire_to_host_ops
+    from fluidframework_tpu.mergetree.host import PayloadTable
+    from fluidframework_tpu.mergetree.oppack import (
+        pack_run_slots as jax_pack_run_slots)
+    from fluidframework_tpu.testing.traces import keystroke_trace
+
+    from fluidframework_tpu_torch.mergetree.oppack import (pack_run_slots,
+                                                            pack_slots)
+    docs = []
+    for d in range(n_docs):
+        builder = OpBuilder(PayloadTable())
+        ops = []
+        for op, s, r, c, m in keystroke_trace(n_ops, seed=seed + d,
+                                              n_clients=1 + d % 2):
+            ops.extend(wire_to_host_ops(builder, op, s, r, c, m))
+        ours, theirs = pack_run_slots(ops, base_seq=0), \
+            jax_pack_run_slots(ops, base_seq=0)
+        assert [_slot_key(s) for s in ours] == \
+            [_slot_key(s) for s in theirs]
+        docs.append((ours, theirs))
+    t = max(len(s) for s, _ in docs)
+    packed = [pack_slots(s, steps=t) for s, _ in docs]
+    cols = {f: np.stack([p[f] for p, _ in packed]) for f in packed[0][0]}
+    runs = {f: np.stack([r[f] for _, r in packed]) for f in packed[0][1]}
+    return docs, cols, runs
+
+
+def _jax_runs(runs):
+    from fluidframework_tpu.mergetree.oppack import RunCols as JaxRunCols
+    return JaxRunCols(*(jnp.asarray(runs[f]) for f in JaxRunCols._fields))
+
+
+def _port_runs(runs):
+    from fluidframework_tpu_torch.mergetree.oppack import RunCols
+    return RunCols(*(torch.from_numpy(runs[f]) for f in RunCols._fields))
+
+
+class TestFusedInsertRun:
+    def test_pack_slots_matches_jax(self):
+        from fluidframework_tpu.mergetree.oppack import (
+            pack_slots as jax_pack_slots)
+        from fluidframework_tpu_torch.mergetree.oppack import (RUN_MIN,
+                                                                pack_slots)
+        docs, _, _ = keystroke_runs(3, 40, seed=40)
+        assert RUN_MIN == 5
+        for slots, jax_slots in docs:
+            cols, runs = pack_slots(slots, steps=len(slots) + 2)
+            want_cols, want_runs = jax_pack_slots(jax_slots,
+                                                  steps=len(slots) + 2)
+            assert_fields_equal(cols, jax_to_np(want_cols),
+                                JaxPackedOps._fields)
+            assert_fields_equal(runs, jax_to_np(want_runs),
+                                ("length", "seq", "op_id"))
+
+    @pytest.mark.parametrize("source,seed,capacity", [
+        ("keystroke", 300, 256), ("keystroke", 310, 64),
+        ("gen_run_traces", 3, 256)])
+    def test_runs_plain_matches_scan_kernel(self, source, seed, capacity):
+        """The plain INSERT_RUN apply against kernel._scan_ops(runs=), on
+        run-packed keystroke traces and on the run traces chip_smoke.py
+        feeds the kernel: at C=64 the count + RUN_K + 1 capacity gate
+        trips."""
+        from fluidframework_tpu_torch.testing.traces import gen_run_traces
+        if source == "keystroke":
+            _, cols, runs = keystroke_runs(4, 60, seed)
+        else:
+            cols, runs = gen_run_traces(8, 40, seed=seed)
+        assert (cols["kind"] == 6).any()
+        state = fresh_state_np(capacity, 4, cols["kind"].shape[0])
+        from fluidframework_tpu.mergetree.state import DocState as JaxDoc
+        want = jax_to_np(kernel._scan_ops(
+            JaxDoc(**{f: jnp.asarray(v) for f, v in state.items()}),
+            jax_packed(cols), batched=True, runs=_jax_runs(runs)))
+        got = interop.to_numpy(tpa.apply_ops_fused(
+            interop.doc_state_from_numpy(state, "cpu"),
+            interop.packed_ops_from_numpy(cols, "cpu"),
+            runs=_port_runs(runs)))
+        assert_fields_equal(got, want)
+        if capacity == 64:
+            assert got["overflow"].any()
+
+    @pytest.mark.parametrize("with_runs", [False, True])
+    def test_extract_matches_interpret_kernel(self, with_runs):
+        """runs= and extract=True against the Pallas kernel itself
+        (interpret mode), narrow outputs included."""
+        from fluidframework_tpu.mergetree.state import DocState as JaxDoc
+        if with_runs:
+            _, cols, runs = keystroke_runs(3, 24, seed=320)
+        else:
+            cols, runs = gen_traces(4, 12, seed=5), None
+        b = cols["kind"].shape[0]
+        state = fresh_state_np(64, 4, b)
+        want_state, want_narrow = pallas_apply.apply_ops_fused_pallas(
+            JaxDoc(**{f: jnp.asarray(v) for f, v in state.items()}),
+            jax_packed(cols), interpret=True,
+            runs=None if runs is None else _jax_runs(runs), extract=True)
+        got_state, got_narrow = tpa.apply_ops_fused(
+            interop.doc_state_from_numpy(state, "cpu"),
+            interop.packed_ops_from_numpy(cols, "cpu"),
+            runs=None if runs is None else _port_runs(runs), extract=True)
+        assert_fields_equal(interop.to_numpy(got_state),
+                            jax_to_np(want_state))
+        for g, w in zip(got_narrow, want_narrow):
+            assert g.numpy().dtype == np.asarray(w).dtype
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+    def test_run_slot_not_found_flags_overflow(self):
+        """An INSERT_RUN whose position lies past the document: no
+        tie-break slot, state unchanged, overflow set (as JAX)."""
+        from fluidframework_tpu.mergetree.state import DocState as JaxDoc
+        from fluidframework_tpu_torch.mergetree.oppack import RUN_K
+        t = 2
+        cols = {f: np.zeros((1, t), np.int32) for f in JaxPackedOps._fields}
+        cols.update(kind=np.array([[1, 6]], np.int32),
+                    seq=np.array([[1, 9]], np.int32),
+                    ref_seq=np.array([[0, 1]], np.int32),
+                    new_len=np.array([[3, 5]], np.int32),
+                    pos1=np.array([[0, 7]], np.int32),
+                    op_id=np.array([[0, -1]], np.int32))
+        runs = {"length": np.zeros((1, t, RUN_K), np.int32),
+                "seq": np.zeros((1, t, RUN_K), np.int32),
+                "op_id": np.full((1, t, RUN_K), -1, np.int32)}
+        runs["length"][0, 1, :5] = 1
+        runs["seq"][0, 1, :5] = np.arange(5, 10)
+        state = fresh_state_np(32, 1, 1)
+        want = jax_to_np(kernel._scan_ops(
+            JaxDoc(**{f: jnp.asarray(v) for f, v in state.items()}),
+            jax_packed(cols), batched=True, runs=_jax_runs(runs)))
+        got = interop.to_numpy(tpa.apply_ops_fused(
+            interop.doc_state_from_numpy(state, "cpu"),
+            interop.packed_ops_from_numpy(cols, "cpu"),
+            runs=_port_runs(runs)))
+        assert_fields_equal(got, want)
+        assert got["overflow"][0] and got["count"][0] == 1
+
+    def test_variant_names_and_cpu_counts(self):
+        ops = interop.packed_ops_from_numpy(gen_traces(2, 3), "cpu")
+        state = make_state(32, 1, batch=2, device="cpu")
+        tpa.reset_launches()
+        out, narrow = tpa.apply_ops_fused(state, ops, extract=True)
+        assert tpa.apply_ops_fused.launches == 0  # no kernel on the CPU
+        assert narrow[0].dtype == torch.int16
+        assert [n.dtype for n in narrow[1:]] == [torch.int32] * 3
+        assert tpa.variant_name(None, False) == "plain"
+        assert tpa.variant_name(object(), True) == "runs_extract"
+        assert set(tpa.apply_ops_fused.variant_launches) == {
+            "plain", "runs", "extract", "runs_extract"}

@@ -1,8 +1,9 @@
-"""The golden file for the card (fluidframework_tpu_torch/testing/golden/
-fused_apply_golden.npz): regenerated here from the JAX package and required
-equal to the committed file, then replayed through the port on the CPU.
+"""The golden files for the card (fluidframework_tpu_torch/testing/golden/
+fused_apply_golden.npz and serve_megakernel_golden.npz): regenerated here
+from the JAX package and required equal to the committed files, then
+replayed through the port on the CPU.
 
-To rewrite the file after a deliberate change of its inputs:
+To rewrite both files after a deliberate change of their inputs:
     JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write
 """
 
@@ -31,14 +32,19 @@ from fluidframework_tpu_torch.mergetree.pallas_apply import (  # noqa: E402
     apply_ops_fused)
 from fluidframework_tpu_torch.server import pipeline  # noqa: E402
 from fluidframework_tpu_torch.testing import golden  # noqa: E402
+from fluidframework_tpu_torch.server import serve_step  # noqa: E402
+from fluidframework_tpu_torch.testing import serving  # noqa: E402
 from fluidframework_tpu_torch.testing.traces import gen_traces  # noqa: E402
 
 from test_kernel import build_kernel_ops, random_schedule  # noqa: E402
 from test_torch_fused_apply import (  # noqa: E402
     client_mode_streams, jax_to_np)
+from test_torch_serving import (  # noqa: E402
+    Fleet, jax_megakernel, port_megakernel)
 
 APPLY_CAPACITY, APPLY_ANNO, APPLY_STEPS = 100, 2, 60
 STEP_DOCS, STEP_OPS, STEP_CAPACITY, STEP_CLIENTS = 16, 32, 64, 4
+SERVE_SEED = 0   # SMALL_RING fleet; the golden ring is its second ring
 
 
 def _capacity_overflow_doc():
@@ -106,6 +112,34 @@ def build_golden():
     return sections
 
 
+def _np_dict(tup):
+    return {f: np.asarray(v) for f, v in zip(tup._fields, tup)}
+
+
+def build_serve_golden():
+    """The second ring of a SMALL_RING fleet (the first grows the
+    documents from empty through JAX), with the JAX package's
+    serve_megakernel_keep outputs, stats on."""
+    f = Fleet(SERVE_SEED)
+    first = f.stage()
+    f.advance(first, jax_megakernel(f.tstate, f.pool, f.lww, first.args))
+    ring = f.stage()
+    ts, pool, lww, flat16_k, msn_k, pre = jax_megakernel(
+        f.tstate, f.pool, f.lww, ring.args, stats=True)
+    sections = {"tstate_in": _np_dict(f.tstate), "pool_in": _np_dict(f.pool),
+                "ring": serving.ring_to_arrays(ring.args),
+                "tstate_out": _np_dict(ts), "pool_out": _np_dict(pool),
+                "wire": {"flat16_k": flat16_k, "msn_k": msn_k},
+                "expect": {"overflow": np.concatenate(
+                    ring.expected_overflow)}}
+    for i, (s_in, s_out) in enumerate(zip(f.lww, lww)):
+        sections[f"lww_in_{i}"] = _np_dict(s_in)
+        sections[f"lww_out_{i}"] = _np_dict(s_out)
+    for g, view in enumerate(pre):
+        sections[f"pre_{g}"] = _np_dict(view)
+    return sections
+
+
 def _assert_sections_equal(got, want):
     assert sorted(got) == sorted(want)
     for section in want:
@@ -120,6 +154,42 @@ def _assert_sections_equal(got, want):
 class TestGolden:
     def test_committed_file_matches_jax(self):
         _assert_sections_equal(golden.load(), build_golden())
+
+    def test_committed_serve_file_matches_jax(self):
+        _assert_sections_equal(golden.load(golden.SERVE_GOLDEN_PATH),
+                               build_serve_golden())
+
+    def test_serve_golden_covers_the_hard_cases(self):
+        g = golden.load(golden.SERVE_GOLDEN_PATH)
+        ring = serving.ring_from_arrays(g["ring"])
+        assert len(ring.page_ids) >= 2                       # page groups
+        assert any(r is not None for r in ring.runs_xs)      # INSERT_RUN
+        assert g["expect"]["overflow"].any()                 # mispredicted
+        assert ring.lww_xs and (ring.lww_xs[0][:, 0] > 0).any()
+        b, t = ring.ticket_xs.shape[2:]
+        flags = g["wire"]["flat16_k"][:, 2 * b * t:3 * b * t]
+        assert (flags & 1).any()                             # nacks
+
+    def test_port_megakernel_matches_serve_golden(self):
+        from fluidframework_tpu_torch.mergetree.state import DocState
+        from fluidframework_tpu_torch.server.lww_kernel import LwwState
+        from fluidframework_tpu_torch.server.ticket_kernel import (
+            TicketState)
+        g = golden.load(golden.SERVE_GOLDEN_PATH)
+        n_lww = sum(1 for k in g if k.startswith("lww_in_"))
+        got = port_megakernel(
+            TicketState(**g["tstate_in"]), DocState(**g["pool_in"]),
+            [LwwState(**g[f"lww_in_{i}"]) for i in range(n_lww)],
+            serving.ring_from_arrays(g["ring"]), stats=True)
+        ts, pool, lww, flat16_k, msn_k, pre = got
+        out = {"tstate_out": _np_dict(ts), "pool_out": _np_dict(pool),
+               "wire": {"flat16_k": flat16_k, "msn_k": msn_k}}
+        out.update({f"lww_out_{i}": _np_dict(s) for i, s in enumerate(lww)})
+        out.update({f"pre_{i}": _np_dict(v) for i, v in enumerate(pre)})
+        _assert_sections_equal(out, {k: g[k] for k in out})
+        assert serve_step.flat16_layout(
+            *ring_shape(g), paged_scalars=True,
+            stats=True)["total"][1] == flat16_k.shape[1]
 
     def test_golden_covers_the_hard_cases(self):
         g = golden.load()
@@ -156,11 +226,20 @@ class TestGolden:
                                "step_total")})
 
 
+def ring_shape(g):
+    """(B, T, merge lanes, LWW lanes) of a golden ring."""
+    ring = serving.ring_from_arrays(g["ring"])
+    b, t = ring.ticket_xs.shape[2:]
+    return (b, t, [p.shape[0] for p in ring.page_ids],
+            [x.shape[2] for x in ring.lww_xs])
+
+
 if __name__ == "__main__":
     if "--write" not in sys.argv:
         sys.exit("usage: python tests/test_torch_golden.py --write")
     from fluidframework_tpu.core.platform import force_host_platform
     force_host_platform(1)
     golden.save(build_golden())
-    print(f"wrote {golden.GOLDEN_PATH} "
-          f"({golden.GOLDEN_PATH.stat().st_size} bytes)")
+    golden.save(build_serve_golden(), golden.SERVE_GOLDEN_PATH)
+    for path in (golden.GOLDEN_PATH, golden.SERVE_GOLDEN_PATH):
+        print(f"wrote {path} ({path.stat().st_size} bytes)")

@@ -15,6 +15,14 @@ and times it with CUDA events:
     back of a 10,000-document partition (testing/serving.py FULL_RING:
     8 windows x 16 ticket steps, ~214k merge ops per ring in three page
     groups, 1,000 LWW lanes), the second one timed (phase 8).
+The fused apply has two paths (one warp or one block per document) that
+mergetree/pallas_apply.launch_geometry chooses from the shape: the main
+paths must take the path the rule names, both paths are timed at the main
+paths' shapes (the rule's may be at most PATH_MARGIN slower), and phase 9
+holds both paths in all four variants bit-exact against the plain version
+on fuzzed tables and op streams. Each fused-apply row's bound counts the
+work of this run's data (the rows in use, live_slots) and, beside it,
+every slot of every table.
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -24,6 +32,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -42,10 +51,27 @@ RING_STAGES = ("gather", "ticket", "admit", "apply_extract",
                "apply_runs_extract", "lww", "pack", "scatter")
 RING_SPEC = "FULL_RING"   # testing/serving.py fleet of the timed rings
 VARIANT_BATCH = 2048      # documents of phase 6's first variant batch
-# H100 SXM published peaks: HBM bytes/s, and the
-# non-tensor 32-bit rate used for the integer lane operations.
+# H100 SXM peaks: HBM bytes/s (data sheet), and the integer rate for the
+# lane operations: 64 INT32 lanes per SM per clock (NVIDIA Hopper
+# architecture white paper, SM table), 132 SMs, 1.98 GHz boost clock.
+# Each row also gives its bound at PEAK_FP32_OPS_PER_S, the data sheet's
+# 67 TFLOP/s (an FMA counted as two), four times the integer rate.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+PEAK_OPS_PER_S = 64 * 132 * 1.98e9
+PEAK_FP32_OPS_PER_S = 67e12
+# Phase 9: capacities fuzzed on each path (the warp path takes C <= 512),
+# (K, A) pairs, seeds and documents (a batch that leaves the last block of
+# a multi-document warp launch partly empty).
+FUZZ_CAPACITIES = (1, 31, 32, 33, 63, 64, 100, 255, 256, 257, 512, 1000,
+                   1024, 1100)
+FUZZ_SLOTS = ((3, 1), (3, 4))
+FUZZ_SEEDS = (0, 1)
+FUZZ_DOCS, FUZZ_OPS = 1059, 40
+PATHS = ("warp", "block")
+# At each main-path shape the rule's path may be at most this much slower
+# on the device than the other path (timing noise; the rule's table is
+# calibrate_fused_apply.py's).
+PATH_MARGIN = 0.10
 
 
 class SmokeFailure(RuntimeError):
@@ -104,15 +130,92 @@ def kernel_device_ms(fn, reps: int) -> dict:
 
 
 def one_kernel_ms(fn, reps: int, kernel: str):
-    """kernel_device_ms of the kernels whose name contains `kernel`; None
-    (not measured) when the trace holds no such kernel."""
-    got = [ms for name, (ms, _n) in kernel_device_ms(fn, reps).items()
-           if kernel in name]
-    return sum(got) if got else None
+    """Device milliseconds per launch of the kernels whose name contains
+    `kernel` (fn launches one), from kernel_device_ms; a trace that holds
+    no such kernel is taken once more, then None (not measured)."""
+    for _ in range(2):
+        got = [(ms, n) for name, (ms, n) in kernel_device_ms(fn, reps).items()
+               if kernel in name]
+        if got:
+            return sum(ms for ms, _n in got) / sum(n for _ms, n in got)
+    return None
+
+
+def path_times(state, ops, runs, extract: bool, reps: int) -> dict:
+    """{path: {"device_ms", "ms"}} of one fused-apply launch on each path,
+    forced whatever the rule says: the path's kernel device time
+    (torch.profiler) and the mean of back-to-back calls (CUDA events)."""
+    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    out = {}
+    for p in PATHS:
+        geo = pa._forced_geometry(p, state.capacity, state.overlap_slots,
+                                  state.anno_slots)
+
+        def run():
+            return pa._launch(state, ops, runs, extract, geo)
+        out[p] = {"device_ms": one_kernel_ms(run, reps,
+                                             f"fused_apply_kernel_{p}"),
+                  "ms": ms_of(run, reps)}
+    return out
+
+
+def check_paths(what: str, row: dict, card: str) -> None:
+    """Print both paths' times at a main-path shape, and fail unless the
+    rule's path is measured and at most PATH_MARGIN slower on the device
+    than the other."""
+    times = "; ".join(f"{p} {fmt_ms(t['device_ms'])} device, "
+                      f"{t['ms']:.4f} ms back to back"
+                      for p, t in row["paths"].items())
+    print(f"  fused_apply paths at {what}: {times}; the rule takes "
+          f"{row['path']}; card {card}", flush=True)
+    dev_ms = {p: t["device_ms"] for p, t in row["paths"].items()}
+    require(None not in dev_ms.values(),
+            f"fused_apply paths at {what}: device time not measured")
+    other = min(ms for p, ms in dev_ms.items() if p != row["path"])
+    require(dev_ms[row["path"]] <= other * (1 + PATH_MARGIN),
+            f"fused_apply at {what}: the rule's {row['path']} path "
+            f"({dev_ms[row['path']]:.4f} ms) is more than {PATH_MARGIN:.0%} "
+            f"slower than the other ({other:.4f} ms)")
 
 
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def ptxas_report(text: str) -> dict:
+    """{kernel: {registers, stack, spill_stores, spill_loads}} from the
+    nvcc -Xptxas -v log, kernels named readably (fused_apply_kernel_warp
+    <kR,runs,extract>, fused_apply_kernel_block<runs,extract>)."""
+    out, entry, cur = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            out.setdefault(cur, {}).update(
+                stack=int(m[1]), spill_stores=int(m[2]),
+                spill_loads=int(m[3]))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.setdefault(entry, {})["registers"] = int(m[1])
+    pretty = {}
+    for name, rep in out.items():
+        if "registers" not in rep:  # a device function, not a kernel
+            continue
+        m = re.search(r"([a-z_]*kernel[a-z_]*)", name)
+        args = re.findall(r"L[ib](\d+)E", name)
+        key = (m.group(1) if m else name) + \
+            (f"<{','.join(args)}>" if args else "")
+        pretty[key] = rep
+    return pretty
 
 
 def max_abs_err(a, b) -> int:
@@ -178,29 +281,60 @@ def random_tables(seed: int, batch: int, capacity: int, device):
     return interop.doc_state_from_numpy(st, device)
 
 
-def fused_apply_lane_ops(kinds: np.ndarray, capacity: int, k: int,
-                         a: int) -> float:
+def fused_apply_lane_ops(kinds: np.ndarray, slots, k: int, a: int) -> float:
     """Integer lane operations the fused apply's formulation needs for the
-    [B, T] op kinds (every phase touches every slot of the document):
-    visibility + scan (8 + K per slot), boundary test (4), shift of all
-    planes (2 per plane), insert stop test (8) and fill (P), remove
-    (10 + 3K), annotate (4 + A), ack (6), and for an INSERT_RUN a boundary
-    test, a visibility pass, the stop test, a shift of every plane, the
-    RUN_K-term member selects of length/seq/op_id (2 per term), the
-    live/dead masks (4) and the fill (P). Counted from the kinds actually
-    in the stream."""
+    [B, T] op kinds when op (b, t) touches slots[b, t] slots of its
+    document (a scalar: the same for every op): per slot, visibility +
+    scan (8 + K), boundary test (4), shift of all planes (2 per plane),
+    insert stop test (8) and fill (P), remove (10 + 3K), annotate (4 + A),
+    ack (6), and for an INSERT_RUN a boundary test, a visibility pass, the
+    stop test, a shift of every plane, the RUN_K-term member selects of
+    length/seq/op_id (2 per term), the live/dead masks (4) and the fill
+    (P). Counted from the kinds actually in the stream."""
     planes = 8 + k + a
     vis = 8 + k
     boundary = vis + 4 + 2 * planes
-    n = {kind: int((kinds == kind).sum()) for kind in range(7)}
-    per_slot = (
-        n[1] * (boundary + vis + 8 + 2 * planes + planes)       # insert
-        + n[2] * (2 * boundary + vis + 10 + 3 * k)              # remove
-        + n[3] * (2 * boundary + vis + 4 + a)                   # annotate
-        + (n[4] + n[5]) * 6                                     # acks
-        + n[6] * (boundary + vis + 8 + 2 * planes + 3 * 2 * RUN_K + 4
-                  + planes))                                    # runs
-    return float(per_slot) * capacity
+    per_slot = np.zeros(7, np.int64)
+    per_slot[1] = boundary + vis + 8 + 2 * planes + planes      # insert
+    per_slot[2] = 2 * boundary + vis + 10 + 3 * k               # remove
+    per_slot[3] = 2 * boundary + vis + 4 + a                    # annotate
+    per_slot[4] = per_slot[5] = 6                               # acks
+    per_slot[6] = boundary + vis + 8 + 2 * planes + 3 * 2 * RUN_K + 4 \
+        + planes                                                # runs
+    return float((per_slot[kinds] * np.broadcast_to(
+        np.asarray(slots, np.int64), kinds.shape)).sum())
+
+
+def live_slots(state, ops, runs=None) -> np.ndarray:
+    """[B, T]: the slots op t of document b has to touch, from the plain
+    version's count before it: the rows in use and those the op may add
+    (count + 2, count + RUN_K + 1 for a run, at most C) when the padding
+    past count holds one value per plane, which no op moves or changes
+    but an ack (an ack that reaches the padding is counted at these rows
+    too); else all C slots. The work of the function on this run's data,
+    where fused_apply_lane_ops(kinds, C, ...) counts every slot."""
+    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.mergetree.oppack import OpKind
+    k, a = state.overlap_slots, state.anno_slots
+    c = state.capacity
+    st = pa._to_planes(state)
+    fields, cols = pa.op_cols(ops, runs)
+    lane = torch.arange(c, device=state.length.device)
+    out = []
+    for t in range(ops.steps):
+        count = st["count"]
+        pad = lane >= count
+        at = count.clamp(0, c - 1).long()
+        uniform = (count >= 0) & (count <= c)
+        for name in pa._plane_names(k, a):
+            first = st[name].gather(1, at)
+            uniform &= ((st[name] == first) | ~pad).all(1, keepdim=True)
+        op = {f: cols[f][:, t:t + 1] for f in fields}
+        need = 2 if runs is None else torch.where(
+            op["kind"] == OpKind.INSERT_RUN, RUN_K + 1, 2)
+        out.append(torch.where(uniform, (count + need).clamp(max=c), c))
+        st = pa._apply_one_batched(st, op, k, a, with_runs=runs is not None)
+    return torch.cat(out, 1).cpu().numpy()
 
 
 def fused_apply_bytes(batch: int, capacity: int, steps: int, k: int, a: int,
@@ -237,8 +371,8 @@ def assert_trees_equal(got, want, what: str) -> None:
 
 
 def long_table(dev, batch: int, capacity: int, rows: int):
-    """`rows` one-char segments at seq 0 per document, so every shift
-    moves lanes across the 1,024-thread chunk boundary."""
+    """`rows` one-char segments at seq 0 per document (phase 6: so that
+    every shift moves lanes across the 1,024-thread chunk boundary)."""
     from fluidframework_tpu_torch import interop
     from fluidframework_tpu_torch.mergetree.state import make_state
     st = interop.to_numpy(make_state(capacity, A_SLOTS, batch=batch,
@@ -309,10 +443,19 @@ def main() -> int:
     print(f"setup: kernel build {time.perf_counter() - t0:.2f} s "
           f"({build.source_hash()})", flush=True)
     ptxas = build.BUILD_ROOT / build.source_hash() / "ptxas.log"
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line or "rc=" in line:
-                print(f"  ptxas: {line.strip()}")
+    require(ptxas.exists(), f"no ptxas report beside the library ({ptxas})")
+    report = ptxas_report(ptxas.read_text())
+    for kern, r in sorted(report.items()):
+        print(f"  ptxas: {kern}: {r.get('registers')} registers, "
+              f"{r.get('stack')} bytes stack, {r.get('spill_stores')} / "
+              f"{r.get('spill_loads')} bytes spill stores / loads")
+    apply_kernels = {k: r for k, r in report.items() if "fused_apply" in k}
+    require(len(apply_kernels) == 24,
+            f"expected 24 fused apply kernels, ptxas reports "
+            f"{sorted(apply_kernels)}")
+    spilled = sorted(k for k, r in apply_kernels.items()
+                     if r.get("stack") or r.get("spill_stores")
+                     or r.get("spill_loads"))  # refused after the timings
     x = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
     st_out = kernels.selftest(x)
     torch.cuda.synchronize()
@@ -394,6 +537,8 @@ def main() -> int:
         got = {k: fn.launches for k, fn in wrappers.items()}
         got.update({f"fused_apply[{v}]": n for v, n in
                     pallas_apply.apply_ops_fused.variant_launches.items()})
+        got.update({f"fused_apply<{p}>": n for p, n in
+                    pallas_apply.apply_ops_fused.path_launches.items()})
         return got
 
     reset_counts()
@@ -402,6 +547,10 @@ def main() -> int:
     launches = read_counts()
     require(launches["fused_apply"] > 0 and launches["summary_len"] > 0,
             f"main path did not launch every kernel: {launches}")
+    geo = pallas_apply.launch_geometry(DOCS, CAPACITY, 3, ANNO)
+    require(launches[f"fused_apply<{geo.path}>"] == launches["fused_apply"],
+            f"the north-star apply did not take the {geo.path} path that "
+            f"launch_geometry names: {launches}")
     require(not bool(mout.overflow.any()), "north-star step overflowed")
     require(total.shape == (DOCS,) and total.dtype == torch.int32
             and bool((total >= 0).all()), "total_len shape/dtype/range")
@@ -413,8 +562,8 @@ def main() -> int:
     assert_tuple_equal(ticketed, p_ticketed, "north-star ticketed vs plain")
     require(bool((total == p_total).all()), "north-star total_len vs plain")
     print(f"phase 4: full_step {DOCS}x{OPS} C={CAPACITY} through the "
-          f"kernels, launches {launches}, equal to the plain composition",
-          flush=True)
+          f"kernels ({geo}), launches {launches}, equal to the plain "
+          "composition", flush=True)
 
     # warm timing: one warm-up, then p50 of TRIALS from fresh state
     pipeline.full_step(*fresh(), raw, ops)
@@ -496,24 +645,34 @@ def main() -> int:
              device_ms=one_kernel_ms(
                  lambda: pallas_apply.apply_ops_fused(mstate0, admitted), 5,
                  "fused_apply_kernel"),
+             path=geo.path,
+             paths=path_times(mstate0, admitted, None, False, 5),
              plain_ms=ms_of(lambda: pallas_apply.apply_ops_fused_plain(
                  mstate0, admitted), 1),
              library_ms=None,
              bytes=fused_apply_bytes(DOCS, CAPACITY, OPS, 3, ANNO, False,
                                      False),
              ops=fused_apply_lane_ops(admitted.kind.cpu().numpy(),
-                                      CAPACITY, 3, ANNO)),
+                                      live_slots(mstate0, admitted), 3,
+                                      ANNO),
+             ops_every_slot=fused_apply_lane_ops(
+                 admitted.kind.cpu().numpy(), CAPACITY, 3, ANNO)),
     ]
+    check_paths(f"north-star [{DOCS} x {CAPACITY}] x T {OPS}", rows[-1],
+                card)
     del mstate0, mout, p_mout, tout, p_tout, ticketed, p_ticketed, admitted
 
     rows += serving_phases(dev, card)
+    fuzz_phase(dev)
 
+    require(not spilled, f"fused apply kernels use stack or spill: "
+            f"{spilled}")
     out = []
     for r in rows:
         b_ms = r["bytes"] / PEAK_BYTES_PER_S * 1e3
         o_ms = r["ops"] / PEAK_OPS_PER_S * 1e3
         require(r["err"] == 0, f"{r['name']}: max_abs_err {r['err']}")
-        out.append({
+        row = {
             "name": r["name"], "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "variant": r["variant"],
             "launches": r["launches"], "on_main_path": r["on_main_path"],
@@ -521,7 +680,15 @@ def main() -> int:
             "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"]}
+        if "ops_every_slot" in r:  # the fused apply: both work counts
+            every = r["ops_every_slot"]
+            row.update(
+                bound_ms_every_slot=max(b_ms, every / PEAK_OPS_PER_S * 1e3),
+                bound_ms_every_slot_fp32_peak=max(
+                    b_ms, every / PEAK_FP32_OPS_PER_S * 1e3),
+                path=r["path"], paths=r["paths"])
+        out.append(row)
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -619,7 +786,15 @@ def serving_phases(dev, card: str) -> list:
                                           stats=True)
         torch.cuda.synchronize()
         counts = dict(wrappers[0].variant_launches)
+        paths = dict(wrappers[0].path_launches)
         assert_trees_equal(got, want, "ring vs the plain composition")
+        expect = dict.fromkeys(paths, 0)
+        for gi, view in enumerate(got[5]):
+            b, c = view.length.shape
+            expect[pa.launch_geometry(b, c, K_SLOTS, A_SLOTS).path] += \
+                args.merge_xs[gi].shape[0]
+        require(paths == expect, f"ring path launches {paths}, the rule "
+                f"names {expect}")
         b, t = spec.docs, spec.steps
         layout = serve_step.flat16_layout(b, t, staged.merge_lanes,
                                           staged.lww_lanes, True, True)
@@ -639,7 +814,8 @@ def serving_phases(dev, card: str) -> list:
     r1 = run_ring(ts0, lww0)
     print(f"phase 8: ring 1 (from empty) {r1[0].counts}, groups "
           f"{[tuple(p.shape) for p in r1[0].args.page_ids]}, staged in "
-          f"{r1[5]:.2f} s, equal to the plain composition", flush=True)
+          f"{r1[5]:.2f} s, equal to the plain composition, each group on "
+          "its rule's path", flush=True)
     ts1, lww1 = r1[3][0], r1[3][2]
     staged, args, pool_pre, got, counts, stage_s = run_ring(ts1, lww1)
     require(counts["extract"] > 0 and counts["runs_extract"] > 0,
@@ -648,7 +824,8 @@ def serving_phases(dev, card: str) -> list:
           f"{[tuple(p.shape) for p in staged.args.page_ids]} x Tm "
           f"{[m.shape[-1] for m in staged.args.merge_xs]}, pages in use "
           f"{store.pages_in_use}, staged in {stage_s:.2f} s; launches "
-          f"{counts}; equal to the plain composition; overflow only on "
+          f"{counts}, paths {dict(pa.apply_ops_fused.path_launches)}; equal "
+          "to the plain composition; overflow only on "
           f"the {staged.counts['mispredicted_docs']} mispredicted-run "
           "lanes", flush=True)
 
@@ -712,20 +889,26 @@ def serving_phases(dev, card: str) -> list:
             device_ms=one_kernel_ms(lambda: pa.apply_ops_fused(
                 view, ops2, runs=runs, extract=True), 20,
                 "fused_apply_kernel"),
+            path=pa.launch_geometry(b, c, K_SLOTS, A_SLOTS).path,
+            paths=path_times(view, ops2, runs, True, 20),
             plain_ms=ms_of(lambda: pa.apply_ops_fused_plain(
                 view, ops2, runs=runs, extract=True), 1),
             library_ms=None, cells=b * c,
             bytes=fused_apply_bytes(b, c, ops2.steps, K_SLOTS, A_SLOTS,
                                     runs is not None, True),
-            ops=fused_apply_lane_ops(ops2.kind.cpu().numpy(), c, K_SLOTS,
-                                     A_SLOTS))
+            ops=fused_apply_lane_ops(ops2.kind.cpu().numpy(),
+                                     live_slots(view, ops2, runs), K_SLOTS,
+                                     A_SLOTS),
+            ops_every_slot=fused_apply_lane_ops(ops2.kind.cpu().numpy(), c,
+                                                K_SLOTS, A_SLOTS))
         bound = max(r["bytes"] / PEAK_BYTES_PER_S,
                     r["ops"] / PEAK_OPS_PER_S) * 1e3
         print(f"  fused_apply[{variant}] window 0 of group {gi} "
               f"[{b} x {c}] x Tm {ops2.steps}: {r['ms']:.4f} ms back to "
               f"back, {fmt_ms(r['device_ms'])} kernel device time (bound "
-              f"{bound:.4f} ms), plain {r['plain_ms']:.3f} ms, "
-              f"max_abs_err {r['err']}", flush=True)
+              f"{bound:.4f} ms over the rows in use), plain "
+              f"{r['plain_ms']:.3f} ms, max_abs_err {r['err']}", flush=True)
+        check_paths(f"group {gi}", r, card)
         require(r["err"] == 0, f"group {gi}: kernel vs plain differ")
         per_group.append(r)
     # the JSON row of a variant is its largest group
@@ -735,6 +918,61 @@ def serving_phases(dev, card: str) -> list:
         require(bool(mine), f"no page group runs the {variant} variant")
         rows.append(max(mine, key=lambda r: r["cells"]))
     return rows
+
+
+def fuzz_phase(dev) -> None:
+    """Phase 9: both fused-apply paths, in all four variants, bit-exact
+    against the plain version at every capacity of FUZZ_CAPACITIES that
+    the path takes: fuzz_tables (empty documents and near-full ones, so
+    every capacity gate trips) under gen_fuzz_traces (every op kind, four
+    clients, pending local ops and their acks, stale perspectives,
+    positions past the end, INSERT_RUN steps with dead members, whose
+    8-row shifts and fills straddle the rows of the warp path)."""
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.testing.traces import (fuzz_tables,
+                                                         gen_fuzz_traces)
+    t0 = time.perf_counter()
+    checked = dict.fromkeys(PATHS, 0)
+    flagged = 0
+    for c in FUZZ_CAPACITIES:
+        for k, a in FUZZ_SLOTS:
+            for seed in FUZZ_SEEDS:
+                tables = fuzz_tables(FUZZ_DOCS, c, k, a, seed=seed)
+                state = interop.doc_state_from_numpy(tables, dev)
+                length = tables["count"] * 2
+                cols = gen_fuzz_traces(FUZZ_DOCS, FUZZ_OPS, seed=seed,
+                                       length=length)
+                rcols, rruns = gen_fuzz_traces(FUZZ_DOCS, FUZZ_OPS,
+                                               seed=seed + 100, runs=True,
+                                               length=length)
+                cases = []
+                for ops, runs in (
+                        (interop.packed_ops_from_numpy(cols, dev), None),
+                        (interop.packed_ops_from_numpy(rcols, dev),
+                         interop.run_cols_from_numpy(rruns, dev))):
+                    want = pa.apply_ops_fused_plain(state, ops, runs=runs)
+                    flagged += int(want.overflow.sum())
+                    cases.append((ops, runs, want))
+                for path in PATHS:
+                    if path == "warp" and c > pa.WARP_MAX_CAPACITY:
+                        continue
+                    geo = pa._forced_geometry(path, c, k, a)
+                    for ops, runs, want in cases:
+                        for ex in (False, True):
+                            got = pa._launch(state, ops, runs, ex, geo)
+                            torch.cuda.synchronize()
+                            assert_trees_equal(
+                                got, (want, pa.narrow_of(want)) if ex
+                                else want,
+                                f"fuzz C={c} K={k} A={a} seed={seed} {path} "
+                                f"[{pa.variant_name(runs, ex)}]")
+                            checked[path] += 1
+    print(f"phase 9: fuzz bit-exact on both paths, {checked} launches "
+          f"(4 variants x capacities {FUZZ_CAPACITIES} x (K, A) "
+          f"{FUZZ_SLOTS} x seeds {FUZZ_SEEDS}, {FUZZ_DOCS} docs x "
+          f"{FUZZ_OPS} ops; {flagged} overflowed documents in the plain "
+          f"results), {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

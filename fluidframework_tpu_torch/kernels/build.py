@@ -120,9 +120,11 @@ def library() -> ctypes.CDLL:
         lib.fluid_summary_len.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32,
                                           vp]
         lib.fluid_summary_len.restype = i32
-        # ptrs, batch, capacity, K, A, steps, with_runs, extract, stream
+        # ptrs, batch, capacity, K, A, steps, with_runs, extract, path,
+        # docs_per_block, threads, smem_bytes, stream
         lib.fluid_fused_apply.argtypes = [ctypes.POINTER(vp), i32, i32, i32,
-                                          i32, i32, i32, i32, vp]
+                                          i32, i32, i32, i32, i32, i32, i32,
+                                          ctypes.c_longlong, vp]
         lib.fluid_fused_apply.restype = i32
         _LIB = lib
     return _LIB

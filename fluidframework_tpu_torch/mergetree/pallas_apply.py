@@ -3,8 +3,9 @@ table in one pass.
 
 Counterpart of fluidframework_tpu's mergetree/pallas_apply.py.
 `apply_ops_fused` launches the CUDA kernel (kernels/csrc/fused_apply.cu)
-for CUDA tensors: one block per document with its table resident in shared
-memory for all T ops. `apply_ops_fused_plain` is the plain PyTorch version,
+for CUDA tensors, each document's table resident in shared memory for all
+T ops, on one of two paths that `launch_geometry` chooses from the shape:
+one warp per document or one block per document. `apply_ops_fused_plain` is the plain PyTorch version,
 a transcription of `_apply_one_batched` and its phases over [B, C] planes
 stepping over T; the wrapper uses it only for CPU tensors. Neither mutates
 its input.
@@ -18,7 +19,7 @@ min_seq, seq) that the serving megakernel reads).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,13 +28,29 @@ from .constants import DEV_NO_REMOVE, DEV_UNASSIGNED
 from .oppack import RUN_K, OpKind, PackedOps, RunCols
 from .state import DocState
 
-# Shared memory a block may use on Hopper (227 KB), and the kernel's layout:
-# (8 + K + A) state planes plus the cum/vis planes per slot, and a fixed
-# 128-int scratch for reductions (fused_apply.cu smem_bytes).
+# Shared memory a block may use on Hopper (227 KB), and the block path's
+# layout: (8 + K + A) state planes plus the cum/vis planes per slot, and a
+# fixed 128-int scratch for reductions (fused_apply.cu block_smem_bytes).
 SMEM_LIMIT_BYTES = 232_448
 _SMEM_SCRATCH_BYTES = 128 * 4
 _MAX_OVERLAP_SLOTS = 8
 _MAX_PLANES = 32
+_MAX_BLOCK_THREADS = 1024
+# The warp path (fused_apply.cu kMaxRows, kMaxDocsPerBlock): C <= 16 rows
+# of 32 slots, at most 8 documents (warps) per block.
+WARP_MAX_CAPACITY = 512
+MAX_DOCS_PER_BLOCK = 8
+# The warp path is taken when the launch has at least 512 documents, about
+# four per SM. With fewer, one warp per document leaves the SMs short of
+# warps to hide each op's latency, and C threads per document finish
+# sooner: on the H100 the block path is faster at the serving ring's
+# 128 x C=512 group (calibrate_fused_apply.py, PERF.md §6).
+WARP_MIN_DOCS = 512
+# Documents per block on the warp path. On the H100 one per block is within
+# 3% of the fastest of 1, 2, 4 and 8 at every main-path shape, and the
+# fastest at C = 512 (calibrate_fused_apply.py, PERF.md §6).
+WARP_DOCS_PER_BLOCK = 1
+_PATHS = {"block": 0, "warp": 1}  # fused_apply.cu enum Path
 
 _SEG_PLANES = ("length", "ins_seq", "ins_client", "local_seq", "rem_seq",
                "rem_local_seq", "origin_op", "origin_off")
@@ -50,6 +67,58 @@ def max_fused_capacity(k_slots: int, a_slots: int) -> int:
             f"(got K={k_slots}, A={a_slots})")
     per_slot = (8 + k_slots + a_slots + 2) * 4
     return (SMEM_LIMIT_BYTES - _SMEM_SCRATCH_BYTES) // per_slot
+
+
+class Geometry(NamedTuple):
+    """How one fused-apply launch is laid out on the card."""
+    path: str            # "warp" (one warp per document) or "block"
+    docs_per_block: int
+    threads: int         # per block
+    smem_bytes: int      # dynamic shared memory per block
+
+
+def _block_geometry(capacity: int, k_slots: int, a_slots: int) -> Geometry:
+    threads = min(-(-capacity // 32) * 32, _MAX_BLOCK_THREADS)
+    smem = (8 + k_slots + a_slots + 2) * capacity * 4 + _SMEM_SCRATCH_BYTES
+    return Geometry("block", 1, threads, smem)
+
+
+def _warp_geometry(capacity: int, k_slots: int, a_slots: int,
+                   docs_per_block: int = WARP_DOCS_PER_BLOCK) -> Geometry:
+    if capacity > WARP_MAX_CAPACITY:
+        raise ValueError(f"the warp path takes C <= {WARP_MAX_CAPACITY} "
+                         f"(got C={capacity})")
+    doc = (8 + k_slots + a_slots) * -(-capacity // 32) * 32 * 4
+    docs = min(docs_per_block, SMEM_LIMIT_BYTES // doc)
+    return Geometry("warp", docs, 32 * docs, docs * doc)
+
+
+def launch_geometry(batch: int, capacity: int, k_slots: int,
+                    a_slots: int) -> Geometry:
+    """The path, documents per block, threads and shared memory of a
+    fused-apply launch over B documents of capacity C: one fixed rule,
+    measured on the H100 (PERF.md §6): the warp path for C <= 512 at
+    B >= WARP_MIN_DOCS; else the block path, which takes every C up to
+    max_fused_capacity."""
+    limit = max_fused_capacity(k_slots, a_slots)
+    if not 1 <= capacity <= limit:
+        raise ValueError(f"capacity {capacity} is outside the fused apply's "
+                         f"range 1..{limit} (K={k_slots}, A={a_slots})")
+    if capacity <= WARP_MAX_CAPACITY and batch >= WARP_MIN_DOCS:
+        return _warp_geometry(capacity, k_slots, a_slots)
+    return _block_geometry(capacity, k_slots, a_slots)
+
+
+def _forced_geometry(path: str, capacity: int, k_slots: int,
+                     a_slots: int) -> Geometry:
+    """The geometry of `path` ("warp" or "block") whatever the rule says,
+    so that a conformance run can hold both paths against the plain
+    version (with _launch)."""
+    if path == "warp":
+        return _warp_geometry(capacity, k_slots, a_slots)
+    if path == "block":
+        return _block_geometry(capacity, k_slots, a_slots)
+    raise ValueError(f"unknown fused apply path {path!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -423,19 +492,31 @@ def apply_ops_fused(state: DocState, ops: PackedOps,
     """Apply [B, T] op streams to B documents; returns a new DocState, or
     (DocState, narrow) with extract=True (narrow_of).
 
-    For CUDA tensors this launches the CUDA kernel, and a capacity above
-    max_fused_capacity raises ValueError; for CPU tensors it runs the plain
-    version under the same capacity limit."""
-    limit = max_fused_capacity(state.overlap_slots, state.anno_slots)
+    For CUDA tensors this launches the CUDA kernel on the path
+    launch_geometry chooses, and a capacity above max_fused_capacity
+    raises ValueError; for CPU tensors it runs the plain version under the
+    same capacity limit."""
+    k, a = state.overlap_slots, state.anno_slots
+    limit = max_fused_capacity(k, a)
     if state.capacity > limit:
         raise ValueError(
             f"capacity {state.capacity} exceeds the fused apply's "
             f"shared-memory limit max_fused_capacity={limit} "
-            f"(K={state.overlap_slots}, A={state.anno_slots})")
+            f"(K={k}, A={a})")
     if state.length.device.type == "cpu":
         return apply_ops_fused_plain(state, ops, runs, extract)
+    b, c = state.length.shape
+    return _launch(state, ops, runs, extract, launch_geometry(b, c, k, a))
+
+
+def _launch(state: DocState, ops: PackedOps, runs: Optional[RunCols],
+            extract: bool, geo: Geometry):
+    """One kernel launch over CUDA tensors with the geometry `geo`, which
+    the kernel refuses unless it matches its own formulas; counted as
+    apply_ops_fused's launches."""
     _check_launchable(state, ops, runs)
     b, c = state.length.shape
+    k, a = state.overlap_slots, state.anno_slots
     dev = state.length.device
     out = DocState(*(torch.empty_like(t) for t in state))
     narrow = (torch.empty(b, dtype=torch.int16, device=dev),
@@ -448,18 +529,20 @@ def apply_ops_fused(state: DocState, ops: PackedOps,
     lib = build.library()
     apply_ops_fused.launches += 1
     apply_ops_fused.variant_launches[variant_name(runs, extract)] += 1
+    apply_ops_fused.path_launches[geo.path] += 1
     build.check(lib.fluid_fused_apply(
-        arr, b, c, state.overlap_slots, state.anno_slots, ops.steps,
-        int(runs is not None), int(extract),
+        arr, b, c, k, a, ops.steps, int(runs is not None), int(extract),
+        _PATHS[geo.path], geo.docs_per_block, geo.threads, geo.smem_bytes,
         ctypes.c_void_p(build.stream_handle())), "apply_ops_fused")
     return (out, narrow) if extract else out
 
 
 def reset_launches() -> None:
-    """Zero the wrapper's launch counts (total and per variant)."""
+    """Zero the wrapper's launch counts (total, per variant, per path)."""
     apply_ops_fused.launches = 0
     apply_ops_fused.variant_launches = dict.fromkeys(
         ("plain", "runs", "extract", "runs_extract"), 0)
+    apply_ops_fused.path_launches = dict.fromkeys(_PATHS, 0)
 
 
 reset_launches()

@@ -113,3 +113,131 @@ def gen_run_traces(n_docs: int, n_ops: int, seed: int = 0,
                                      np.where(is_ins, ins_len, -(e - pr)))
         seq = step_seq
     return cols, runs
+
+
+def gen_fuzz_traces(n_docs: int, n_ops: int, seed: int = 0,
+                    runs: bool = False, base_seq: int = 8,
+                    length: int = 64):
+    """Op columns that reach every rule of the fused apply, for holding a
+    kernel against its plain version (they are not a replayable edit history):
+    every op kind from four clients, pending local inserts, removes and
+    annotates (seq DEV_UNASSIGNED) with acks of their local seqs (and of
+    local seq 0, which make_state's padding matches), stale
+    perspectives, positions in the first half of a document of about
+    `length` chars (an int or a [B] array) and 5% of them past its end (so
+    some inserts find no tie-break slot), ranges of 1..16, and with
+    runs=True INSERT_RUN steps of 1..8 members, some of them dead (length
+    0) padding. Sequence numbers start after `base_seq`. Returns numpy
+    [B, T] columns, or (columns, run columns [B, T, RUN_K]) with runs."""
+    from ..mergetree.constants import DEV_UNASSIGNED
+    from ..mergetree.oppack import RUN_K, OpKind
+
+    rng = np.random.default_rng(seed)
+    b, t = n_docs, n_ops
+    kinds = [OpKind.INSERT, OpKind.REMOVE, OpKind.ANNOTATE,
+             OpKind.ACK_INSERT, OpKind.ACK_REMOVE, OpKind.NOOP]
+    weights = [0.33, 0.2, 0.15, 0.1, 0.08, 0.04]
+    if runs:
+        kinds.append(OpKind.INSERT_RUN)
+        weights.append(0.1)
+    weights = np.asarray(weights) / sum(weights)
+    kind = rng.choice(kinds, (b, t), p=weights).astype(np.int32)
+    local = rng.random((b, t)) < 0.3
+    is_ack = (kind == OpKind.ACK_INSERT) | (kind == OpKind.ACK_REMOVE)
+    local &= (kind != OpKind.INSERT_RUN) & ~is_ack & (kind != OpKind.NOOP)
+    sequenced = ~local
+    seq = base_seq + np.cumsum(sequenced, axis=1, dtype=np.int64)
+    local_seq = np.cumsum(local, axis=1, dtype=np.int64)
+    ack_target = (rng.random((b, t)) * (local_seq + 1)).astype(np.int64)
+    lag = rng.integers(0, 5, (b, t))
+    ref = np.maximum(seq - 1 - lag, 0)
+    grown = np.cumsum(kind == OpKind.INSERT, axis=1) - \
+        (kind == OpKind.INSERT)
+    est = np.reshape(length, (-1, 1)) + 2 * grown
+    past = rng.random((b, t)) < 0.05
+    pos1 = np.where(past, est + rng.integers(0, 5, (b, t)),
+                    (rng.random((b, t)) * (est // 2 + 1)).astype(np.int64))
+    pos2 = pos1 + rng.integers(1, 17, (b, t))
+    cols = {
+        "kind": kind,
+        "seq": np.where(local, DEV_UNASSIGNED, seq),
+        "ref_seq": np.where(local, seq, ref),
+        "client": np.where(local | is_ack, 1, rng.integers(0, 4, (b, t))),
+        "pos1": pos1,
+        "pos2": np.where(kind == OpKind.INSERT, 0, pos2),
+        "op_id": rng.integers(0, 1000, (b, t)),
+        "new_len": np.where(kind == OpKind.INSERT,
+                            rng.integers(1, 9, (b, t)), 0),
+        "local_seq": np.where(local, local_seq,
+                              np.where(is_ack, ack_target, 0)),
+        "msn": ref,
+    }
+    cols = {f: v.astype(np.int32) for f, v in cols.items()}
+    if not runs:
+        return cols
+    is_run = kind == OpKind.INSERT_RUN
+    n_mem = rng.integers(1, RUN_K + 1, (b, t))
+    member = np.arange(RUN_K)
+    live = is_run[..., None] & (member < n_mem[..., None]) & \
+        (rng.random((b, t, RUN_K)) < 0.9)
+    run_cols = {
+        "length": np.where(live, rng.integers(1, 4, (b, t, RUN_K)), 0),
+        "seq": np.where(live, seq[..., None] + member, 0),
+        "op_id": np.where(is_run[..., None],
+                          rng.integers(0, 1000, (b, t, RUN_K)), -1),
+    }
+    cols["new_len"] = np.where(is_run, run_cols["length"].sum(-1),
+                               cols["new_len"]).astype(np.int32)
+    cols["op_id"] = np.where(is_run, -1, cols["op_id"]).astype(np.int32)
+    return cols, {f: v.astype(np.int32) for f, v in run_cols.items()}
+
+
+def fuzz_tables(n_docs: int, capacity: int, k_slots: int, a_slots: int,
+                seed: int = 0, free: int = 12):
+    """Starting tables for gen_fuzz_traces: every other document is empty,
+    the rest hold capacity - free .. capacity rows (so the capacity gates
+    trip) of 1..4 chars at seqs 0..8 from clients 0..3, some pending
+    (local seqs 1..3), some removed or pending removal with overlap
+    clients, some annotated. The padding past count is make_state's but
+    for every fourth document, whose padding holds such rows too (stale
+    rows, as a reused page may hold). Returns a numpy dict in DocState
+    field order."""
+    from ..mergetree.constants import DEV_NO_REMOVE, DEV_UNASSIGNED
+
+    rng = np.random.default_rng(seed)
+    b, c, k, a = n_docs, capacity, k_slots, a_slots
+    count = np.where(np.arange(b) % 2 == 1,
+                     rng.integers(max(c - free, 0), c + 1, b), 0)
+    row = (np.arange(c)[None, :] < count[:, None]) | \
+        (np.arange(b) % 4 == 3)[:, None]
+
+    def rows(values, pad):
+        return np.where(row, values, pad).astype(np.int32)
+
+    pend = rng.random((b, c)) < 0.15
+    removed = rng.random((b, c))
+    rem_seq = np.where(removed < 0.2, rng.integers(1, 9, (b, c)),
+                       np.where(removed < 0.3, DEV_UNASSIGNED, DEV_NO_REMOVE))
+    rc = np.where(rng.random((b, c, k)) < 0.5,
+                  rng.integers(0, 4, (b, c, k)), -1)
+    rc = np.where((rem_seq != DEV_NO_REMOVE)[..., None], rc, -1)
+    anno = np.where(rng.random((b, c, a)) < 0.3,
+                    rng.integers(0, 1000, (b, c, a)), -1)
+    return {
+        "length": rows(rng.integers(1, 5, (b, c)), 0),
+        "ins_seq": rows(np.where(pend, DEV_UNASSIGNED,
+                                 rng.integers(0, 9, (b, c))), DEV_UNASSIGNED),
+        "ins_client": rows(np.where(pend, 1, rng.integers(0, 4, (b, c))), -1),
+        "local_seq": rows(np.where(pend, rng.integers(1, 4, (b, c)), 0), 0),
+        "rem_seq": rows(rem_seq, DEV_NO_REMOVE),
+        "rem_local_seq": rows(np.where(rem_seq == DEV_UNASSIGNED,
+                                       rng.integers(1, 4, (b, c)), 0), 0),
+        "rem_clients": np.where(row[..., None], rc, -1).astype(np.int32),
+        "origin_op": rows(rng.integers(0, 1000, (b, c)), -1),
+        "origin_off": rows(rng.integers(0, 4, (b, c)), 0),
+        "anno": np.where(row[..., None], anno, -1).astype(np.int32),
+        "count": count.astype(np.int32),
+        "min_seq": np.zeros(b, np.int32),
+        "seq": np.full(b, 8, np.int32),
+        "overflow": np.zeros(b, bool),
+    }

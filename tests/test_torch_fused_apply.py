@@ -412,3 +412,49 @@ class TestFusedInsertRun:
         assert tpa.variant_name(object(), True) == "runs_extract"
         assert set(tpa.apply_ops_fused.variant_launches) == {
             "plain", "runs", "extract", "runs_extract"}
+
+
+# ---------------------------------------------------------------------------
+# the fuzzed tables and op streams that chip_smoke.py holds both kernel
+# paths to, through the plain version against JAX
+# ---------------------------------------------------------------------------
+
+class TestFuzzConformance:
+    """fuzz_tables (empty and near-full documents) under gen_fuzz_traces
+    (every op kind, four clients, pending local ops and their acks, stale
+    perspectives, positions past the end, INSERT_RUN steps with dead
+    members): the port's plain version equals the JAX references."""
+
+    @pytest.mark.parametrize("capacity,k,a,seed", [
+        (1, 3, 1, 0), (33, 3, 1, 1), (64, 3, 4, 2), (100, 3, 4, 3)])
+    def test_fuzz_matches_refs(self, capacity, k, a, seed):
+        from fluidframework_tpu_torch.testing.traces import (
+            fuzz_tables, gen_fuzz_traces)
+        state = fuzz_tables(6, capacity, k, a, seed=seed)
+        cols = gen_fuzz_traces(6, 24, seed=seed, length=state["count"] * 2)
+        assert (cols["seq"] == DEV_UNASSIGNED).any()
+        assert np.isin([1, 2, 3, 4, 5], cols["kind"]).all()
+        got = port_apply(state, cols)
+        ref, scan = jax_refs(state, cols)
+        assert_fields_equal(got, ref)
+        assert_fields_equal(got, scan)
+
+    @pytest.mark.parametrize("capacity,a,seed", [(33, 1, 5), (64, 4, 6),
+                                                 (100, 4, 7)])
+    def test_fuzz_runs_match_scan_kernel(self, capacity, a, seed):
+        from fluidframework_tpu.mergetree.state import DocState as JaxDoc
+        from fluidframework_tpu_torch.testing.traces import (
+            fuzz_tables, gen_fuzz_traces)
+        state = fuzz_tables(6, capacity, 3, a, seed=seed)
+        cols, runs = gen_fuzz_traces(6, 24, seed=seed, runs=True,
+                                     length=state["count"] * 2)
+        assert (cols["kind"] == 6).any() and (runs["length"] == 0).any()
+        want = jax_to_np(kernel._scan_ops(
+            JaxDoc(**{f: jnp.asarray(v) for f, v in state.items()}),
+            jax_packed(cols), batched=True, runs=_jax_runs(runs)))
+        got = interop.to_numpy(tpa.apply_ops_fused(
+            interop.doc_state_from_numpy(state, "cpu"),
+            interop.packed_ops_from_numpy(cols, "cpu"),
+            runs=_port_runs(runs)))
+        assert_fields_equal(got, want)
+        assert got["overflow"].any()

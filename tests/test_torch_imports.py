@@ -1,5 +1,5 @@
 """The port stands alone: no module of fluidframework_tpu_torch, and not
-chip_smoke.py, imports jax, jaxlib or the JAX package; its entry points
+chip_smoke.py or calibrate_fused_apply.py, imports jax, jaxlib or the JAX package; its entry points
 default to the card and raise when CUDA is absent instead of returning CPU
 tensors."""
 
@@ -15,7 +15,8 @@ FORBIDDEN = ("jax", "jaxlib", "fluidframework_tpu")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "calibrate_fused_apply.py"]
 
 
 def _imported_roots(path: Path):

@@ -23,6 +23,15 @@ holds both paths in all four variants bit-exact against the plain version
 on fuzzed tables and op streams. Each fused-apply row's bound counts the
 work of this run's data (the rows in use, live_slots) and, beside it,
 every slot of every table.
+The scan apply (mergetree/kernel.py over kernels/csrc/scan_apply.cu, any
+capacity) is held bit-exact against the plain scan on a fuzz grid up to
+C = 65,536, and against the fused kernel where that applies (phase 10).
+Then one document's bulk catch-up runs at full size (phase 11): the
+100,000-op keystroke trace of BASELINE.json config #2 through
+mergetree/catchup.device_apply_tail, held to the JAX golden digest, its
+first 10,000 ops to the plain composition entry by entry, timed with a
+host/device split; and full_step above the fused capacity (1,024 docs x
+100 ops at C = 8,192) against its plain composition.
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -72,6 +81,24 @@ PATHS = ("warp", "block")
 # on the device than the other path (timing noise; the rule's table is
 # calibrate_fused_apply.py's).
 PATH_MARGIN = 0.10
+# Phase 10: the scan apply's fuzz grid (capacities x documents x annotate
+# slots, both variants, K=3), ops per stream by capacity, and the largest
+# state (int32 elements) a cell may hold: a larger cell is dropped and
+# printed (the plain version's temporaries are several states).
+SCAN_CAPACITIES = (1, 33, 256, 1100, 4096, 4141, 4200, 16384, 65536)
+SCAN_BATCHES = (1, 8, 256)
+SCAN_ANNO = (1, 4, 64)
+SCAN_MAX_INTS = 2**31
+# Phase 11's second path: full_step above the fused capacity (documents,
+# ops, capacity; K=3, A=1).
+SCAN_STEP = (1024, 100, 8192)
+# The plain composition of phase 11 replays this prefix of the trace.
+PLAIN_PREFIX = 10_000
+# fused_apply.cu's ptxas registers as PERF.md §6 records them: the block
+# path 64 in every variant; the warp path by (kR, runs).
+FUSED_WARP_REGISTERS = {(1, 0): 73, (1, 1): 76, (2, 0): 71, (2, 1): 77,
+                        (4, 0): 73, (4, 1): 79, (8, 0): 97, (8, 1): 110,
+                        (16, 0): 126, (16, 1): 127}
 
 
 class SmokeFailure(RuntimeError):
@@ -134,10 +161,12 @@ def one_kernel_ms(fn, reps: int, kernel: str):
     `kernel` (fn launches one), from kernel_device_ms; a trace that holds
     no such kernel is taken once more, then None (not measured)."""
     for _ in range(2):
-        got = [(ms, n) for name, (ms, n) in kernel_device_ms(fn, reps).items()
-               if kernel in name]
+        trace = kernel_device_ms(fn, reps)
+        got = [(ms, n) for name, (ms, n) in trace.items() if kernel in name]
         if got:
             return sum(ms for ms, _n in got) / sum(n for _ms, n in got)
+    print(f"  profiler: no {kernel} in the trace; it holds "
+          f"{sorted(trace)[:6]}", flush=True)
     return None
 
 
@@ -176,6 +205,40 @@ def check_paths(what: str, row: dict, card: str) -> None:
             f"fused_apply at {what}: the rule's {row['path']} path "
             f"({dev_ms[row['path']]:.4f} ms) is more than {PATH_MARGIN:.0%} "
             f"slower than the other ({other:.4f} ms)")
+
+
+def fused_registers_recorded(key: str):
+    """The recorded register count of a fused-apply kernel named as
+    ptxas_report names it."""
+    args = [int(x) for x in re.findall(r"\d+", key.split("<", 1)[-1])]
+    if key.startswith("fused_apply_kernel_block"):
+        return 64
+    return FUSED_WARP_REGISTERS.get((args[0], args[1])) if args else None
+
+
+def once_ms(fn) -> float:
+    """Device milliseconds of one call of fn (CUDA events, no warm-up)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def long_kernel_ms(fn, reps: int, kernel: str):
+    """(device ms per launch, how) of a function that launches one long
+    kernel: torch.profiler's time (one_kernel_ms) where its trace holds
+    the kernel, else the least of `reps` single launches between two
+    CUDA events (for a kernel of milliseconds the events add
+    microseconds). Some traces of the scan kernel came back empty on the
+    H100."""
+    ms = one_kernel_ms(fn, reps, kernel)
+    if ms is not None:
+        return ms, "profiler"
+    return min(once_ms(fn) for _ in range(reps)), "events"
 
 
 def fmt_ms(ms) -> str:
@@ -453,9 +516,20 @@ def main() -> int:
     require(len(apply_kernels) == 24,
             f"expected 24 fused apply kernels, ptxas reports "
             f"{sorted(apply_kernels)}")
-    spilled = sorted(k for k, r in apply_kernels.items()
+    scan_kernels = {k: r for k, r in report.items() if "scan_apply" in k}
+    require(len(scan_kernels) == 2,
+            f"expected 2 scan apply kernels, ptxas reports "
+            f"{sorted(scan_kernels)}")
+    spilled = sorted(k for k, r in {**apply_kernels, **scan_kernels}.items()
                      if r.get("stack") or r.get("spill_stores")
                      or r.get("spill_loads"))  # refused after the timings
+    moved = {k: (r.get("registers"), fused_registers_recorded(k))
+             for k, r in apply_kernels.items()
+             if r.get("registers") != fused_registers_recorded(k)}
+    print("  ptxas: fused_apply registers "
+          + ("equal to the table recorded in PERF.md" if not moved else
+             f"differ from the table recorded in PERF.md (now, then): "
+             f"{moved}"), flush=True)
     x = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
     st_out = kernels.selftest(x)
     torch.cuda.synchronize()
@@ -664,9 +738,11 @@ def main() -> int:
 
     rows += serving_phases(dev, card)
     fuzz_phase(dev)
+    scan_fuzz_phase(dev)
+    rows += scan_full_step_phase(dev, card)
+    rows += catchup_phases(dev, card)
 
-    require(not spilled, f"fused apply kernels use stack or spill: "
-            f"{spilled}")
+    require(not spilled, f"apply kernels use stack or spill: {spilled}")
     out = []
     for r in rows:
         b_ms = r["bytes"] / PEAK_BYTES_PER_S * 1e3
@@ -681,13 +757,14 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": r["library_ms"]}
-        if "ops_every_slot" in r:  # the fused apply: both work counts
+        if "ops_every_slot" in r:  # the apply kernels: both work counts
             every = r["ops_every_slot"]
             row.update(
                 bound_ms_every_slot=max(b_ms, every / PEAK_OPS_PER_S * 1e3),
                 bound_ms_every_slot_fp32_peak=max(
-                    b_ms, every / PEAK_FP32_OPS_PER_S * 1e3),
-                path=r["path"], paths=r["paths"])
+                    b_ms, every / PEAK_FP32_OPS_PER_S * 1e3))
+        row.update({key: r[key] for key in ("path", "paths", "shape",
+                                            "device_ms_by") if key in r})
         out.append(row)
     print(json.dumps({"kernels": out}))
     print(card)
@@ -973,6 +1050,298 @@ def fuzz_phase(dev) -> None:
           f"{FUZZ_SLOTS} x seeds {FUZZ_SEEDS}, {FUZZ_DOCS} docs x "
           f"{FUZZ_OPS} ops; {flagged} overflowed documents in the plain "
           f"results), {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def fused_takes(pa, capacity: int, k: int, a: int) -> bool:
+    """Whether the fused apply takes this shape (at most 32 planes, the
+    table in one block's shared memory)."""
+    try:
+        return capacity <= pa.max_fused_capacity(k, a)
+    except ValueError:
+        return False
+
+
+def scan_fuzz_phase(dev) -> None:
+    """Phase 10: the scan-apply kernel bit-exact against the plain scan on
+    fuzz_tables under gen_fuzz_traces over SCAN_CAPACITIES x SCAN_BATCHES
+    x SCAN_ANNO, plain and runs variants; a one-document cell takes the
+    near-full document of a fuzzed pair. Where the fused apply takes the
+    capacity, the scan kernel must also equal the fused kernel, bit for
+    bit."""
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.testing.traces import (fuzz_tables,
+                                                         gen_fuzz_traces)
+    t0 = time.perf_counter()
+    checked, vs_fused, flagged, dropped = 0, 0, 0, []
+    for ci, c in enumerate(SCAN_CAPACITIES):
+        steps = 24 if c <= 4200 else 12 if c <= 16384 else 8
+        for b in SCAN_BATCHES:
+            for a in SCAN_ANNO:
+                if b * c * (8 + 3 + a) > SCAN_MAX_INTS:
+                    dropped.append((b, c, a))
+                    continue
+                seed = 1000 + 10 * ci + a
+                tables = fuzz_tables(max(b, 2), c, 3, a, seed=seed)
+                if b == 1:  # the near-full document
+                    tables = {f: v[1:2] for f, v in tables.items()}
+                state = interop.doc_state_from_numpy(tables, dev)
+                length = tables["count"] * 2
+                for with_runs in (False, True):
+                    got = gen_fuzz_traces(b, steps, seed=seed + with_runs,
+                                          runs=with_runs, length=length)
+                    cols, run_np = got if with_runs else (got, None)
+                    ops = interop.packed_ops_from_numpy(cols, dev)
+                    runs = None if run_np is None else \
+                        interop.run_cols_from_numpy(run_np, dev)
+                    out = kernel.scan_apply(state, ops, runs)
+                    want = kernel.scan_ops_plain(state, ops, True, runs)
+                    torch.cuda.synchronize()
+                    what = f"scan C={c} B={b} A={a} runs={with_runs}"
+                    assert_trees_equal(out, want, what)
+                    flagged += int(want.overflow.sum())
+                    checked += 1
+                    if fused_takes(pa, c, 3, a):
+                        fused = pa.apply_ops_fused(state, ops, runs)
+                        torch.cuda.synchronize()
+                        assert_trees_equal(out, fused, f"{what} vs fused")
+                        vs_fused += 1
+                del state, out, want
+    print(f"phase 10: scan_apply bit-exact against the plain scan in "
+          f"{checked} launches (capacities {SCAN_CAPACITIES} x documents "
+          f"{SCAN_BATCHES} x A {SCAN_ANNO} x plain/runs, K=3; "
+          f"{flagged} overflowed documents in the plain results), and "
+          f"equal to the fused kernel in the {vs_fused} where it applies; "
+          f"dropped cells (B, C, A): {dropped or 'none'}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def scan_row(what: str, state, ops, runs, launches: int, reps: int,
+             shape: str) -> dict:
+    """The kernel row of one scan-apply launch over [B, C] CUDA tensors:
+    kernel device ms (profiler) and back-to-back ms, the plain scan's ms,
+    and the bound's work (the rows in use and every slot)."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    b, c = state.length.shape
+    k, a = state.overlap_slots, state.anno_slots
+    got = kernel.scan_apply(state, ops, runs)
+    want = kernel.scan_ops_plain(state, ops, True, runs)
+    torch.cuda.synchronize()
+    kinds = ops.kind.cpu().numpy()
+    r = dict(
+        name="scan_apply", variant="runs" if runs is not None else "plain",
+        shape=shape,
+        source="fluidframework_tpu_torch/kernels/csrc/scan_apply.cu",
+        replaces="fluidframework_tpu/mergetree/kernel.py:396",
+        on_main_path=True, launches=launches, err=max_abs_err(got, want),
+        ms=ms_of(lambda: kernel.scan_apply(state, ops, runs), reps),
+        device_ms=None,
+        plain_ms=once_ms(lambda: kernel.scan_ops_plain(state, ops, True,
+                                                        runs)),
+        library_ms=None,
+        bytes=fused_apply_bytes(b, c, ops.steps, k, a, runs is not None,
+                                False),
+        ops=fused_apply_lane_ops(kinds, live_slots(state, ops, runs), k, a),
+        ops_every_slot=fused_apply_lane_ops(kinds, c, k, a))
+    r["device_ms"], r["device_ms_by"] = long_kernel_ms(
+        lambda: kernel.scan_apply(state, ops, runs), reps,
+        "scan_apply_kernel")
+    bound = max(r["bytes"] / PEAK_BYTES_PER_S,
+                r["ops"] / PEAK_OPS_PER_S) * 1e3
+    every = max(r["bytes"] / PEAK_BYTES_PER_S,
+                r["ops_every_slot"] / PEAK_OPS_PER_S) * 1e3
+    print(f"  scan_apply[{r['variant']}] {what} [{shape}]: "
+          f"{fmt_ms(r['device_ms'])} kernel device time "
+          f"({r['device_ms_by']}), {r['ms']:.4f} ms "
+          f"back to back; bound {bound:.5f} ms over the rows in use, "
+          f"{every:.5f} ms over every slot; plain {r['plain_ms']:.3f} ms; "
+          f"max_abs_err {r['err']}", flush=True)
+    require(r["err"] == 0, f"scan_apply {what}: kernel vs plain differ")
+    return r
+
+
+def catchup_phases(dev, card: str) -> list:
+    """Phase 11, the configuration at full size: keystroke_trace(100,000,
+    seed=12) through mergetree/catchup.device_apply_tail on the card,
+    every chunk on the scan-apply kernel, held to the JAX golden digest;
+    its first PLAIN_PREFIX ops also through the plain composition, entry
+    by entry; a timed run, a profiled run, and the kernel's times at the
+    first chunk of each capacity. Returns the scan kernel's rows."""
+    from fluidframework_tpu_torch.mergetree import catchup, kernel
+    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.testing import golden
+    from fluidframework_tpu_torch.testing.traces import keystroke_trace
+
+    g = golden.load_catchup()
+    n_ops, seed, n_clients = g["full"]["trace"]
+    tail = keystroke_trace(n_ops, seed=seed, n_clients=n_clients)
+
+    # The main path, counted: every apply launches the kernel once. The
+    # first chunk at each capacity is kept for the timings below.
+    captured = {}
+    apply_keep = kernel.apply_ops_keep
+
+    def capture(state, ops, runs=None):
+        captured.setdefault(state.capacity, (
+            type(state)(*(t.clone() for t in state)), ops, runs))
+        return apply_keep(state, ops, runs)
+
+    stats = {}
+    kernel.apply_ops_keep = capture
+    try:
+        kernel.reset_launches()
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        entries = catchup.device_apply_tail([], tail, 0, 0, device=dev,
+                                            stats=stats)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - h0) * 1e3
+        launches = kernel.scan_apply.launches
+        variants = dict(kernel.scan_apply.variant_launches)
+    finally:
+        kernel.apply_ops_keep = apply_keep
+    applies = sum(stats["chunks"].values())
+    require(launches > 0 and launches == applies,
+            f"catch-up: {launches} scan_apply launches for {applies} chunk "
+            "applies")
+    digest = golden.entries_digest(entries)
+    require(digest == g["full"]["digest"],
+            f"catch-up of {n_ops} ops: {digest} differs from the JAX "
+            f"golden {g['full']['digest']}")
+    print(f"phase 11: catch-up of keystroke_trace({n_ops}, seed={seed}) "
+          f"on the card equals the JAX golden (entries {digest['count']}, "
+          f"visible length {digest['visible_length']}, entries and text "
+          f"sha256); scan_apply launches {launches} {variants}; first run "
+          f"{first_ms:.1f} ms", flush=True)
+    small_n, small_seed, small_clients = g["small"]["trace"]
+    small = catchup.device_apply_tail(
+        [], keystroke_trace(small_n, seed=small_seed,
+                            n_clients=small_clients), 0, 0, device=dev)
+    require(small == g["small"]["entries"],
+            f"catch-up of the {small_n}-op golden trace differs from JAX")
+
+    head = tail[:PLAIN_PREFIX]
+    got = catchup.device_apply_tail([], head, 0, 0, device=dev)
+    want = catchup.device_apply_tail([], head, 0, 0, device=dev, plain=True)
+    require(len(got) == len(want), f"first {PLAIN_PREFIX} ops: "
+            f"{len(got)} entries vs {len(want)} in the plain composition")
+    for i, (x, y) in enumerate(zip(got, want)):
+        require(x == y, f"first {PLAIN_PREFIX} ops: entry {i} differs "
+                f"from the plain composition: {x} vs {y}")
+    print(f"phase 11: the first {PLAIN_PREFIX} ops equal the plain "
+          f"composition entry by entry ({len(got)} entries)", flush=True)
+
+    # the kernel's times at the catch-up's shapes (first chunk of each)
+    rows = []
+    for c in sorted(captured):
+        state, ops, runs = captured[c]
+        bs, bo = kernel._lift(state), kernel._lift(ops)
+        br = kernel._lift(runs)
+        rows.append(scan_row("catch-up chunk", bs, bo, br, launches, 3,
+                             f"1 x C={c} x T {ops.steps}"))
+    # the fused kernel on the C = 4,096 chunk, annotate ring cut to one
+    # slot (the fused apply takes C = 4,096 only at A = 1), beside the
+    # scan kernel on the same input
+    if 4096 in captured:
+        state, ops, runs = captured[4096]
+        bs = kernel._lift(state)
+        bs = bs._replace(anno=bs.anno[..., :1].contiguous())
+        bo, br = kernel._lift(ops), kernel._lift(runs)
+        require(4096 <= pa.max_fused_capacity(3, 1), "C=4096 > fused limit")
+        fused_out = pa.apply_ops_fused(bs, bo, br)
+        scan_out = kernel.scan_apply(bs, bo, br)
+        torch.cuda.synchronize()
+        assert_trees_equal(scan_out, fused_out, "C=4096 A=1 scan vs fused")
+        f_dev = long_kernel_ms(lambda: pa.apply_ops_fused(bs, bo, br), 3,
+                               "fused_apply_kernel")
+        s_dev = long_kernel_ms(lambda: kernel.scan_apply(bs, bo, br), 3,
+                               "scan_apply_kernel")
+        print(f"  C=4096 chunk at A=1: fused_apply {f_dev[0]:.4f} ms device "
+              f"({f_dev[1]}; {pa.launch_geometry(1, 4096, 3, 1).path} "
+              f"path), scan_apply {s_dev[0]:.4f} ms device ({s_dev[1]}), "
+              "equal outputs", flush=True)
+    # a timed run, the compaction's device time, then a profiled run (last:
+    # it is the longest trace of the script)
+    stats = {}
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    again = catchup.device_apply_tail([], tail, 0, 0, device=dev,
+                                      stats=stats)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - h0) * 1e3
+    require(again == entries, "catch-up: the timed run differs")
+    compact_ms = 0.0
+    for c, n in stats["compacts"].items():
+        st = captured[c][0]
+        per = kernel_device_ms(lambda: kernel.compact(st), 3)
+        compact_ms += n * sum(ms for ms, _n in per.values())
+    trace = kernel_device_ms(lambda: catchup.device_apply_tail(
+        [], tail, 0, 0, device=dev), 1)
+    busy = sum(ms for ms, _n in trace.values()) if trace else None
+    scan_ms = sum(ms for name, (ms, _n) in trace.items()
+                  if "scan_apply_kernel" in name) if trace else None
+    host = {k: round(v * 1e3, 3) for k, v in stats.items()
+            if k.endswith("_s")}
+    print(f"catch-up: {n_ops / (wall_ms / 1e3):.0f} ops/s, wall "
+          f"{wall_ms:.3f} ms; chunks {stats['chunks']}, folds "
+          f"{stats.get('folds', 0)}, retries {stats.get('retries', 0)}, "
+          f"compacts {stats['compacts']}, host reads {stats['host_reads']}; "
+          f"scan_apply kernels {fmt_ms(scan_ms)} device (profiler), "
+          f"compact {compact_ms:.3f} ms device; host ms {host}; device busy "
+          f"{fmt_ms(busy)} of the {wall_ms:.3f} ms wall (idle share "
+          + (f"{1 - busy / wall_ms:.3f}" if busy else "not measured")
+          + f"); card {card}", flush=True)
+
+    return rows
+
+
+def scan_full_step_phase(dev, card: str) -> list:
+    """full_step above the fused capacity: SCAN_STEP documents x ops at
+    capacity C through the scan-apply and summary-length kernels, counted,
+    against the plain composition; returns the scan kernel's row."""
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.mergetree import pallas_ops
+    from fluidframework_tpu_torch.mergetree.state import make_state
+    from fluidframework_tpu_torch.server import pipeline
+    from fluidframework_tpu_torch.server import ticket_kernel as tk
+    from fluidframework_tpu_torch.testing.traces import gen_traces
+
+    b, t, c = SCAN_STEP
+    require(c > pa.max_fused_capacity(3, 1), "SCAN_STEP fits the fused apply")
+    ops = interop.packed_ops_from_numpy(gen_traces(b, t, seed=3), dev)
+    raw = tk.RawOps(client=ops.client, client_seq=ops.seq,
+                    ref_seq=ops.ref_seq)
+
+    def fresh():
+        return (tk.make_ticket_state(TICKET_K, b, device=dev),
+                make_state(c, 1, batch=b, device=dev))
+
+    kernel.reset_launches()
+    pa.reset_launches()
+    pallas_ops.summary_lengths.launches = 0
+    out = pipeline.full_step(*fresh(), raw, ops)
+    torch.cuda.synchronize()
+    launches = {"scan_apply": kernel.scan_apply.launches,
+                "summary_len": pallas_ops.summary_lengths.launches,
+                "fused_apply": pa.apply_ops_fused.launches}
+    require(launches == {"scan_apply": 1, "summary_len": 1,
+                         "fused_apply": 0},
+            f"full_step at C={c}: launches {launches}")
+    want = pipeline.make_full_step(plain=True)(*fresh(), raw, ops)
+    torch.cuda.synchronize()
+    assert_trees_equal(out, want, f"full_step {b}x{t} C={c} vs plain")
+    require(not bool(out[1].overflow.any()), f"full_step C={c} overflowed")
+    step_ms = once_ms(lambda: pipeline.full_step(*fresh(), raw, ops))
+    print(f"phase 11: full_step {b}x{t} at C={c} (above the fused "
+          f"capacity) through the kernels, launches {launches}, equal to "
+          f"the plain composition; {b * t / (step_ms / 1e3):.0f} ops/s, "
+          f"step {step_ms:.3f} ms; card {card}", flush=True)
+    admitted = pipeline.admit_ops(ops, out[2])
+    return [scan_row("full_step", fresh()[1], admitted, None,
+                     launches["scan_apply"], 2, f"{b} x C={c} x T {t}")]
 
 
 if __name__ == "__main__":

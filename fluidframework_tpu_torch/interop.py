@@ -30,8 +30,10 @@ def _build(cls: Type[NamedTuple], arrays: Dict[str, np.ndarray], device,
         if name in optional and arrays.get(name) is None:
             fields[name] = None
             continue
-        arr = np.ascontiguousarray(np.asarray(arrays[name]))
-        fields[name] = torch.from_numpy(arr.copy()).to(dev)
+        # a C-ordered copy that keeps 0-d scalars 0-d (a single
+        # document's count, min_seq, seq, overflow)
+        arr = np.array(arrays[name], order="C")
+        fields[name] = torch.from_numpy(arr).to(dev)
     return cls(**fields)
 
 

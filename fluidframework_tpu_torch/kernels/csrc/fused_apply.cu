@@ -114,6 +114,14 @@
 // - The per-slot rules (visibility, insert stop, fills, remove with overlap
 //   clients, annotate ring, acks) are one set of functions on a Slot, an
 //   address plus a plane stride, so both paths run the same rule code.
+//
+// scan_apply.cu runs the block path on a table in device memory for the
+// capacities that do not fit shared memory. It includes this file with
+// FLUID_APPLY_RULES_ONLY defined, which keeps the rules, apply_one, the
+// block path's primitives and the pointer unpacking, and leaves out this
+// file's kernels and its entry point. (A separate header would do the
+// same, but this file must stay one self-contained source: the emulator
+// test compiles it alone.)
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -174,6 +182,61 @@ struct Args {
 struct Op {
   int kind, seq, ref_seq, client, pos1, pos2, op_id, new_len, local_seq, msn;
 };
+
+// The Args of a launch from the entry point's pointer array: 14 input
+// DocState pointers, 14 output DocState pointers (DocState field order),
+// 10 PackedOps column pointers, then with with_runs the 3 RunCols pointers
+// (length, seq, op_id), then with extract the 4 narrow outputs (overflow
+// int16, count, min_seq, seq). `used` is set to the pointers taken.
+Args args_from_ptrs(void** ptrs, int batch, int capacity, int k_slots,
+                    int a_slots, int steps, int with_runs, int extract,
+                    int& used) {
+  Args a;
+  int i = 0;
+  for (int p = 0; p < SEG_PLANES - 2; ++p)  // length .. rem_local_seq
+    a.in_seg[p] = static_cast<const int*>(ptrs[i++]);
+  a.in_rc = static_cast<const int*>(ptrs[i++]);
+  a.in_seg[ORIGIN_OP] = static_cast<const int*>(ptrs[i++]);
+  a.in_seg[ORIGIN_OFF] = static_cast<const int*>(ptrs[i++]);
+  a.in_anno = static_cast<const int*>(ptrs[i++]);
+  a.in_count = static_cast<const int*>(ptrs[i++]);
+  a.in_min_seq = static_cast<const int*>(ptrs[i++]);
+  a.in_seq = static_cast<const int*>(ptrs[i++]);
+  a.in_overflow = static_cast<const uint8_t*>(ptrs[i++]);
+  for (int p = 0; p < SEG_PLANES - 2; ++p)
+    a.out_seg[p] = static_cast<int*>(ptrs[i++]);
+  a.out_rc = static_cast<int*>(ptrs[i++]);
+  a.out_seg[ORIGIN_OP] = static_cast<int*>(ptrs[i++]);
+  a.out_seg[ORIGIN_OFF] = static_cast<int*>(ptrs[i++]);
+  a.out_anno = static_cast<int*>(ptrs[i++]);
+  a.out_count = static_cast<int*>(ptrs[i++]);
+  a.out_min_seq = static_cast<int*>(ptrs[i++]);
+  a.out_seq = static_cast<int*>(ptrs[i++]);
+  a.out_overflow = static_cast<uint8_t*>(ptrs[i++]);
+  for (int f = 0; f < N_OP_FIELDS; ++f)
+    a.op[f] = static_cast<const int*>(ptrs[i++]);
+  a.run_len = a.run_seq = a.run_id = nullptr;
+  if (with_runs) {
+    a.run_len = static_cast<const int*>(ptrs[i++]);
+    a.run_seq = static_cast<const int*>(ptrs[i++]);
+    a.run_id = static_cast<const int*>(ptrs[i++]);
+  }
+  a.ex_overflow = nullptr;
+  a.ex_count = a.ex_min_seq = a.ex_seq = nullptr;
+  if (extract) {
+    a.ex_overflow = static_cast<int16_t*>(ptrs[i++]);
+    a.ex_count = static_cast<int*>(ptrs[i++]);
+    a.ex_min_seq = static_cast<int*>(ptrs[i++]);
+    a.ex_seq = static_cast<int*>(ptrs[i++]);
+  }
+  a.batch = batch;
+  a.capacity = capacity;
+  a.k_slots = k_slots;
+  a.a_slots = a_slots;
+  a.steps = steps;
+  used = i;
+  return a;
+}
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
@@ -661,6 +724,8 @@ __device__ void ack_phase(Blk& b, const Op& op, int /*count*/) {
   for (int l = b.tid; l < b.C; l += b.nthr) ack_slot(b.slot(l), op);
 }
 
+#ifndef FLUID_APPLY_RULES_ONLY
+
 template <bool kRuns, bool kExtract>
 __global__ void __launch_bounds__(kMaxThreads) fused_apply_kernel_block(
     Args a) {
@@ -1105,7 +1170,11 @@ cudaError_t launch_warp(const Args& a, int docs, size_t smem,
   }
 }
 
+#endif  // FLUID_APPLY_RULES_ONLY
+
 }  // namespace
+
+#ifndef FLUID_APPLY_RULES_ONLY
 
 static int block_threads(int capacity) {
   return std::min(((capacity + 31) / 32) * 32, kMaxThreads);
@@ -1125,10 +1194,7 @@ static size_t warp_smem_bytes(int capacity, int k_slots, int a_slots,
   return docs * planes * rows * 32 * sizeof(int);
 }
 
-// ptrs: 14 input DocState pointers, 14 output DocState pointers (DocState
-// field order), 10 PackedOps column pointers, then with with_runs the 3
-// RunCols pointers (length, seq, op_id), then with extract the 4 narrow
-// outputs (overflow int16, count, min_seq, seq). path, docs_per_block,
+// ptrs: as args_from_ptrs takes them. path, docs_per_block,
 // threads and smem_bytes are the host's launch geometry; a geometry that
 // differs from this file's formulas is refused with cudaErrorInvalidValue
 // (nothing is relaunched another way). Returns cudaGetLastError.
@@ -1154,49 +1220,9 @@ extern "C" int fluid_fused_apply(void** ptrs, int batch, int capacity,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a;
-  int i = 0;
-  for (int p = 0; p < SEG_PLANES - 2; ++p)  // length .. rem_local_seq
-    a.in_seg[p] = static_cast<const int*>(ptrs[i++]);
-  a.in_rc = static_cast<const int*>(ptrs[i++]);
-  a.in_seg[ORIGIN_OP] = static_cast<const int*>(ptrs[i++]);
-  a.in_seg[ORIGIN_OFF] = static_cast<const int*>(ptrs[i++]);
-  a.in_anno = static_cast<const int*>(ptrs[i++]);
-  a.in_count = static_cast<const int*>(ptrs[i++]);
-  a.in_min_seq = static_cast<const int*>(ptrs[i++]);
-  a.in_seq = static_cast<const int*>(ptrs[i++]);
-  a.in_overflow = static_cast<const uint8_t*>(ptrs[i++]);
-  for (int p = 0; p < SEG_PLANES - 2; ++p)
-    a.out_seg[p] = static_cast<int*>(ptrs[i++]);
-  a.out_rc = static_cast<int*>(ptrs[i++]);
-  a.out_seg[ORIGIN_OP] = static_cast<int*>(ptrs[i++]);
-  a.out_seg[ORIGIN_OFF] = static_cast<int*>(ptrs[i++]);
-  a.out_anno = static_cast<int*>(ptrs[i++]);
-  a.out_count = static_cast<int*>(ptrs[i++]);
-  a.out_min_seq = static_cast<int*>(ptrs[i++]);
-  a.out_seq = static_cast<int*>(ptrs[i++]);
-  a.out_overflow = static_cast<uint8_t*>(ptrs[i++]);
-  for (int f = 0; f < N_OP_FIELDS; ++f)
-    a.op[f] = static_cast<const int*>(ptrs[i++]);
-  a.run_len = a.run_seq = a.run_id = nullptr;
-  if (with_runs) {
-    a.run_len = static_cast<const int*>(ptrs[i++]);
-    a.run_seq = static_cast<const int*>(ptrs[i++]);
-    a.run_id = static_cast<const int*>(ptrs[i++]);
-  }
-  a.ex_overflow = nullptr;
-  a.ex_count = a.ex_min_seq = a.ex_seq = nullptr;
-  if (extract) {
-    a.ex_overflow = static_cast<int16_t*>(ptrs[i++]);
-    a.ex_count = static_cast<int*>(ptrs[i++]);
-    a.ex_min_seq = static_cast<int*>(ptrs[i++]);
-    a.ex_seq = static_cast<int*>(ptrs[i++]);
-  }
-  a.batch = batch;
-  a.capacity = capacity;
-  a.k_slots = k_slots;
-  a.a_slots = a_slots;
-  a.steps = steps;
+  int used = 0;
+  const Args a = args_from_ptrs(ptrs, batch, capacity, k_slots, a_slots,
+                                steps, with_runs, extract, used);
 
   const size_t smem = static_cast<size_t>(smem_bytes);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1228,3 +1254,5 @@ extern "C" int fluid_fused_apply(void** ptrs, int batch, int capacity,
   }
   return static_cast<int>(err);
 }
+
+#endif  // FLUID_APPLY_RULES_ONLY

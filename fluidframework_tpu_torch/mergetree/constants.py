@@ -1,11 +1,19 @@
-"""Merge-tree device sentinels (copied from fluidframework_tpu's
-mergetree/constants.py; the port keeps its own copy and imports nothing of
+"""Merge-tree constants and device sentinels (copied from
+fluidframework_tpu's mergetree/constants.py; the port keeps its own copy and imports nothing of
 the JAX package).
 
 Pending-unassigned is INT32_MAX so that the visibility comparison
 `ins_seq <= ref_seq` is false for pending segments without a special case.
 No comparison may widen these, and no `+1` may touch an `ins_seq` sentinel.
 """
+
+UNIVERSAL_SEQ = 0       # visible to everyone (snapshot-loaded segments)
+UNASSIGNED_SEQ = -1     # host side: local pending, not yet sequenced
+NON_COLLAB_CLIENT = -2  # host side: a perspective that sees only acked ops
+
+# Segment kinds
+SEG_TEXT = 0
+SEG_MARKER = 1
 
 DEV_UNASSIGNED = 2**31 - 1   # pending ins_seq / rem_seq on device
 DEV_NO_REMOVE = 2**31 - 2    # rem_seq sentinel: never removed

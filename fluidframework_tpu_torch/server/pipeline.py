@@ -1,8 +1,9 @@
-"""The north-star pipeline step: deli ticketing -> fused merge-tree apply ->
+"""The north-star pipeline step: deli ticketing -> merge-tree apply ->
 per-document visible length.
 
 Counterpart of fluidframework_tpu's server/pipeline.py make_full_step with
-fused_apply=True. The ticketing output feeds the apply: each admitted op's
+fused_apply=True: the fused apply up to its shared-memory capacity, the
+scan apply above it. The ticketing output feeds the apply: each admitted op's
 assigned seq and msn replace the packed columns, and ops the sequencer
 rejected (nack) or dropped (duplicate) become NOOPs before the merge-tree
 sees them.
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..mergetree import kernel
 from ..mergetree.oppack import OpKind, PackedOps
 from ..mergetree.pallas_apply import (apply_ops_fused, apply_ops_fused_plain,
                                       max_fused_capacity)
@@ -35,19 +37,21 @@ def make_full_step(plain: bool = False):
 
     The step runs the CUDA kernels for CUDA tensors (the plain versions for
     CPU tensors). plain=True composes the plain PyTorch versions on any
-    device: the reference the kernels are held to. A capacity above
-    max_fused_capacity raises ValueError either way; the scan apply that
-    the JAX package routes such capacities to is not ported yet."""
-    apply = apply_ops_fused_plain if plain else apply_ops_fused
+    device: the reference the kernels are held to. A capacity up to
+    max_fused_capacity takes the fused apply; above it, the scan apply
+    (mergetree/kernel.py, kernels/csrc/scan_apply.cu), as the JAX step
+    routes capacities beyond its fused kernel's budget to kernel._scan_ops."""
+    fused = apply_ops_fused_plain if plain else apply_ops_fused
     summary = summary_lengths_plain if plain else summary_lengths
+
+    def scan(mstate, ops):
+        if plain:
+            return kernel.scan_ops_plain(mstate, ops, batched=True)
+        return kernel.apply_ops_batched_keep(mstate, ops)
 
     def full_step(tstate, mstate, raw, ops):
         limit = max_fused_capacity(mstate.overlap_slots, mstate.anno_slots)
-        if mstate.capacity > limit:
-            raise ValueError(
-                f"capacity {mstate.capacity} exceeds max_fused_capacity="
-                f"{limit}: the fused apply holds a document's table in one "
-                "block's shared memory")
+        apply = fused if mstate.capacity <= limit else scan
         tstate, ticketed = tk.scan_tickets(tstate, raw)
         mstate = apply(mstate, admit_ops(ops, ticketed))
         total_len = summary(mstate)

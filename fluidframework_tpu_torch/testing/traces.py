@@ -1,11 +1,16 @@
-"""Synthetic editing traces for the north-star step.
+"""Synthetic editing traces.
 
-A copy of the repository's `bench.py gen_traces`: the same numpy generator
-with the same seed behaviour, so the port and the JAX package replay
-identical op columns.
+`gen_traces` is a copy of the repository's `bench.py gen_traces`, and
+`keystroke_trace` of fluidframework_tpu's testing/traces.py: the same
+generators with the same seed behaviour, so the port and the JAX package
+replay identical ops. The rest are the port's own generators for holding
+its kernels against their plain versions.
 """
 
 from __future__ import annotations
+
+import random
+from typing import List, Tuple
 
 import numpy as np
 
@@ -241,3 +246,93 @@ def fuzz_tables(n_docs: int, capacity: int, k_slots: int, a_slots: int,
         "seq": np.full(b, 8, np.int32),
         "overflow": np.zeros(b, bool),
     }
+
+
+# Wire op types (mergetree/client.py, reference ops.ts:29).
+OP_INSERT, OP_REMOVE, OP_ANNOTATE = 0, 1, 2
+
+WORDS = ("the quick brown fox jumps over a lazy dog while typing "
+         "structured paragraphs of filler prose for replay traces").split()
+
+
+def keystroke_trace(n_ops: int, seed: int = 0, n_clients: int = 1,
+                    window: int = 128) -> List[Tuple[dict, int, int, int,
+                                                     int]]:
+    """A sequenced single-document editing trace:
+    [(wire_op, seq, ref_seq, client_ordinal, msn)].
+
+    Emission model (per op, roughly matching captured editor sessions):
+      74% keystroke insert (1 char at the cursor; bursts extend words)
+      10% backspace (remove 1 char before the cursor)
+       6% word/selection delete (remove 2-24 chars near the cursor)
+       4% paste (insert 20-200 chars at the cursor)
+       4% format sweep (annotate 5-80 chars near the cursor)
+       2% cursor jump (no op emitted; moves the locality anchor)
+
+    Multi-client mode interleaves independent cursors with a shared
+    sequencing order and per-client ref_seq lag, the concurrent-editor
+    shape of the service-load profiles."""
+    rng = random.Random(seed)
+    length = 0
+    cursors = [0] * n_clients
+    out: List[Tuple[dict, int, int, int, int]] = []
+    seq = 0
+    burst_left = 0
+    burst_client = 0
+    while len(out) < n_ops:
+        if burst_left > 0:
+            c = burst_client
+            burst_left -= 1
+            roll = 0.0  # keystroke continues the burst
+        else:
+            c = rng.randrange(n_clients)
+            roll = rng.random()
+            if roll >= 0.98:  # cursor jump: move anchor, no op
+                cursors[c] = rng.randrange(length + 1) if length else 0
+                continue
+            if roll < 0.74:  # start a word burst
+                burst_left = rng.randrange(2, 9)
+                burst_client = c
+        cur = min(cursors[c], length)
+        if roll < 0.74:  # keystroke
+            word = rng.choice(WORDS)
+            ch = word[rng.randrange(len(word))] if rng.random() < 0.85 \
+                else " "
+            op = {"type": OP_INSERT, "pos1": cur, "seg": {"text": ch}}
+            length += 1
+            cursors[c] = cur + 1
+        elif roll < 0.84:  # backspace
+            if cur == 0 or length == 0:
+                burst_left = 0
+                continue
+            op = {"type": OP_REMOVE, "pos1": cur - 1, "pos2": cur}
+            length -= 1
+            cursors[c] = cur - 1
+        elif roll < 0.90:  # word/selection delete
+            if length < 4:
+                continue
+            span = min(rng.randrange(2, 25), length)
+            start = max(0, min(cur - span // 2, length - span))
+            op = {"type": OP_REMOVE, "pos1": start, "pos2": start + span}
+            length -= span
+            cursors[c] = start
+        elif roll < 0.94:  # paste
+            n = rng.randrange(20, 201)
+            text = " ".join(rng.choice(WORDS)
+                            for _ in range(max(1, n // 6)))[:n]
+            op = {"type": OP_INSERT, "pos1": cur, "seg": {"text": text}}
+            length += len(text)
+            cursors[c] = cur + len(text)
+        else:  # format sweep
+            if length < 2:
+                continue
+            span = min(rng.randrange(5, 81), length)
+            start = max(0, min(cur - span // 2, length - span))
+            op = {"type": OP_ANNOTATE, "pos1": start, "pos2": start + span,
+                  "props": {"fmt": rng.randrange(4)}}
+        seq += 1
+        # Concurrent editors lag each other by a small ref_seq window.
+        lag = 0 if n_clients == 1 else rng.randrange(0, 4)
+        out.append((op, seq, max(0, seq - 1 - lag), 1 + c,
+                    max(0, seq - window)))
+    return out

@@ -35,6 +35,11 @@ except ImportError:  # pragma: no cover
 try:
     import pytest
 
+    def pytest_configure(config):
+        config.addinivalue_line(
+            "markers", "slow: a test too long for the tier-1 run "
+            "(deselected there with -m 'not slow')")
+
     @pytest.fixture(autouse=True)
     def _isolate_stage_latency_histograms():
         """The stage latency histograms (telemetry/counters.observe) are

@@ -1,9 +1,10 @@
 """The golden files for the card (fluidframework_tpu_torch/testing/golden/
-fused_apply_golden.npz and serve_megakernel_golden.npz): regenerated here
-from the JAX package and required equal to the committed files, then
-replayed through the port on the CPU.
+fused_apply_golden.npz, serve_megakernel_golden.npz and
+catchup_golden.json): regenerated here from the JAX package and required
+equal to the committed files, then replayed through the port on the CPU.
 
-To rewrite both files after a deliberate change of their inputs:
+To rewrite the files after a deliberate change of their inputs (the
+100,000-op catch-up digest takes about 70 s of JAX on the CPU):
     JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write
 """
 
@@ -14,10 +15,12 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [_HERE, os.path.dirname(_HERE)]
 
+from fluidframework_tpu.mergetree import catchup as jcatchup  # noqa: E402
 from fluidframework_tpu.mergetree import pallas_apply  # noqa: E402
 from fluidframework_tpu.mergetree.host import OpBuilder  # noqa: E402
 from fluidframework_tpu.mergetree.oppack import (  # noqa: E402
@@ -26,15 +29,19 @@ from fluidframework_tpu.mergetree.state import (  # noqa: E402
     make_state as jax_make_state)
 from fluidframework_tpu.server import ticket_kernel as jtk  # noqa: E402
 from fluidframework_tpu.server.pipeline import make_full_step  # noqa: E402
+from fluidframework_tpu.testing.traces import (  # noqa: E402
+    keystroke_trace as jax_keystroke_trace)
 
 from fluidframework_tpu_torch import interop  # noqa: E402
+from fluidframework_tpu_torch.mergetree import catchup  # noqa: E402
 from fluidframework_tpu_torch.mergetree.pallas_apply import (  # noqa: E402
     apply_ops_fused)
 from fluidframework_tpu_torch.server import pipeline  # noqa: E402
 from fluidframework_tpu_torch.testing import golden  # noqa: E402
 from fluidframework_tpu_torch.server import serve_step  # noqa: E402
 from fluidframework_tpu_torch.testing import serving  # noqa: E402
-from fluidframework_tpu_torch.testing.traces import gen_traces  # noqa: E402
+from fluidframework_tpu_torch.testing.traces import (  # noqa: E402
+    gen_traces, keystroke_trace)
 
 from test_kernel import build_kernel_ops, random_schedule  # noqa: E402
 from test_torch_fused_apply import (  # noqa: E402
@@ -140,6 +147,25 @@ def build_serve_golden():
     return sections
 
 
+def _jax_catchup(trace):
+    n_ops, seed, n_clients = trace
+    tail = jax_keystroke_trace(n_ops, seed=seed, n_clients=n_clients)
+    return jcatchup.device_apply_tail([], tail, 0, 0)
+
+
+def build_catchup_small():
+    """The JAX package's catch-up entries of the small keystroke trace."""
+    return {"trace": list(golden.CATCHUP_SMALL),
+            "entries": _jax_catchup(golden.CATCHUP_SMALL)}
+
+
+def build_catchup_full():
+    """The digest of the JAX package's catch-up of the 100,000-op trace."""
+    return {"trace": list(golden.CATCHUP_FULL),
+            "digest": golden.entries_digest(
+                _jax_catchup(golden.CATCHUP_FULL))}
+
+
 def _assert_sections_equal(got, want):
     assert sorted(got) == sorted(want)
     for section in want:
@@ -226,6 +252,38 @@ class TestGolden:
                                "step_total")})
 
 
+class TestCatchupGolden:
+    def test_committed_small_entries_match_jax(self):
+        assert golden.load_catchup()["small"] == build_catchup_small()
+
+    @pytest.mark.slow  # about 70 s of JAX on the CPU: the 100k-op catch-up
+    def test_committed_full_digest_matches_jax(self):
+        assert golden.load_catchup()["full"] == build_catchup_full()
+
+    def test_port_catchup_matches_small_golden(self):
+        """The port on the CPU (its plain scan) gives the committed
+        entries, through the overflow retry: a chunk whose annotate
+        rings or rows fill is folded, reseeded and applied again."""
+        g = golden.load_catchup()
+        n_ops, seed, n_clients = g["small"]["trace"]
+        stats = {}
+        got = catchup.device_apply_tail(
+            [], keystroke_trace(n_ops, seed=seed, n_clients=n_clients), 0,
+            0, device="cpu", stats=stats)
+        assert got == g["small"]["entries"]
+        assert stats["retries"] >= 1
+        assert golden.entries_digest(got)["count"] == len(got)
+
+    def test_catchup_golden_covers_the_hard_cases(self):
+        g = golden.load_catchup()
+        small = g["small"]["entries"]
+        assert any(e.get("props") for e in small)        # format sweeps
+        assert any("seq" in e for e in small)            # collab window
+        assert any("removedSeq" in e for e in small)     # contended removes
+        assert g["full"]["trace"] == list(golden.CATCHUP_FULL)
+        assert g["full"]["digest"]["count"] > len(small)
+
+
 def ring_shape(g):
     """(B, T, merge lanes, LWW lanes) of a golden ring."""
     ring = serving.ring_from_arrays(g["ring"])
@@ -241,5 +299,8 @@ if __name__ == "__main__":
     force_host_platform(1)
     golden.save(build_golden())
     golden.save(build_serve_golden(), golden.SERVE_GOLDEN_PATH)
-    for path in (golden.GOLDEN_PATH, golden.SERVE_GOLDEN_PATH):
+    golden.save_catchup({"small": build_catchup_small(),
+                         "full": build_catchup_full()})
+    for path in (golden.GOLDEN_PATH, golden.SERVE_GOLDEN_PATH,
+                 golden.CATCHUP_GOLDEN_PATH):
         print(f"wrote {path} ({path.stat().st_size} bytes)")

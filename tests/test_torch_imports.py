@@ -4,6 +4,7 @@ default to the card and raise when CUDA is absent instead of returning CPU
 tensors."""
 
 import ast
+import importlib
 from pathlib import Path
 
 import pytest
@@ -43,6 +44,19 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def _port_modules():
+    return sorted(".".join(("fluidframework_tpu_torch",) + p.relative_to(
+        PORT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+
+
+@pytest.mark.parametrize("module", _port_modules())
+def test_every_module_imports(module):
+    """Every module of the port imports (and builds no kernel on
+    import: nvcc is absent here)."""
+    assert importlib.import_module(module).__name__ == module
+
+
 def test_walker_catches_forbidden_imports(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\n"
@@ -54,7 +68,9 @@ def test_walker_catches_forbidden_imports(tmp_path):
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from fluidframework_tpu_torch import interop
-    from fluidframework_tpu_torch.mergetree.state import make_state
+    from fluidframework_tpu_torch.mergetree import catchup
+    from fluidframework_tpu_torch.mergetree.state import (make_state,
+                                                          state_from_numpy)
     from fluidframework_tpu_torch.server.ticket_kernel import \
         make_ticket_state
 
@@ -65,5 +81,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         make_ticket_state(4, 2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         interop.packed_ops_from_numpy({}, device=None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        state_from_numpy({"length": [1]}, 4)
+    tail = [({"type": 0, "pos1": 0, "seg": {"text": "x"}}, 1, 0, 1, 0)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        catchup.device_apply_tail([], tail, 0, 0)
     state = make_state(16, batch=2, device="cpu")
     assert state.length.device.type == "cpu"
+    assert catchup.device_apply_tail([], tail, 0, 0, device="cpu")[0][
+        "text"] == "x"

@@ -1,7 +1,8 @@
 """The port's north-star step (fluidframework_tpu_torch/server/pipeline.py)
 against the JAX package's make_full_step(fused_apply=False) on the CPU (the
 scan apply with the jnp summary, which the JAX package's own tests hold
-bit-identical to its fused path), at B=16, T=32, C=64."""
+bit-identical to its fused path), at B=16, T=32, C=64, and above the fused
+apply's capacity at B=4, T=16, C=4,160."""
 
 import jax
 import jax.numpy as jnp
@@ -86,16 +87,34 @@ class TestFullStep:
                              run_port(cols, raw, 8))
 
     def test_capacity_above_limit_raises(self):
+        """Above max_fused_capacity the step no longer raises: it runs the
+        scan apply, as JAX's make_full_step does, and equals it at
+        C = 4,160 (4 docs x 16 ops), on its kernel path and composed
+        plain."""
         limit = max_fused_capacity(3, 1)
-        cols = gen_traces(1, 2)
+        b, t, c = 4, 16, 4160
+        assert c > limit
+        cols = gen_traces(b, t, seed=6)
         raw = {"client": cols["client"], "client_seq": cols["seq"],
                "ref_seq": cols["ref_seq"]}
-        with pytest.raises(ValueError, match=f"max_fused_capacity={limit}"):
-            pipeline.full_step(tk.make_ticket_state(4, 1, device="cpu"),
-                               make_state(limit + 1, 1, batch=1,
-                                          device="cpu"),
-                               interop.raw_ops_from_numpy(raw, "cpu"),
-                               interop.packed_ops_from_numpy(cols, "cpu"))
+        step = jax.jit(jax_step(1))
+        tout, mout, ticketed, total = step(
+            jtk.make_ticket_state(4, batch=b), jax_make_state(c, 1, batch=b),
+            jtk.RawOps(**{f: jnp.asarray(v) for f, v in raw.items()}),
+            JaxPackedOps(**{f: jnp.asarray(cols[f])
+                            for f in JaxPackedOps._fields}))
+        want = (jax_to_np(tout), jax_to_np(mout), jax_to_np(ticketed),
+                np.asarray(total))
+        for plain in (False, True):
+            out = pipeline.make_full_step(plain=plain)(
+                tk.make_ticket_state(4, b, device="cpu"),
+                make_state(c, 1, batch=b, device="cpu"),
+                interop.raw_ops_from_numpy(raw, "cpu"),
+                interop.packed_ops_from_numpy(cols, "cpu"))
+            got = (interop.to_numpy(out[0]), interop.to_numpy(out[1]),
+                   interop.to_numpy(out[2]), out[3].numpy())
+            assert_outputs_equal(got, want)
+        assert (want[3] > 0).all()
 
     def test_admit_ops_masks_unadmitted(self):
         cols, raw = step_inputs(3, 2)

@@ -24,14 +24,25 @@ on fuzzed tables and op streams. Each fused-apply row's bound counts the
 work of this run's data (the rows in use, live_slots) and, beside it,
 every slot of every table.
 The scan apply (mergetree/kernel.py over kernels/csrc/scan_apply.cu, any
-capacity) is held bit-exact against the plain scan on a fuzz grid up to
-C = 65,536, and against the fused kernel where that applies (phase 10).
-Then one document's bulk catch-up runs at full size (phase 11): the
-100,000-op keystroke trace of BASELINE.json config #2 through
-mergetree/catchup.device_apply_tail, held to the JAX golden digest, its
-first 10,000 ops to the plain composition entry by entry, timed with a
-host/device split; and full_step above the fused capacity (1,024 docs x
-100 ops at C = 8,192) against its plain composition.
+capacity) has four paths (the table in one block's shared memory, in a
+thread-block cluster's, or in device memory, and the first design,
+global_chunked) that mergetree/kernel.scan_geometry chooses from the
+shape; phase 10 holds every path (each cluster size that holds the
+table) bit-exact against the plain scan on a fuzz grid up to C = 65,536,
+and against the fused kernel where that applies. Then one document's bulk
+catch-up runs at full size (phase 11): the 100,000-op keystroke trace of
+BASELINE.json config #2 through mergetree/catchup.device_apply_tail,
+every chunk on the rule's path, held to the JAX golden digest, its first
+10,000 ops to the plain composition entry by entry, timed with a
+host/device split, and once more with every chunk forced onto
+global_chunked; and full_step above the fused capacity (1,024 docs x 100
+ops at C = 8,192) against its plain composition. At its three shapes
+(the first catch-up chunk at C = 4,096 and at C = 16,384, and full_step)
+every path is timed and the rule's may be at most PATH_MARGIN slower than
+the fastest; every path is also timed, for the smem path's rows, on two
+inputs whose tables fit one block (the C = 4,096 chunk with one annotate
+slot, where it must also equal the fused apply, and full_step's ops on
+C = 1,024 tables).
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -89,6 +100,9 @@ SCAN_CAPACITIES = (1, 33, 256, 1100, 4096, 4141, 4200, 16384, 65536)
 SCAN_BATCHES = (1, 8, 256)
 SCAN_ANNO = (1, 4, 64)
 SCAN_MAX_INTS = 2**31
+# Cluster sizes forced in phases 10 and 11 where they hold the table.
+SCAN_CLUSTER_SIZES = (2, 4, 8, 16)
+SM_COUNT = 132
 # Phase 11's second path: full_step above the fused capacity (documents,
 # ops, capacity; K=3, A=1).
 SCAN_STEP = (1024, 100, 8192)
@@ -435,17 +449,17 @@ def assert_trees_equal(got, want, what: str) -> None:
 
 def long_table(dev, batch: int, capacity: int, rows: int):
     """`rows` one-char segments at seq 0 per document (phase 6: so that
-    every shift moves lanes across the 1,024-thread chunk boundary)."""
-    from fluidframework_tpu_torch import interop
+    every shift moves lanes across the 1,024-thread chunk boundary), K=3,
+    A=4, built on `dev`."""
     from fluidframework_tpu_torch.mergetree.state import make_state
-    st = interop.to_numpy(make_state(capacity, A_SLOTS, batch=batch,
-                                     device="cpu"))
-    st["length"][:, :rows] = 1
-    st["ins_seq"][:, :rows] = 0
-    st["ins_client"][:, :rows] = 0
-    st["origin_op"][:, :rows] = np.arange(rows)
-    st["count"][:] = rows
-    return interop.doc_state_from_numpy(st, dev)
+    st = make_state(capacity, A_SLOTS, K_SLOTS, batch=batch, device=dev)
+    st.length[:, :rows] = 1
+    st.ins_seq[:, :rows] = 0
+    st.ins_client[:, :rows] = 0
+    st.origin_op[:, :rows] = torch.arange(rows, dtype=torch.int32,
+                                          device=st.length.device)
+    st.count[:] = rows
+    return st
 
 
 def ring_trial(serve, ts, pool_pre, lww, args, stage_names=None):
@@ -517,9 +531,9 @@ def main() -> int:
             f"expected 24 fused apply kernels, ptxas reports "
             f"{sorted(apply_kernels)}")
     scan_kernels = {k: r for k, r in report.items() if "scan_apply" in k}
-    require(len(scan_kernels) == 2,
-            f"expected 2 scan apply kernels, ptxas reports "
-            f"{sorted(scan_kernels)}")
+    require(len(scan_kernels) == 8,
+            f"expected 8 scan apply kernels (4 paths x 2 variants), ptxas "
+            f"reports {sorted(scan_kernels)}")
     spilled = sorted(k for k, r in {**apply_kernels, **scan_kernels}.items()
                      if r.get("stack") or r.get("spill_stores")
                      or r.get("spill_loads"))  # refused after the timings
@@ -763,8 +777,13 @@ def main() -> int:
                 bound_ms_every_slot=max(b_ms, every / PEAK_OPS_PER_S * 1e3),
                 bound_ms_every_slot_fp32_peak=max(
                     b_ms, every / PEAK_FP32_OPS_PER_S * 1e3))
+        if "sms" in r:  # the scan rows: the bound on the SMs it can use
+            row["bound_ms_sms"] = max(b_ms, r["ops"] / (
+                PEAK_OPS_PER_S * r["sms"] / SM_COUNT) * 1e3)
         row.update({key: r[key] for key in ("path", "paths", "shape",
-                                            "device_ms_by") if key in r})
+                                            "device_ms_by", "sms",
+                                            "blocks", "threads")
+                    if key in r})
         out.append(row)
     print(json.dumps({"kernels": out}))
     print(card)
@@ -1061,20 +1080,51 @@ def fused_takes(pa, capacity: int, k: int, a: int) -> bool:
         return False
 
 
+def scan_geometries(batch: int, capacity: int, k: int, a: int) -> dict:
+    """{label: ScanGeometry} of every scan-apply path that holds the table,
+    at the rule's threads for `batch` documents: global_chunked, global,
+    smem, and each cluster of SCAN_CLUSTER_SIZES."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    out = {p: kernel._forced_geometry(p, capacity, k, a, batch=batch)
+           for p in ("global_chunked", "global")}
+    try:
+        out["smem"] = kernel._forced_geometry("smem", capacity, k, a,
+                                              batch=batch)
+    except ValueError:
+        pass
+    for n in SCAN_CLUSTER_SIZES:
+        try:
+            out[f"cluster{n}"] = kernel._forced_geometry(
+                "cluster", capacity, k, a, blocks=n, batch=batch)
+        except ValueError:
+            pass
+    return out
+
+
+def scan_kernel_name(geo) -> str:
+    """The kernel a scan-apply path launches, as torch.profiler names it."""
+    return "scan_apply_kernel_" + (
+        "chunked" if geo.path == "global_chunked" else geo.path)
+
+
+def scan_label(geo) -> str:
+    return f"cluster{geo.blocks}" if geo.path == "cluster" else geo.path
+
+
 def scan_fuzz_phase(dev) -> None:
-    """Phase 10: the scan-apply kernel bit-exact against the plain scan on
-    fuzz_tables under gen_fuzz_traces over SCAN_CAPACITIES x SCAN_BATCHES
-    x SCAN_ANNO, plain and runs variants; a one-document cell takes the
-    near-full document of a fuzzed pair. Where the fused apply takes the
-    capacity, the scan kernel must also equal the fused kernel, bit for
-    bit."""
+    """Phase 10: every scan-apply path (scan_geometries) bit-exact against
+    the plain scan on fuzz_tables under gen_fuzz_traces over
+    SCAN_CAPACITIES x SCAN_BATCHES x SCAN_ANNO, plain and runs variants; a
+    one-document cell takes the near-full document of a fuzzed pair. Where
+    the fused apply takes the capacity, the scan kernel must also equal
+    the fused kernel, bit for bit."""
     from fluidframework_tpu_torch import interop
     from fluidframework_tpu_torch.mergetree import kernel
     from fluidframework_tpu_torch.mergetree import pallas_apply as pa
     from fluidframework_tpu_torch.testing.traces import (fuzz_tables,
                                                          gen_fuzz_traces)
     t0 = time.perf_counter()
-    checked, vs_fused, flagged, dropped = 0, 0, 0, []
+    checked, vs_fused, flagged, dropped = {}, 0, 0, []
     for ci, c in enumerate(SCAN_CAPACITIES):
         steps = 24 if c <= 4200 else 12 if c <= 16384 else 8
         for b in SCAN_BATCHES:
@@ -1088,6 +1138,7 @@ def scan_fuzz_phase(dev) -> None:
                     tables = {f: v[1:2] for f, v in tables.items()}
                 state = interop.doc_state_from_numpy(tables, dev)
                 length = tables["count"] * 2
+                geos = scan_geometries(b, c, 3, a)
                 for with_runs in (False, True):
                     got = gen_fuzz_traces(b, steps, seed=seed + with_runs,
                                           runs=with_runs, length=length)
@@ -1095,79 +1146,150 @@ def scan_fuzz_phase(dev) -> None:
                     ops = interop.packed_ops_from_numpy(cols, dev)
                     runs = None if run_np is None else \
                         interop.run_cols_from_numpy(run_np, dev)
-                    out = kernel.scan_apply(state, ops, runs)
                     want = kernel.scan_ops_plain(state, ops, True, runs)
-                    torch.cuda.synchronize()
-                    what = f"scan C={c} B={b} A={a} runs={with_runs}"
-                    assert_trees_equal(out, want, what)
                     flagged += int(want.overflow.sum())
-                    checked += 1
+                    what = f"scan C={c} B={b} A={a} runs={with_runs}"
+                    for label, geo in geos.items():
+                        out = kernel._launch(state, ops, runs, geo)
+                        torch.cuda.synchronize()
+                        assert_trees_equal(out, want, f"{what} {label}")
+                        checked[label] = checked.get(label, 0) + 1
                     if fused_takes(pa, c, 3, a):
                         fused = pa.apply_ops_fused(state, ops, runs)
                         torch.cuda.synchronize()
-                        assert_trees_equal(out, fused, f"{what} vs fused")
+                        assert_trees_equal(want, fused, f"{what} vs fused")
                         vs_fused += 1
                 del state, out, want
-    print(f"phase 10: scan_apply bit-exact against the plain scan in "
-          f"{checked} launches (capacities {SCAN_CAPACITIES} x documents "
-          f"{SCAN_BATCHES} x A {SCAN_ANNO} x plain/runs, K=3; "
-          f"{flagged} overflowed documents in the plain results), and "
-          f"equal to the fused kernel in the {vs_fused} where it applies; "
-          f"dropped cells (B, C, A): {dropped or 'none'}; "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 10: every scan_apply path bit-exact against the plain "
+          f"scan, launches by path {checked} (capacities "
+          f"{SCAN_CAPACITIES} x documents {SCAN_BATCHES} x A {SCAN_ANNO} x "
+          f"plain/runs, K=3; {flagged} overflowed documents in the plain "
+          f"results), and equal to the fused kernel in the {vs_fused} "
+          f"cells where it applies; dropped cells (B, C, A): "
+          f"{dropped or 'none'}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
-def scan_row(what: str, state, ops, runs, launches: int, reps: int,
-             shape: str) -> dict:
-    """The kernel row of one scan-apply launch over [B, C] CUDA tensors:
-    kernel device ms (profiler) and back-to-back ms, the plain scan's ms,
-    and the bound's work (the rows in use and every slot)."""
+def scan_rows(what: str, state, ops, runs, kernel_launches: dict,
+              reps: int, shape: str, card: str,
+              main_path: bool = True) -> list:
+    """The kernel rows of one scan-apply input ([B, C] CUDA tensors) on
+    every path (scan_geometries): kernel device ms (profiler, or events)
+    and back-to-back ms, the plain scan's ms, the bound's work (the rows
+    in use and every slot) and the SMs the launch can occupy. Fails unless
+    every path equals the plain scan and, for a main path's input, the
+    rule's path is at most PATH_MARGIN slower on the device than the
+    fastest."""
     from fluidframework_tpu_torch.mergetree import kernel
     b, c = state.length.shape
     k, a = state.overlap_slots, state.anno_slots
-    got = kernel.scan_apply(state, ops, runs)
+    variant = "runs" if runs is not None else "plain"
     want = kernel.scan_ops_plain(state, ops, True, runs)
+    plain_ms = once_ms(lambda: kernel.scan_ops_plain(state, ops, True,
+                                                      runs))
     torch.cuda.synchronize()
     kinds = ops.kind.cpu().numpy()
-    r = dict(
-        name="scan_apply", variant="runs" if runs is not None else "plain",
-        shape=shape,
-        source="fluidframework_tpu_torch/kernels/csrc/scan_apply.cu",
-        replaces="fluidframework_tpu/mergetree/kernel.py:396",
-        on_main_path=True, launches=launches, err=max_abs_err(got, want),
-        ms=ms_of(lambda: kernel.scan_apply(state, ops, runs), reps),
-        device_ms=None,
-        plain_ms=once_ms(lambda: kernel.scan_ops_plain(state, ops, True,
-                                                        runs)),
-        library_ms=None,
+    work = dict(
         bytes=fused_apply_bytes(b, c, ops.steps, k, a, runs is not None,
                                 False),
         ops=fused_apply_lane_ops(kinds, live_slots(state, ops, runs), k, a),
         ops_every_slot=fused_apply_lane_ops(kinds, c, k, a))
-    r["device_ms"], r["device_ms_by"] = long_kernel_ms(
-        lambda: kernel.scan_apply(state, ops, runs), reps,
-        "scan_apply_kernel")
-    bound = max(r["bytes"] / PEAK_BYTES_PER_S,
-                r["ops"] / PEAK_OPS_PER_S) * 1e3
-    every = max(r["bytes"] / PEAK_BYTES_PER_S,
-                r["ops_every_slot"] / PEAK_OPS_PER_S) * 1e3
-    print(f"  scan_apply[{r['variant']}] {what} [{shape}]: "
-          f"{fmt_ms(r['device_ms'])} kernel device time "
-          f"({r['device_ms_by']}), {r['ms']:.4f} ms "
-          f"back to back; bound {bound:.5f} ms over the rows in use, "
-          f"{every:.5f} ms over every slot; plain {r['plain_ms']:.3f} ms; "
-          f"max_abs_err {r['err']}", flush=True)
-    require(r["err"] == 0, f"scan_apply {what}: kernel vs plain differ")
-    return r
+    rule_geo = kernel.scan_geometry(b, c, k, a)
+    rule = scan_label(rule_geo)
+    geos = scan_geometries(b, c, k, a)
+    require(geos.get(rule) == rule_geo,
+            f"scan_apply at {shape}: the rule's {rule_geo} is not among "
+            f"the forced geometries")
+    rows = []
+    for label, geo in geos.items():
+        def run(geo=geo):
+            return kernel._launch(state, ops, runs, geo)
+        r = dict(
+            name="scan_apply", variant=variant, shape=shape, path=label,
+            blocks=geo.blocks, threads=geo.threads,
+            source="fluidframework_tpu_torch/kernels/csrc/scan_apply.cu",
+            replaces="fluidframework_tpu/mergetree/kernel.py:396",
+            on_main_path=main_path and label == rule,
+            launches=kernel_launches.get(f"{geo.path}[{variant}]", 0),
+            err=max_abs_err(run(), want), ms=ms_of(run, reps),
+            plain_ms=plain_ms, library_ms=None,
+            sms=min(b * geo.blocks, SM_COUNT), **work)
+        r["device_ms"], r["device_ms_by"] = long_kernel_ms(
+            run, reps, scan_kernel_name(geo))
+        require(r["err"] == 0, f"scan_apply {what} {label}: kernel vs "
+                "plain differ")
+        rows.append(r)
+    bound = max(work["bytes"] / PEAK_BYTES_PER_S,
+                work["ops"] / PEAK_OPS_PER_S) * 1e3
+    every = max(work["bytes"] / PEAK_BYTES_PER_S,
+                work["ops_every_slot"] / PEAK_OPS_PER_S) * 1e3
+    print(f"  scan_apply[{variant}] {what} [{shape}]: bound {bound:.5f} ms "
+          f"over the rows in use, {every:.5f} ms over every slot; plain "
+          f"{plain_ms:.3f} ms; the rule takes {rule}; card {card}",
+          flush=True)
+    for r in rows:
+        sm_bound = max(work["bytes"] / PEAK_BYTES_PER_S, work["ops"] / (
+            PEAK_OPS_PER_S * r["sms"] / SM_COUNT)) * 1e3
+        print(f"    {r['path']} ({r['blocks']} block(s) x {r['threads']} "
+              f"threads): {fmt_ms(r['device_ms'])} device "
+              f"({r['device_ms_by']}), {r['ms']:.4f} ms back to back; "
+              f"bound on its {r['sms']} SM(s) {sm_bound:.5f} ms",
+              flush=True)
+    dev_ms = {r["path"]: r["device_ms"] for r in rows}
+    best = min(dev_ms.values())
+    require(not main_path or dev_ms[rule] <= best * (1 + PATH_MARGIN),
+            f"scan_apply at {shape}: the rule's {rule} path "
+            f"({dev_ms[rule]:.4f} ms) is more than {PATH_MARGIN:.0%} slower "
+            f"than the fastest path ({best:.4f} ms)")
+    return rows
+
+
+def catchup_split(catchup, kernel, tail, dev, captured, n_ops: int,
+                  what: str, card: str) -> dict:
+    """A timed catch-up run, the compaction's device time, then a profiled
+    run (the longest trace of the script): wall, device busy and idle
+    share, the scan kernels' device time, the host's ms by stage."""
+    stats = {}
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    entries = catchup.device_apply_tail([], tail, 0, 0, device=dev,
+                                        stats=stats)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - h0) * 1e3
+    compact_ms = 0.0
+    for c, n in stats["compacts"].items():
+        st = captured[c][0]
+        per = kernel_device_ms(lambda: kernel.compact(st), 3)
+        compact_ms += n * sum(ms for ms, _n in per.values())
+    trace = kernel_device_ms(lambda: catchup.device_apply_tail(
+        [], tail, 0, 0, device=dev), 1)
+    busy = sum(ms for ms, _n in trace.values()) if trace else None
+    scan_ms = sum(ms for name, (ms, _n) in trace.items()
+                  if "scan_apply_kernel" in name) if trace else None
+    host = {k: round(v * 1e3, 3) for k, v in stats.items()
+            if k.endswith("_s")}
+    print(f"catch-up ({what}): {n_ops / (wall_ms / 1e3):.0f} ops/s, wall "
+          f"{wall_ms:.3f} ms; chunks {stats['chunks']}, folds "
+          f"{stats.get('folds', 0)}, retries {stats.get('retries', 0)}, "
+          f"compacts {stats['compacts']}, host reads {stats['host_reads']}; "
+          f"scan_apply kernels {fmt_ms(scan_ms)} device (profiler), "
+          f"compact {compact_ms:.3f} ms device; host ms {host}; device busy "
+          f"{fmt_ms(busy)} of the {wall_ms:.3f} ms wall (idle share "
+          + (f"{1 - busy / wall_ms:.3f}" if busy else "not measured")
+          + f"); card {card}", flush=True)
+    return {"entries": entries, "wall_ms": wall_ms, "busy_ms": busy,
+            "scan_ms": scan_ms}
 
 
 def catchup_phases(dev, card: str) -> list:
     """Phase 11, the configuration at full size: keystroke_trace(100,000,
     seed=12) through mergetree/catchup.device_apply_tail on the card,
-    every chunk on the scan-apply kernel, held to the JAX golden digest;
-    its first PLAIN_PREFIX ops also through the plain composition, entry
-    by entry; a timed run, a profiled run, and the kernel's times at the
-    first chunk of each capacity. Returns the scan kernel's rows."""
+    every chunk on the scan-apply kernel and on the path scan_geometry
+    names, held to the JAX golden digest; its first PLAIN_PREFIX ops also
+    through the plain composition, entry by entry; every path timed at
+    the first chunk of each capacity; a timed and a profiled run, then the
+    same with every chunk forced onto global_chunked. Returns the scan
+    kernel's rows."""
     from fluidframework_tpu_torch.mergetree import catchup, kernel
     from fluidframework_tpu_torch.mergetree import pallas_apply as pa
     from fluidframework_tpu_torch.testing import golden
@@ -1177,14 +1299,19 @@ def catchup_phases(dev, card: str) -> list:
     n_ops, seed, n_clients = g["full"]["trace"]
     tail = keystroke_trace(n_ops, seed=seed, n_clients=n_clients)
 
-    # The main path, counted: every apply launches the kernel once. The
-    # first chunk at each capacity is kept for the timings below.
-    captured = {}
+    # The main path, counted: every apply launches the kernel once, on the
+    # rule's path. The first chunk at each capacity is kept for the
+    # timings below.
+    captured, expected = {}, {}
     apply_keep = kernel.apply_ops_keep
 
     def capture(state, ops, runs=None):
         captured.setdefault(state.capacity, (
             type(state)(*(t.clone() for t in state)), ops, runs))
+        geo = kernel.scan_geometry(1, state.capacity, state.overlap_slots,
+                                   state.anno_slots)
+        key = f"{geo.path}[{'plain' if runs is None else 'runs'}]"
+        expected[key] = expected.get(key, 0) + 1
         return apply_keep(state, ops, runs)
 
     stats = {}
@@ -1198,13 +1325,17 @@ def catchup_phases(dev, card: str) -> list:
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - h0) * 1e3
         launches = kernel.scan_apply.launches
-        variants = dict(kernel.scan_apply.variant_launches)
+        by_kernel = {k: n for k, n in
+                     kernel.scan_apply.kernel_launches.items() if n}
     finally:
         kernel.apply_ops_keep = apply_keep
     applies = sum(stats["chunks"].values())
     require(launches > 0 and launches == applies,
             f"catch-up: {launches} scan_apply launches for {applies} chunk "
             "applies")
+    require(by_kernel == expected,
+            f"catch-up: launches by kernel {by_kernel}, the rule names "
+            f"{expected}")
     digest = golden.entries_digest(entries)
     require(digest == g["full"]["digest"],
             f"catch-up of {n_ops} ops: {digest} differs from the JAX "
@@ -1212,8 +1343,9 @@ def catchup_phases(dev, card: str) -> list:
     print(f"phase 11: catch-up of keystroke_trace({n_ops}, seed={seed}) "
           f"on the card equals the JAX golden (entries {digest['count']}, "
           f"visible length {digest['visible_length']}, entries and text "
-          f"sha256); scan_apply launches {launches} {variants}; first run "
-          f"{first_ms:.1f} ms", flush=True)
+          f"sha256); scan_apply launches {launches} by kernel {by_kernel}, "
+          f"each on the rule's path; first run {first_ms:.1f} ms",
+          flush=True)
     small_n, small_seed, small_clients = g["small"]["trace"]
     small = catchup.device_apply_tail(
         [], keystroke_trace(small_n, seed=small_seed,
@@ -1232,17 +1364,17 @@ def catchup_phases(dev, card: str) -> list:
     print(f"phase 11: the first {PLAIN_PREFIX} ops equal the plain "
           f"composition entry by entry ({len(got)} entries)", flush=True)
 
-    # the kernel's times at the catch-up's shapes (first chunk of each)
+    # every path's times at the catch-up's shapes (first chunk of each)
     rows = []
     for c in sorted(captured):
         state, ops, runs = captured[c]
         bs, bo = kernel._lift(state), kernel._lift(ops)
         br = kernel._lift(runs)
-        rows.append(scan_row("catch-up chunk", bs, bo, br, launches, 3,
-                             f"1 x C={c} x T {ops.steps}"))
-    # the fused kernel on the C = 4,096 chunk, annotate ring cut to one
-    # slot (the fused apply takes C = 4,096 only at A = 1), beside the
-    # scan kernel on the same input
+        rows += scan_rows("catch-up chunk", bs, bo, br, by_kernel, 3,
+                          f"1 x C={c} x T {ops.steps}", card)
+    # the C = 4,096 chunk with its annotate ring cut to one slot: the table
+    # then fits one block (the smem path's row) and the fused apply takes
+    # it too, which must agree
     if 4096 in captured:
         state, ops, runs = captured[4096]
         bs = kernel._lift(state)
@@ -1255,44 +1387,26 @@ def catchup_phases(dev, card: str) -> list:
         assert_trees_equal(scan_out, fused_out, "C=4096 A=1 scan vs fused")
         f_dev = long_kernel_ms(lambda: pa.apply_ops_fused(bs, bo, br), 3,
                                "fused_apply_kernel")
-        s_dev = long_kernel_ms(lambda: kernel.scan_apply(bs, bo, br), 3,
-                               "scan_apply_kernel")
         print(f"  C=4096 chunk at A=1: fused_apply {f_dev[0]:.4f} ms device "
               f"({f_dev[1]}; {pa.launch_geometry(1, 4096, 3, 1).path} "
-              f"path), scan_apply {s_dev[0]:.4f} ms device ({s_dev[1]}), "
-              "equal outputs", flush=True)
-    # a timed run, the compaction's device time, then a profiled run (last:
-    # it is the longest trace of the script)
-    stats = {}
-    torch.cuda.synchronize()
-    h0 = time.perf_counter()
-    again = catchup.device_apply_tail([], tail, 0, 0, device=dev,
-                                      stats=stats)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - h0) * 1e3
-    require(again == entries, "catch-up: the timed run differs")
-    compact_ms = 0.0
-    for c, n in stats["compacts"].items():
-        st = captured[c][0]
-        per = kernel_device_ms(lambda: kernel.compact(st), 3)
-        compact_ms += n * sum(ms for ms, _n in per.values())
-    trace = kernel_device_ms(lambda: catchup.device_apply_tail(
-        [], tail, 0, 0, device=dev), 1)
-    busy = sum(ms for ms, _n in trace.values()) if trace else None
-    scan_ms = sum(ms for name, (ms, _n) in trace.items()
-                  if "scan_apply_kernel" in name) if trace else None
-    host = {k: round(v * 1e3, 3) for k, v in stats.items()
-            if k.endswith("_s")}
-    print(f"catch-up: {n_ops / (wall_ms / 1e3):.0f} ops/s, wall "
-          f"{wall_ms:.3f} ms; chunks {stats['chunks']}, folds "
-          f"{stats.get('folds', 0)}, retries {stats.get('retries', 0)}, "
-          f"compacts {stats['compacts']}, host reads {stats['host_reads']}; "
-          f"scan_apply kernels {fmt_ms(scan_ms)} device (profiler), "
-          f"compact {compact_ms:.3f} ms device; host ms {host}; device busy "
-          f"{fmt_ms(busy)} of the {wall_ms:.3f} ms wall (idle share "
-          + (f"{1 - busy / wall_ms:.3f}" if busy else "not measured")
-          + f"); card {card}", flush=True)
+              "path), equal to the scan apply", flush=True)
+        rows += scan_rows("catch-up chunk at A=1", bs, bo, br, by_kernel, 3,
+                          f"1 x C=4096 x T {ops.steps}, A=1", card,
+                          main_path=False)
 
+    new = catchup_split(catchup, kernel, tail, dev, captured, n_ops,
+                        "the rule's paths", card)
+    require(new["entries"] == entries, "catch-up: the timed run differs")
+    rule = kernel.scan_geometry
+    kernel.scan_geometry = lambda b, c, k, a: kernel._forced_geometry(
+        "global_chunked", c, k, a)
+    try:
+        old = catchup_split(catchup, kernel, tail, dev, captured, n_ops,
+                            "every chunk on global_chunked", card)
+    finally:
+        kernel.scan_geometry = rule
+    require(old["entries"] == entries,
+            "catch-up on global_chunked differs from the rule's paths")
     return rows
 
 
@@ -1324,12 +1438,18 @@ def scan_full_step_phase(dev, card: str) -> list:
     pallas_ops.summary_lengths.launches = 0
     out = pipeline.full_step(*fresh(), raw, ops)
     torch.cuda.synchronize()
+    by_kernel = {k: n for k, n in kernel.scan_apply.kernel_launches.items()
+                 if n}
     launches = {"scan_apply": kernel.scan_apply.launches,
                 "summary_len": pallas_ops.summary_lengths.launches,
                 "fused_apply": pa.apply_ops_fused.launches}
     require(launches == {"scan_apply": 1, "summary_len": 1,
                          "fused_apply": 0},
             f"full_step at C={c}: launches {launches}")
+    rule = kernel.scan_geometry(b, c, 3, 1)
+    require(by_kernel == {f"{rule.path}[plain]": 1},
+            f"full_step at C={c}: scan launches {by_kernel}, the rule names "
+            f"{rule.path}")
     want = pipeline.make_full_step(plain=True)(*fresh(), raw, ops)
     torch.cuda.synchronize()
     assert_trees_equal(out, want, f"full_step {b}x{t} C={c} vs plain")
@@ -1340,8 +1460,12 @@ def scan_full_step_phase(dev, card: str) -> list:
           f"the plain composition; {b * t / (step_ms / 1e3):.0f} ops/s, "
           f"step {step_ms:.3f} ms; card {card}", flush=True)
     admitted = pipeline.admit_ops(ops, out[2])
-    return [scan_row("full_step", fresh()[1], admitted, None,
-                     launches["scan_apply"], 2, f"{b} x C={c} x T {t}")]
+    rows = scan_rows("full_step", fresh()[1], admitted, None, by_kernel, 2,
+                     f"{b} x C={c} x T {t}", card)
+    # the same ops on tables that fit one block (the smem path's row)
+    return rows + scan_rows("full_step's ops", make_state(
+        1024, 1, batch=b, device=dev), admitted, None, by_kernel, 2,
+        f"{b} x C=1024 x T {t}", card, main_path=False)
 
 
 if __name__ == "__main__":

@@ -126,10 +126,10 @@ def library() -> ctypes.CDLL:
                                           i32, i32, i32, i32, i32, i32, i32,
                                           ctypes.c_longlong, vp]
         lib.fluid_fused_apply.restype = i32
-        # ptrs, batch, capacity, K, A, steps, with_runs, threads,
-        # smem_bytes, stream
+        # ptrs, batch, capacity, K, A, steps, with_runs, path, blocks,
+        # threads, smem_bytes, stream
         lib.fluid_scan_apply.argtypes = [ctypes.POINTER(vp), i32, i32, i32,
-                                         i32, i32, i32, i32,
+                                         i32, i32, i32, i32, i32, i32,
                                          ctypes.c_longlong, vp]
         lib.fluid_scan_apply.restype = i32
         _LIB = lib

@@ -392,40 +392,160 @@ def scan_ops_plain(state: DocState, ops: PackedOps, batched: bool,
 # the kernel wrapper
 # ---------------------------------------------------------------------------
 
-# Shared memory a block may use on Hopper, and the reduction scratch
-# (scan_apply.cu kSmemLimit, kScratchInts): the per-op prefix-sum and
-# visibility planes share the block's shared memory up to
-# MAX_SHARED_SLOTS slots and live in a device scratch buffer above it.
+# scan_apply.cu's limits and layouts: the shared memory a block may use on
+# Hopper (kSmemLimit), threads per block at most (kScanThreads: 128
+# registers a thread), the scratch ints of the global_chunked path
+# (kScratchInts) and of the live paths (kLiveScratch), and the largest C
+# whose two view planes fit beside the latter (kMaxSharedSlots; above it
+# the device-memory paths keep them in a [B, 2, C] buffer).
 SMEM_LIMIT_BYTES = 232_448
-_SCRATCH_INTS = 128
-MAX_SHARED_SLOTS = (SMEM_LIMIT_BYTES - _SCRATCH_INTS * 4) // 8
-# Threads per block, at most (scan_apply.cu kScanThreads: 128 registers a
-# thread, where a 1,024-thread block's 64 spill).
 MAX_BLOCK_THREADS = 512
+_CHUNKED_SCRATCH_INTS = 128
+_LIVE_SCRATCH_INTS = 200
+MAX_SHARED_SLOTS = (SMEM_LIMIT_BYTES - _LIVE_SCRATCH_INTS * 4) // 8
+MAX_CLUSTER = 16   # 8 portable; 16 with the non-portable attribute
 _MAX_OVERLAP_SLOTS = 8
+# scan_apply.cu enum ScanPath. global_chunked is the first design (one
+# thread per slot, every pass over all C, three view passes per range op),
+# kept to be measured against; the rule never takes it.
+_SCAN_PATHS = {"global_chunked": 0, "global": 1, "smem": 2, "cluster": 3}
+SCAN_PATHS = tuple(_SCAN_PATHS)
+# The rule (scan_geometry), measured on the H100 by
+# `calibrate_fused_apply.py --scan` (PERF.md §6):
+# - a table that fits one block's shared memory takes the smem path
+#   (faster than every cluster and the global path at C = 1,024 for every
+#   B measured);
+# - else, from C = CLUSTER_MIN_CAPACITY on, while the launch has fewer
+#   than CLUSTER_MAX_DOCS documents, a cluster of CLUSTER_BLOCKS blocks,
+#   or the smallest larger one that holds the table (the catch-up's
+#   C = 16,384 chunk: 8 blocks 18% faster than the global path and than
+#   16 blocks; the grid at B = 1 and 8, C = 8,192-16,384, above 15% fill:
+#   8 blocks within 2% of the fastest); at B = 132 the global path was
+#   faster, and 16 is where 8-block clusters fill the 132 SMs. Below
+#   CLUSTER_MIN_CAPACITY the catch-up's C = 4,096 chunk (typing at the
+#   end: short shifts, the cluster barriers of each op not repaid) was
+#   fastest on the global path, 8% ahead of the best cluster;
+# - else the global path.
+# Threads: C (or a rank's slots) rounded up to 32, at most LIVE_THREADS;
+# at B >= MANY_DOCS (several blocks per SM), 128 on the smem path and 256
+# on the global path up to C = MANY_DOCS_GLOBAL_C.
+CLUSTER_BLOCKS = 8
+CLUSTER_MIN_CAPACITY = 8192
+CLUSTER_MAX_DOCS = 16
+LIVE_THREADS = 512
+MANY_DOCS = 1024
+MANY_DOCS_GLOBAL_C = 8192
 
 
 class ScanGeometry(NamedTuple):
-    """How one scan-apply launch is laid out: one block per document."""
+    """How one scan-apply launch is laid out on the card."""
+    path: str             # one of SCAN_PATHS
+    blocks: int           # per document (the cluster's size; else 1)
     threads: int          # per block
     smem_bytes: int       # dynamic shared memory per block
-    global_scratch: bool  # prefix-sum / visibility planes in device memory
+    global_scratch: bool  # view planes in a device buffer (global paths)
 
 
-def scan_geometry(capacity: int, k_slots: int, a_slots: int) -> ScanGeometry:
-    """The launch geometry of scan_apply.cu at capacity C (the kernel
-    checks it against its own formulas). Raises ValueError for K outside
-    1..8, A < 1, C < 1 or (8 + K + A) x C >= 2^31."""
+def _check_scan_shape(capacity: int, k_slots: int, a_slots: int) -> None:
     if not 1 <= k_slots <= _MAX_OVERLAP_SLOTS or a_slots < 1 \
             or capacity < 1 or (8 + k_slots + a_slots) * capacity >= 2**31:
         raise ValueError(
             f"the scan apply kernel takes 1 <= K <= {_MAX_OVERLAP_SLOTS}, "
             f"A >= 1, C >= 1 and (8 + K + A) * C < 2^31 (got K={k_slots}, "
             f"A={a_slots}, C={capacity})")
-    threads = min(-(-capacity // 32) * 32, MAX_BLOCK_THREADS)
-    shared = capacity <= MAX_SHARED_SLOTS
-    smem = (_SCRATCH_INTS + (2 * capacity if shared else 0)) * 4
-    return ScanGeometry(threads, smem, not shared)
+
+
+def shared_table_bytes(capacity: int, k_slots: int, a_slots: int,
+                       blocks: int) -> int:
+    """Shared memory of one block of the smem (blocks = 1) or cluster path:
+    a rank's slots of the P table planes and the two view planes, the
+    shift's staging (RUN_K slots of each), the scratch
+    (scan_apply.cu shared_table_bytes)."""
+    cs = -(-capacity // blocks)
+    return ((8 + k_slots + a_slots + 2) * (cs + RUN_K)
+            + _LIVE_SCRATCH_INTS) * 4
+
+
+def cluster_blocks(capacity: int, k_slots: int, a_slots: int,
+                   most: int = MAX_CLUSTER) -> Optional[int]:
+    """The smallest cluster (2, 4, 8, 16 blocks, at most `most`) whose
+    blocks hold the table in shared memory; None if none does."""
+    n = 2
+    while n <= most:
+        if shared_table_bytes(capacity, k_slots, a_slots, n) \
+                <= SMEM_LIMIT_BYTES:
+            return n
+        n *= 2
+    return None
+
+
+def _live_threads(batch: int, path: str, capacity: int, blocks: int) -> int:
+    """The rule's threads per block on a live path."""
+    threads = min(-(-capacity // blocks // 32) * 32, LIVE_THREADS)
+    if batch >= MANY_DOCS and path == "smem":
+        return min(threads, 128)
+    if batch >= MANY_DOCS and path == "global" \
+            and capacity <= MANY_DOCS_GLOBAL_C:
+        return min(threads, 256)
+    return threads
+
+
+def _forced_geometry(path: str, capacity: int, k_slots: int, a_slots: int,
+                     blocks: Optional[int] = None,
+                     threads: Optional[int] = None,
+                     batch: int = 1) -> ScanGeometry:
+    """The geometry of `path` at capacity C, whatever the rule says (the
+    cluster's size defaults to the smallest that holds the table, threads
+    to the rule's for `batch` documents): for tests and measurements.
+    Raises ValueError where the path cannot hold the table."""
+    _check_scan_shape(capacity, k_slots, a_slots)
+    if path not in _SCAN_PATHS:
+        raise ValueError(f"unknown scan path {path!r} (one of {SCAN_PATHS})")
+    big = capacity > MAX_SHARED_SLOTS
+    if path == "global_chunked":
+        thr = min(-(-capacity // 32) * 32, MAX_BLOCK_THREADS)
+        smem = (_CHUNKED_SCRATCH_INTS + (0 if big else 2 * capacity)) * 4
+        return ScanGeometry(path, 1, thr, smem, big)
+    if path == "global":
+        blocks, smem = 1, (_LIVE_SCRATCH_INTS
+                           + (0 if big else 2 * capacity)) * 4
+    elif path == "smem":
+        blocks = 1
+        smem = shared_table_bytes(capacity, k_slots, a_slots, 1)
+    else:
+        blocks = blocks or cluster_blocks(capacity, k_slots, a_slots)
+        if blocks is None or not 2 <= blocks <= MAX_CLUSTER:
+            raise ValueError(f"no cluster of 2..{MAX_CLUSTER} blocks holds "
+                             f"C={capacity} (K={k_slots}, A={a_slots})")
+        smem = shared_table_bytes(capacity, k_slots, a_slots, blocks)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"the {path} path cannot hold C={capacity} "
+                         f"(K={k_slots}, A={a_slots}, {blocks} block(s): "
+                         f"{smem} bytes of shared memory)")
+    if threads is None:
+        threads = _live_threads(batch, path, capacity, blocks)
+    return ScanGeometry(path, blocks, threads, smem,
+                        path == "global" and big)
+
+
+def scan_geometry(batch: int, capacity: int, k_slots: int,
+                  a_slots: int) -> ScanGeometry:
+    """The path, blocks per document, threads and shared memory of a
+    scan-apply launch over B documents of capacity C: one fixed rule,
+    measured on the H100 (PERF.md §6; scan_apply.cu checks the geometry
+    against its own formulas). Raises ValueError for K outside 1..8,
+    A < 1, C < 1 or (8 + K + A) x C >= 2^31."""
+    _check_scan_shape(capacity, k_slots, a_slots)
+    if shared_table_bytes(capacity, k_slots, a_slots, 1) <= SMEM_LIMIT_BYTES:
+        return _forced_geometry("smem", capacity, k_slots, a_slots,
+                                batch=batch)
+    n = cluster_blocks(capacity, k_slots, a_slots)
+    if n is not None and batch < CLUSTER_MAX_DOCS \
+            and capacity >= CLUSTER_MIN_CAPACITY:
+        return _forced_geometry("cluster", capacity, k_slots, a_slots,
+                                max(n, CLUSTER_BLOCKS), batch=batch)
+    return _forced_geometry("global", capacity, k_slots, a_slots,
+                            batch=batch)
 
 
 def _check_launchable(state: DocState, ops: PackedOps,
@@ -453,37 +573,53 @@ def _check_launchable(state: DocState, ops: PackedOps,
 
 def scan_apply(state: DocState, ops: PackedOps,
                runs: Optional[RunCols] = None) -> DocState:
-    """One launch of kernels/csrc/scan_apply.cu: [B, T] op streams (and
-    [B, T, RUN_K] runs) applied to B documents of any capacity, into a new
-    state; the input is left as it was. CUDA tensors only: a shape or
-    device the kernel does not take, a build error or a launch error
-    raises. Counted in scan_apply.launches (and per variant)."""
+    """One launch of kernels/csrc/scan_apply.cu on the path scan_geometry
+    names: [B, T] op streams (and [B, T, RUN_K] runs) applied to B
+    documents of any capacity, into a new state; the input is left as it
+    was. CUDA tensors only: a shape or device the kernel does not take, a
+    build error or a launch error (a cluster that cannot be scheduled
+    too) raises. Counted in scan_apply.launches (per variant and per
+    kernel)."""
+    b, c = state.length.shape
+    return _launch(state, ops, runs, scan_geometry(
+        b, c, state.overlap_slots, state.anno_slots))
+
+
+def _launch(state: DocState, ops: PackedOps, runs: Optional[RunCols],
+            geo: ScanGeometry) -> DocState:
+    """One scan-apply launch with an explicit geometry (scan_apply takes
+    the rule's; tests and measurements force others)."""
     _check_launchable(state, ops, runs)
     b, c = state.length.shape
     k, a = state.overlap_slots, state.anno_slots
-    geo = scan_geometry(c, k, a)
     dev = state.length.device
     out = DocState(*(torch.empty_like(t) for t in state))
-    work = torch.empty((b, 8 + k + a, c), dtype=_I32, device=dev)
+    work = torch.empty((b, 8 + k + a, c), dtype=_I32, device=dev) \
+        if geo.path in ("global", "global_chunked") else None
     scratch = torch.empty((b, 2, c), dtype=_I32, device=dev) \
         if geo.global_scratch else None
-    ptrs = [t.data_ptr() for t in (*state, *out, *ops, *(runs or ()), work)]
-    ptrs.append(scratch.data_ptr() if scratch is not None else None)
+    ptrs = [t.data_ptr() for t in (*state, *out, *ops, *(runs or ()))]
+    ptrs += [None if x is None else x.data_ptr() for x in (work, scratch)]
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     lib = build.library()
     scan_apply.launches += 1
-    scan_apply.variant_launches["runs" if runs is not None else "plain"] += 1
+    variant = "runs" if runs is not None else "plain"
+    scan_apply.variant_launches[variant] += 1
+    scan_apply.kernel_launches[f"{geo.path}[{variant}]"] += 1
     build.check(lib.fluid_scan_apply(
-        arr, b, c, k, a, ops.steps, int(runs is not None), geo.threads,
-        geo.smem_bytes, ctypes.c_void_p(build.stream_handle())),
-        "scan_apply")
+        arr, b, c, k, a, ops.steps, int(runs is not None),
+        _SCAN_PATHS[geo.path], geo.blocks, geo.threads, geo.smem_bytes,
+        ctypes.c_void_p(build.stream_handle())), "scan_apply")
     return out
 
 
 def reset_launches() -> None:
-    """Zero scan_apply's launch counts (total and per variant)."""
+    """Zero scan_apply's launch counts: in all, per variant, and per
+    kernel ("path[variant]")."""
     scan_apply.launches = 0
     scan_apply.variant_launches = {"plain": 0, "runs": 0}
+    scan_apply.kernel_launches = {f"{p}[{v}]": 0 for p in SCAN_PATHS
+                                  for v in ("plain", "runs")}
 
 
 reset_launches()

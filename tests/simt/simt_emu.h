@@ -1,9 +1,13 @@
 // A SIMT emulator that runs a CUDA C++ kernel source on the CPU, for the
 // conformance tests of the port's hand-written kernels
-// (tests/test_torch_fused_emu.py). It is not a CUDA implementation: it
-// provides only what fused_apply.cu uses, and no timing means anything.
+// (tests/test_torch_fused_emu.py, tests/test_torch_scan_emu.py). It is not
+// a CUDA implementation: it provides only what fused_apply.cu and
+// scan_apply.cu use, and no timing means anything.
 //
-// Every CUDA thread of a block is a ucontext coroutine. A thread runs until
+// Every CUDA thread of a block is a ucontext coroutine; the blocks of one
+// thread-block cluster run together under one scheduler, each with its own
+// shared memory, and cooperative_groups' this_cluster() gives their
+// cluster barrier and map_shared_rank. A thread runs until
 // it reaches a warp or block primitive; the primitives are barriers that
 // exchange values, so a thread that reads another thread's shared memory
 // without a barrier between the write and the read sees whatever the
@@ -36,7 +40,8 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute {
   cudaFuncAttributeMaxDynamicSharedMemorySize,
-  cudaFuncAttributePreferredSharedMemoryCarveout
+  cudaFuncAttributePreferredSharedMemoryCarveout,
+  cudaFuncAttributeNonPortableClusterSizeAllowed
 };
 enum { cudaSharedmemCarveoutMaxShared = 100 };
 template <class T>
@@ -46,33 +51,48 @@ cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 struct EmuDim { unsigned x, y, z; };
-// A set of threads that meet at a barrier: a warp or the block.
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
+// A set of threads that meet at a barrier: a warp, a block or a cluster.
 struct EmuGroup {
   int size = 0;
   int count = 0;
   unsigned gen = 0;
   int64_t vals[1024];
 };
+struct EmuCopy { void* dst; const void* src; size_t n; };
+// One block: its index, its rank in its cluster, its own shared memory
+// (random words at launch) and its warps' and its own barriers.
+struct EmuBlock {
+  EmuDim idx;
+  int rank;
+  std::vector<int> shared;
+  EmuGroup warps[32];
+  EmuGroup block;
+};
 struct EmuThread {
   ucontext_t ctx;
   EmuDim tidx;
   bool done;
   std::vector<char> stack;
+  EmuBlock* blk;
+  std::vector<EmuCopy> pending;  // cp.async copies not yet waited for
 };
-struct EmuCopy { void* dst; const void* src; size_t n; };
 
 inline EmuThread* emu_cur;
 inline ucontext_t emu_sched;
-inline EmuDim emu_block_idx, emu_block_dim;
-inline EmuGroup emu_warps[32];
-inline EmuGroup emu_block;
-inline int* emu_smem;
+inline EmuDim blockDim;  // every block of a launch has the same
+inline std::vector<EmuBlock> emu_blocks;  // the running cluster's blocks
+inline EmuGroup emu_cluster;              // all of their threads
+inline size_t emu_smem_bytes;
 inline std::mt19937 emu_rng(12345);
-inline std::vector<EmuCopy> emu_pending[1024];
 
 #define threadIdx (emu_cur->tidx)
-#define blockIdx (emu_block_idx)
-#define blockDim (emu_block_dim)
+#define blockIdx (emu_cur->blk->idx)
+#define emu_smem (emu_cur->blk->shared.data())
 
 inline void emu_yield() { swapcontext(&emu_cur->ctx, &emu_sched); }
 inline void emu_barrier(EmuGroup& g) {
@@ -85,7 +105,7 @@ inline void emu_barrier(EmuGroup& g) {
   }
 }
 inline int emu_lane() { return threadIdx.x & 31; }
-inline EmuGroup& emu_warp() { return emu_warps[threadIdx.x >> 5]; }
+inline EmuGroup& emu_warp() { return emu_cur->blk->warps[threadIdx.x >> 5]; }
 inline void emu_full(unsigned mask) {
   if (mask != 0xffffffffu) abort();  // only full-warp masks are modelled
 }
@@ -137,9 +157,9 @@ inline void __syncwarp(unsigned m = 0xffffffffu) {
   emu_full(m);
   emu_barrier(emu_warp());
 }
-inline void __syncthreads() { emu_barrier(emu_block); }
+inline void __syncthreads() { emu_barrier(emu_cur->blk->block); }
 inline int __syncthreads_or(int p) {
-  EmuGroup& g = emu_block;
+  EmuGroup& g = emu_cur->blk->block;
   g.vals[threadIdx.x] = p != 0;
   emu_barrier(g);
   int r = 0;
@@ -149,14 +169,37 @@ inline int __syncthreads_or(int p) {
 }
 
 inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
-  emu_pending[threadIdx.x].push_back({dst, src, n});
+  emu_cur->pending.push_back({dst, src, n});
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(int) {
-  auto& q = emu_pending[threadIdx.x];
+  auto& q = emu_cur->pending;
   for (const EmuCopy& c : q) memcpy(c.dst, c.src, c.n);
   q.clear();
 }
+
+// The thread-block cluster of cooperative_groups: a barrier over every
+// thread of every block of the cluster, and a pointer into another
+// block's shared memory at the same offset.
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const { emu_barrier(emu_cluster); }
+  unsigned block_rank() const { return emu_cur->blk->rank; }
+  unsigned num_blocks() const { return emu_blocks.size(); }
+  template <class T>
+  T* map_shared_rank(T* p, int rank) const {
+    const char* base =
+        reinterpret_cast<const char*>(emu_cur->blk->shared.data());
+    const ptrdiff_t off = reinterpret_cast<const char*>(p) - base;
+    if (off < 0 || static_cast<size_t>(off) >= emu_smem_bytes ||
+        rank < 0 || rank >= static_cast<int>(emu_blocks.size()))
+      abort();  // not this block's shared memory, or no such rank
+    return reinterpret_cast<T*>(
+        reinterpret_cast<char*>(emu_blocks[rank].shared.data()) + off);
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
 
 template <class K, class A> struct EmuCall {
   static inline K kern;
@@ -167,27 +210,38 @@ template <class K, class A> struct EmuCall {
   }
 };
 
-// kern<<<grid, threads, smem>>>(a), one block after another.
+// kern<<<grid, threads, smem>>>(a) in clusters of `cluster` blocks: the
+// blocks of one cluster run together, their threads in one shuffled
+// order; one cluster after another.
 template <class K, class A>
-void emu_launch(K kern, int grid, int threads, size_t smem, A a) {
+void emu_run(K kern, int grid, int cluster, int threads, size_t smem, A a) {
   EmuCall<K, A>::kern = kern;
   EmuCall<K, A>::args = &a;
-  std::vector<int> shared(smem / sizeof(int) + 1);
-  std::vector<EmuThread> th(threads);
-  std::vector<int> order(threads);
-  for (int b = 0; b < grid; ++b) {
-    for (int& x : shared) x = static_cast<int>(emu_rng());
-    emu_smem = shared.data();
-    emu_block_idx = EmuDim{static_cast<unsigned>(b), 0, 0};
-    emu_block_dim = EmuDim{static_cast<unsigned>(threads), 1, 1};
-    for (int w = 0; w < (threads + 31) / 32; ++w)
-      emu_warps[w] = EmuGroup{32, 0, 0, {}};
-    emu_block.size = threads;
-    emu_block.count = 0;
-    for (int t = 0; t < threads; ++t) {
+  emu_smem_bytes = smem;
+  blockDim = EmuDim{static_cast<unsigned>(threads), 1, 1};
+  const int n = cluster * threads;
+  std::vector<EmuThread> th(n);
+  std::vector<int> order(n);
+  for (int b0 = 0; b0 < grid; b0 += cluster) {
+    emu_blocks.assign(cluster, EmuBlock{});
+    for (int r = 0; r < cluster; ++r) {
+      EmuBlock& blk = emu_blocks[r];
+      blk.idx = EmuDim{static_cast<unsigned>(b0 + r), 0, 0};
+      blk.rank = r;
+      blk.shared.resize(smem / sizeof(int) + 1);
+      for (int& x : blk.shared) x = static_cast<int>(emu_rng());
+      for (int w = 0; w < (threads + 31) / 32; ++w)
+        blk.warps[w] = EmuGroup{32, 0, 0, {}};
+      blk.block.size = threads;
+    }
+    emu_cluster.size = n;
+    emu_cluster.count = 0;
+    for (int t = 0; t < n; ++t) {
       EmuThread& e = th[t];
       e.done = false;
-      e.tidx = EmuDim{static_cast<unsigned>(t), 0, 0};
+      e.blk = &emu_blocks[t / threads];
+      e.tidx = EmuDim{static_cast<unsigned>(t % threads), 0, 0};
+      e.pending.clear();
       e.stack.resize(1 << 16);
       getcontext(&e.ctx);
       e.ctx.uc_stack.ss_sp = e.stack.data();
@@ -207,4 +261,39 @@ void emu_launch(K kern, int grid, int threads, size_t smem, A a) {
       }
     }
   }
+}
+
+template <class K, class A>
+void emu_launch(K kern, int grid, int threads, size_t smem, A a) {
+  emu_run(kern, grid, 1, threads, smem, a);
+}
+
+// cudaLaunchKernelEx with the one attribute the kernels use, the cluster
+// dimension.
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue {
+  struct { unsigned x, y, z; } clusterDim;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class A, class B>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kern)(A),
+                               B&& b) {
+  int cluster = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      cluster = cfg->attrs[i].val.clusterDim.x;
+  if (cfg->gridDim.x % cluster != 0) return cudaErrorInvalidValue;
+  emu_run(kern, cfg->gridDim.x, cluster, cfg->blockDim.x,
+          cfg->dynamicSmemBytes, A(b));
+  return cudaSuccess;
 }

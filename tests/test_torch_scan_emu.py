@@ -1,18 +1,22 @@
 """The CUDA source of the scan apply (fluidframework_tpu_torch/kernels/
-csrc/scan_apply.cu) run on the CPU, both variants, against the port's
-plain scan apply, bit for bit.
+csrc/scan_apply.cu) run on the CPU, every path and both variants, against
+the port's plain scan apply, bit for bit.
 
-scan_apply.cu includes fused_apply.cu for the per-slot rules and the
-block path's primitives; both sources are compiled with the host's C++
-compiler against tests/simt/simt_emu.h, the SIMT emulator of
-tests/test_torch_fused_emu.py (each CUDA thread a coroutine, warp and block
-primitives as barriers, a shuffled thread order, shared memory starting
-as random words). Device buffers are host memory here, so the table's
-work buffer and the prefix-sum scratch are too. The capacities cross the
-512-thread chunk loop and the fused apply's 4,141-slot limit; the
-shared-memory scratch limit (28,992 slots) is crossed by forcing the
-device-memory scratch at a small C. Only the card (chip_smoke.py) shows
-that nvcc builds the kernel and what it costs.
+scan_apply.cu includes fused_apply.cu for the per-slot rules and
+apply_one; both sources are compiled with the host's C++ compiler against
+tests/simt/simt_emu.h, the SIMT emulator of tests/test_torch_fused_emu.py
+(each CUDA thread a coroutine, warp, block and cluster primitives as
+barriers, a shuffled thread order over all the blocks of a cluster, each
+block's shared memory starting as random words, map_shared_rank as a
+pointer into another block's). Device buffers are host memory here, so
+the global paths' work buffer and view buffer are too. The cases cover:
+the live-row cut on exact padding (empty and near-full tables), the
+whole-table branch on stale padding (every fourth fuzzed document), one
+block's shared memory, clusters of 2, 4 and 8 blocks (ranks of fewer slots
+than a run's 8-slot shift, so shifts cross one or more ranks), the global
+path with its view planes in shared memory and, with the limit forced to
+0 slots, in the device buffer, and the global_chunked path. Only the card
+(chip_smoke.py) shows that nvcc builds the kernels and what they cost.
 """
 
 import ctypes
@@ -41,28 +45,25 @@ INVALID_VALUE = 1  # cudaErrorInvalidValue
 
 
 def scan_emu_source(text: str, max_shared_slots: int) -> str:
-    """scan_apply.cu for the emulator, with the shared-memory scratch limit
-    set to `max_shared_slots` (the real one is out of an emulated block's
-    reach)."""
-    text = text.replace("#include <cuda_runtime.h>", '#include "simt_emu.h"')
+    """scan_apply.cu for the emulator, with the device-memory paths' view
+    limit set to `max_shared_slots` (the real one is out of an emulated
+    block's reach)."""
+    text = text.replace("#include <cooperative_groups.h>\n", "")
     text, n_smem = re.subn(r"extern __shared__ int smem\[\];",
                            "int* smem = emu_smem;", text)
-    text, n_launch = re.subn(
-        r"(\w+)<<<([^,]+),([^,]+),([^,]+),([^>]+)>>>\((\w+)\);",
-        r"emu_launch(\1, \2, \3, \4, \6);", text)
     text, n_limit = re.subn(
         r"constexpr int kMaxSharedSlots =[^;]*;",
         f"constexpr int kMaxSharedSlots = {max_shared_slots};", text)
-    assert (n_smem, n_launch, n_limit) == (1, 1, 1), \
-        (n_smem, n_launch, n_limit)
+    assert (n_smem, n_limit) == (2, 1), (n_smem, n_limit)
     return text
 
 
-def _build(tmp_path_factory, name, max_shared_slots):
+def build_emulated(work: Path, max_shared_slots: int):
+    """Compile scan_apply.cu and fused_apply.cu for the emulator in `work`
+    and load it."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the emulated kernel")
-    work = tmp_path_factory.mktemp(name)
     (work / "fused_apply.cu").write_text(
         emu_source((CSRC / "fused_apply.cu").read_text()))
     src = work / "scan_apply_emu.cpp"
@@ -77,48 +78,49 @@ def _build(tmp_path_factory, name, max_shared_slots):
     dll = ctypes.CDLL(str(lib))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     dll.fluid_scan_apply.argtypes = [ctypes.POINTER(vp), i32, i32, i32, i32,
-                                     i32, i32, i32, ctypes.c_longlong, vp]
+                                     i32, i32, i32, i32, i32,
+                                     ctypes.c_longlong, vp]
     dll.fluid_scan_apply.restype = i32
     return dll
 
 
 @pytest.fixture(scope="module")
 def emu_lib(tmp_path_factory):
-    """The kernel as built for the card: shared-memory scratch at every C
-    an emulated test reaches."""
-    return _build(tmp_path_factory, "scan_emu", tkernel.MAX_SHARED_SLOTS)
+    """The kernels as built for the card: view planes in shared memory at
+    every C an emulated test reaches."""
+    return build_emulated(tmp_path_factory.mktemp("scan_emu"),
+                          tkernel.MAX_SHARED_SLOTS)
 
 
 @pytest.fixture(scope="module")
 def emu_lib_global(tmp_path_factory):
-    """The kernel with its shared-memory limit at 0 slots: the prefix-sum
-    and visibility planes always in the device-memory scratch buffer."""
-    return _build(tmp_path_factory, "scan_emu_global", 0)
+    """The kernels with the view limit at 0 slots: the global paths keep
+    their view planes in the device-memory buffer at every C."""
+    return build_emulated(tmp_path_factory.mktemp("scan_emu_global"), 0)
 
 
-def emu_scan(lib, state, ops, runs, global_scratch=False, threads=None,
-             smem=None, scratch="auto"):
+def emu_scan(lib, state, ops, runs, geo, path_code=None, work="auto",
+             scratch="auto"):
     """One emulated launch with the wrapper's pointer layout; outputs start
-    as junk so that every output element must be written, and the work
-    buffer as junk so that every plane must be loaded."""
+    as junk so that every output element must be written, and the work and
+    view buffers as junk so that every plane must be loaded."""
     b, c = state.length.shape
     k, a = state.overlap_slots, state.anno_slots
     out = DocState(*(torch.ones_like(t) if t.dtype == torch.bool
                      else torch.full_like(t, 77) for t in state))
-    work = torch.full((b, 8 + k + a, c), -55, dtype=torch.int32)
-    geo = tkernel.scan_geometry(c, k, a)
-    if global_scratch:
-        geo = geo._replace(smem_bytes=128 * 4, global_scratch=True)
-    buf = torch.full((b, 2, c), 99, dtype=torch.int32) \
+    global_path = geo.path in ("global", "global_chunked")
+    wbuf = torch.full((b, 8 + k + a, c), -55, dtype=torch.int32) \
+        if (global_path if work == "auto" else work) else None
+    sbuf = torch.full((b, 2, c), 99, dtype=torch.int32) \
         if (geo.global_scratch if scratch == "auto" else scratch) else None
-    ptrs = [t.data_ptr() for t in (*state, *out, *ops, *(runs or ()),
-                                   work)]
-    ptrs.append(buf.data_ptr() if buf is not None else None)
+    ptrs = [t.data_ptr() for t in (*state, *out, *ops, *(runs or ()))]
+    ptrs += [None if x is None else x.data_ptr() for x in (wbuf, sbuf)]
     before = [t.clone() for t in state]
     rc = lib.fluid_scan_apply(
         (ctypes.c_void_p * len(ptrs))(*ptrs), b, c, k, a, ops.steps,
-        int(runs is not None), geo.threads if threads is None else threads,
-        geo.smem_bytes if smem is None else smem, None)
+        int(runs is not None),
+        tkernel._SCAN_PATHS[geo.path] if path_code is None else path_code,
+        geo.blocks, geo.threads, geo.smem_bytes, None)
     for t, t0 in zip(state, before):
         assert torch.equal(t, t0), "the kernel wrote its input"
     return rc, out
@@ -144,10 +146,22 @@ def cases(batch, capacity, k, a, steps, seed, fuzz):
                     interop.run_cols_from_numpy(rruns, "cpu"))]
 
 
+def check_geometries(lib, state, streams, geos, fuzz):
+    for ops, runs in streams:
+        want = tkernel.scan_ops_plain(state, ops, batched=True, runs=runs)
+        for geo in geos:
+            rc, got = emu_scan(lib, state, ops, runs, geo)
+            assert rc == 0, geo
+            assert_same(got, want, f"{geo} runs={runs is not None}")
+    if fuzz and state.capacity > 1:  # the fuzz reaches the overflow rules
+        assert bool(want.overflow.any())
+
+
 # (B, C, K, A, T, seed, fuzzed?): one slot, one warp's worth, partly
-# filled warps, the block's chunk loop (C = 1,024 / 1,100), the fused
-# apply's limit at K=3, A=1 (4,141 slots) and past it, K and A at their
-# extremes, and a deep annotate ring.
+# filled warps, C = 1,024 / 1,100, the fused apply's limit at K=3, A=1
+# (4,141 slots) and past it, K and A at their extremes, and a deep
+# annotate ring; each on the path the rule names (smem, or global above
+# one block's shared memory).
 CASES = [
     (3, 1, 3, 4, 8, 0, True),
     (4, 33, 3, 1, 12, 1, True),
@@ -165,44 +179,90 @@ CASES = [
 def test_emulated_kernel_matches_plain(emu_lib, batch, capacity, k, a,
                                        steps, seed, fuzz):
     state, streams = cases(batch, capacity, k, a, steps, seed, fuzz)
-    for ops, runs in streams:
-        want = tkernel.scan_ops_plain(state, ops, batched=True, runs=runs)
-        rc, got = emu_scan(emu_lib, state, ops, runs)
-        assert rc == 0
-        assert_same(got, want, f"C={capacity} runs={runs is not None}")
-    if fuzz and capacity > 1:  # the fuzz reaches the overflow rules
-        assert bool(want.overflow.any())
+    geo = tkernel.scan_geometry(batch, capacity, k, a)
+    check_geometries(emu_lib, state, streams, [geo], fuzz)
+
+
+# (path, blocks, threads, B, C, K, A, T, seed, fuzzed?): every path at
+# few threads (strips of several slots), clusters whose ranks hold fewer
+# slots than a run's shift (C = 40 over 8 ranks: 5 slots each) and more,
+# near-full and stale-padded fuzz tables, and empty tables where the live
+# rows are a small part of C.
+PATH_CASES = [
+    ("smem", 1, 32, 4, 70, 3, 4, 14, 21, True),
+    ("smem", 1, 64, 2, 300, 3, 1, 24, 22, False),
+    ("global", 1, 32, 4, 70, 3, 4, 14, 23, True),
+    ("global", 1, 96, 2, 300, 3, 1, 24, 24, False),
+    ("global_chunked", 1, None, 4, 70, 3, 4, 14, 25, True),
+    ("cluster", 2, 32, 4, 70, 3, 4, 14, 26, True),
+    ("cluster", 2, 64, 2, 300, 3, 1, 24, 27, False),
+    ("cluster", 4, 32, 4, 40, 3, 2, 14, 28, True),
+    ("cluster", 4, 32, 4, 130, 8, 1, 12, 29, True),
+    ("cluster", 8, 32, 4, 40, 3, 4, 14, 30, True),
+    ("cluster", 8, 32, 2, 200, 1, 3, 20, 31, False),
+]
+
+
+@pytest.mark.parametrize(
+    "path,blocks,threads,batch,capacity,k,a,steps,seed,fuzz", PATH_CASES)
+def test_emulated_paths_match_plain(emu_lib, path, blocks, threads, batch,
+                                    capacity, k, a, steps, seed, fuzz):
+    state, streams = cases(batch, capacity, k, a, steps, seed, fuzz)
+    geo = tkernel._forced_geometry(path, capacity, k, a,
+                                   blocks=blocks if path == "cluster"
+                                   else None, threads=threads)
+    check_geometries(emu_lib, state, streams, [geo], fuzz)
 
 
 @pytest.mark.parametrize("capacity", [40, 1100])
 def test_emulated_kernel_device_memory_scratch(emu_lib_global, capacity):
-    """The prefix-sum and visibility planes in the device-memory scratch
-    buffer (the path of C > 28,992 on the card)."""
-    state, streams = cases(2, capacity, 3, 4, 8, 11, True)
-    for ops, runs in streams:
-        want = tkernel.scan_ops_plain(state, ops, batched=True, runs=runs)
-        rc, got = emu_scan(emu_lib_global, state, ops, runs,
-                           global_scratch=True)
-        assert rc == 0
-        assert_same(got, want, f"C={capacity} runs={runs is not None}")
+    """The global paths' view planes in the device-memory buffer (the
+    paths of C > MAX_SHARED_SLOTS on the card)."""
+    state, streams = cases(4 if capacity < 100 else 2, capacity, 3, 4, 8,
+                           11, True)
+    geos = []
+    for path in ("global", "global_chunked"):
+        geo = tkernel._forced_geometry(path, capacity, 3, 4)
+        geos.append(geo._replace(
+            smem_bytes=geo.smem_bytes - 2 * capacity * 4,
+            global_scratch=True))
+    check_geometries(emu_lib_global, state, streams, geos, True)
 
 
 def test_emulated_kernel_refuses_other_geometries(emu_lib):
     """The C side checks the host's geometry against its own formulas and
     launches nothing on a mismatch."""
     state, ((ops, _runs), _) = cases(2, 64, 3, 1, 4, 0, True)
-    geo = tkernel.scan_geometry(64, 3, 1)
-    for kwargs in (dict(threads=32), dict(smem=geo.smem_bytes + 4),
-                   dict(scratch=True)):
-        rc, got = emu_scan(emu_lib, state, ops, None, **kwargs)
-        assert rc == INVALID_VALUE, kwargs
-        assert bool((got.length == 77).all()), kwargs  # nothing ran
+    smem = tkernel._forced_geometry("smem", 64, 3, 1)
+    chunked = tkernel._forced_geometry("global_chunked", 64, 3, 1)
+    glob = tkernel._forced_geometry("global", 64, 3, 1)
+    cl = tkernel._forced_geometry("cluster", 64, 3, 1, blocks=4)
+    bad = [(chunked._replace(threads=32), {}),
+           (chunked._replace(smem_bytes=chunked.smem_bytes + 4), {}),
+           (chunked, dict(scratch=True)),
+           (glob._replace(threads=48), {}),
+           (glob._replace(threads=544), {}),
+           (glob, dict(work=False)),
+           (smem._replace(smem_bytes=smem.smem_bytes - 4), {}),
+           (smem._replace(blocks=2), {}),
+           (smem, dict(work=True)),
+           (cl._replace(blocks=1), {}),
+           (cl._replace(blocks=32), {}),
+           (cl._replace(smem_bytes=smem.smem_bytes), {}),
+           (smem, dict(path_code=7))]  # no such path
+    for geo, kwargs in bad:
+        rc, got = emu_scan(emu_lib, state, ops, None, geo, **kwargs)
+        assert rc == INVALID_VALUE, (geo, kwargs)
+        assert bool((got.length == 77).all()), geo  # nothing ran
     wide = make_state(4, 1, 9, batch=1, device="cpu")  # K = 9 > 8
     ops1 = interop.packed_ops_from_numpy(gen_traces(1, 2), "cpu")
-    ptrs = [t.data_ptr() for t in (*wide, *wide, *ops1, wide.length)]
+    ptrs = [t.data_ptr() for t in (*wide, *wide, *ops1)]
     rc = emu_lib.fluid_scan_apply(
-        (ctypes.c_void_p * (len(ptrs) + 1))(*ptrs, None), 1, 4, 9, 1, 2, 0,
-        32, 128 * 4 + 2 * 4 * 4, None)
+        (ctypes.c_void_p * (len(ptrs) + 2))(*ptrs, None, None), 1, 4, 9, 1,
+        2, 0, tkernel._SCAN_PATHS["smem"], 1, 32,
+        tkernel.shared_table_bytes(4, 9, 1, 1), None)
     assert rc == INVALID_VALUE
     with pytest.raises(ValueError, match="1 <= K <= 8"):
-        tkernel.scan_geometry(4, 9, 1)
+        tkernel.scan_geometry(1, 4, 9, 1)
+    with pytest.raises(ValueError, match="cannot hold"):
+        tkernel._forced_geometry("smem", 4096, 3, 4)

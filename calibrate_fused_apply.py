@@ -1,8 +1,9 @@
 """Calibration of the fused apply's and the scan apply's launch geometry on
 one NVIDIA GPU.
 
-    python3 calibrate_fused_apply.py          # the fused apply
-    python3 calibrate_fused_apply.py --scan   # the scan apply
+    python3 calibrate_fused_apply.py                  # the fused apply
+    python3 calibrate_fused_apply.py --scan           # the scan apply
+    python3 calibrate_fused_apply.py --scan --paged   # at paged shapes
 
 
 Times the kernel (torch.profiler device time, the median of three
@@ -21,10 +22,11 @@ cell, then one {"calibration": ...} JSON line. Exits nonzero when CUDA is
 not available.
 
 With --scan: the scan apply (mergetree/kernel.py over kernels/csrc/
-scan_apply.cu). The kernel's device time (torch.profiler, the median of
-two interleaved rounds of SCAN_REPS launches) on every path that holds
-the table (smem and global at 128, 256 and 512 threads, each cluster
-size), the outputs of all paths equal on every input:
+scan_apply.cu). The kernel's device time (the least of SCAN_REPS single
+launches between CUDA events, the median of two interleaved rounds; the
+profiler's traces of this kernel were not reliable) on every path that
+holds the table (smem and global at 128, 256 and 512 threads, each
+cluster size), the outputs of all paths equal on every input:
   - at the main paths' scan inputs: the first chunk at each capacity of
     the 100,000-op keystroke catch-up, and full_step's 1,024 x 100
     admitted ops at C = 8,192 (chip_smoke.py phase 11);
@@ -32,7 +34,11 @@ size), the outputs of all paths equal on every input:
     A=4, tables filled to that share of C with one-char rows,
     SCAN_GRID_STEPS INSERT_RUN-mix steps of gen_run_traces).
 These are the tables behind mergetree/kernel.scan_geometry; it prints one
-{"scan_calibration": ...} line.
+{"scan_calibration": ...} line. With --scan --paged, only the grid at the
+paged serving shapes: SCAN_PAGED_DOCS x SCAN_PAGED_CAPACITIES x
+SCAN_PAGED_FILLS (chip_smoke.py phase 12's hot page groups are 64
+documents at C = 4,096 and 8,192), with the same op mix and with plain
+inserts and removes (gen_traces: the paged burst's and apply's ops).
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ import torch
 
 from chip_smoke import (A_SLOTS, K_SLOTS, SCAN_STEP, SmokeFailure,
                         assert_trees_equal, card_line, fmt_ms, long_table,
-                        one_kernel_ms, scan_kernel_name)
+                        long_kernel_ms, one_kernel_ms)
 
 WARP_DOCS = (1, 2, 4, 8)
 GRID_DOCS = (128, 256, 512, 768, 1024, 4096, 16384)
@@ -63,6 +69,9 @@ SCAN_GRID_DOCS = (1, 8, 132, 1024)
 SCAN_GRID_CAPACITIES = (1024, 4096, 8192, 16384)
 SCAN_GRID_FILLS = (0.02, 0.15, 0.35, 0.9)
 SCAN_GRID_STEPS = 64
+SCAN_PAGED_DOCS = (16, 32, 64, 128)
+SCAN_PAGED_CAPACITIES = (4096, 8192)
+SCAN_PAGED_FILLS = (0.02, 0.15, 0.35, 0.6, 0.9)
 SCAN_REPS = 3
 SCAN_THREADS = (128, 256, 512)   # global and smem
 SCAN_CATCHUP = (100_000, 12)     # chip_smoke.py's catch-up: keystroke_trace
@@ -223,11 +232,8 @@ def time_scan(kernel, state, ops, runs, geos: dict, what: str) -> dict:
     for rnd in range(2):
         for label in (order if rnd == 0 else order[::-1]):
             geo = geos[label]
-            ms = one_kernel_ms(
-                lambda: kernel._launch(state, ops, runs, geo), SCAN_REPS,
-                scan_kernel_name(geo))
-            if ms is None:
-                raise SmokeFailure(f"no device time for {label} at {what}")
+            ms, _how = long_kernel_ms(
+                lambda: kernel._launch(state, ops, runs, geo), SCAN_REPS)
             samples[label].append(ms)
     return {label: float(np.median(v)) for label, v in samples.items()}
 
@@ -277,12 +283,14 @@ def scan_main(card: str) -> int:
     from fluidframework_tpu_torch import interop
     from fluidframework_tpu_torch.kernels import build
     from fluidframework_tpu_torch.mergetree import kernel
-    from fluidframework_tpu_torch.testing.traces import gen_run_traces
+    from fluidframework_tpu_torch.testing.traces import (gen_run_traces,
+                                                         gen_traces)
     dev = torch.device("cuda")
     build.library()
 
+    paged = "--paged" in sys.argv[1:]
     shapes = []
-    for what, state, ops, runs in scan_shapes(dev):
+    for what, state, ops, runs in ([] if paged else scan_shapes(dev)):
         b, c = state.length.shape
         k, a = state.overlap_slots, state.anno_slots
         times = time_scan(kernel, state, ops, runs,
@@ -294,23 +302,29 @@ def scan_main(card: str) -> int:
         del state
 
     grid = []
-    for c in SCAN_GRID_CAPACITIES:
-        geos = scan_geometries(c, K_SLOTS, A_SLOTS)
-        for b in SCAN_GRID_DOCS:
-            cols, runs_np = gen_run_traces(b, SCAN_GRID_STEPS, seed=c + b)
-            ops = interop.packed_ops_from_numpy(cols, dev)
-            runs = interop.run_cols_from_numpy(runs_np, dev)
-            for fill in SCAN_GRID_FILLS:
-                state = long_table(dev, b, c, int(c * fill))
-                what = f"scan grid B={b} C={c} fill {fill}"
-                times = time_scan(kernel, state, ops, runs, geos, what)
-                rule = scan_label(kernel.scan_geometry(b, c, K_SLOTS,
-                                                       A_SLOTS))
-                report(what, times, rule)
-                grid.append({"docs": b, "capacity": c, "fill": fill,
-                             "times": times, "rule": rule,
-                             "best": min(times, key=times.get)})
-                del state
+    for mix in ("runs", "plain") if paged else ("runs",):
+        for c in SCAN_PAGED_CAPACITIES if paged else SCAN_GRID_CAPACITIES:
+            geos = scan_geometries(c, K_SLOTS, A_SLOTS)
+            for b in SCAN_PAGED_DOCS if paged else SCAN_GRID_DOCS:
+                if mix == "runs":
+                    cols, runs_np = gen_run_traces(b, SCAN_GRID_STEPS,
+                                                   seed=c + b)
+                    runs = interop.run_cols_from_numpy(runs_np, dev)
+                else:
+                    cols, runs = gen_traces(b, SCAN_GRID_STEPS,
+                                            seed=c + b), None
+                ops = interop.packed_ops_from_numpy(cols, dev)
+                for fill in SCAN_PAGED_FILLS if paged else SCAN_GRID_FILLS:
+                    state = long_table(dev, b, c, int(c * fill))
+                    what = f"scan grid {mix} B={b} C={c} fill {fill}"
+                    times = time_scan(kernel, state, ops, runs, geos, what)
+                    rule = scan_label(kernel.scan_geometry(b, c, K_SLOTS,
+                                                           A_SLOTS))
+                    report(what, times, rule)
+                    grid.append({"mix": mix, "docs": b, "capacity": c,
+                                 "fill": fill, "times": times, "rule": rule,
+                                 "best": min(times, key=times.get)})
+                    del state
     print(json.dumps({"scan_calibration": {"shapes": shapes, "grid": grid,
                                            "card": card,
                                            "steps": SCAN_GRID_STEPS}}),

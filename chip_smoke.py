@@ -43,6 +43,20 @@ the fastest; every path is also timed, for the smem path's rows, on two
 inputs whose tables fit one block (the C = 4,096 chunk with one annotate
 slot, where it must also equal the fused apply, and full_step's ops on
 C = 1,024 tables).
+Phase 12 is a paged flush with hot documents (testing/serving.py
+HOT_RING: FULL_RING's partition plus 64 documents pre-seeded to 3,500
+live rows): one megakernel ring, whose hot page group (C = 4,096) lies
+above the fused capacity and takes the scan apply beside the fused
+apply's groups; then a backlog staged as the JAX sequencer's paged
+applier stages it (apply_ops_paged per group, serve_paged_burst for the
+hot documents' 700 ops each at C = 8,192), a rollback_pages round trip
+and compact_pages; every output held to the plain composition, the scan
+launches per kernel held to the rule, the ring and the burst timed.
+Phase 13 replays the 100,000-op keystroke trace op by op through the
+port's MergeTreeClient (a prefix, within SCALAR_BUDGET_S), holds its
+text to the device catch-up's, and fits the cost model
+(mergetree/costmodel.py): scalar cost per op against live segments,
+device wall per chunk and per op, and the crossover.
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -108,6 +122,21 @@ SM_COUNT = 132
 SCAN_STEP = (1024, 100, 8192)
 # The plain composition of phase 11 replays this prefix of the trace.
 PLAIN_PREFIX = 10_000
+# Phase 12: the testing/serving.py fleet with hot documents, its pool in
+# pages, and each hot document's backlog in ops (the other documents take
+# one window's worth of their class's ops).
+HOT_SPEC = "HOT_RING"
+HOT_POOL_PAGES = 32_768
+HOT_BACKLOG = 700
+RING_SCAN_STAGES = RING_STAGES + ("apply_scan_plain", "apply_scan_runs")
+# Phase 13: the scalar replay stops after the block that crosses this many
+# seconds (a stated prefix of the trace); blocks of this many ops are the
+# points of the scalar fit; the device catch-up is timed on these
+# prefixes of the same trace (and on the whole trace) for the device fit.
+SCALAR_BUDGET_S = 60.0
+SCALAR_BLOCK = 2_500
+DEVICE_PREFIXES = (64, 256, 512, 2_048, 8_192, 32_768)
+CROSSOVER_SEGMENTS = (20, 100, 300, 1_000, 3_000)
 # fused_apply.cu's ptxas registers as PERF.md §6 records them: the block
 # path 64 in every variant; the warp path by (kR, runs).
 FUSED_WARP_REGISTERS = {(1, 0): 73, (1, 1): 76, (2, 0): 71, (2, 1): 77,
@@ -242,16 +271,15 @@ def once_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def long_kernel_ms(fn, reps: int, kernel: str):
+def long_kernel_ms(fn, reps: int):
     """(device ms per launch, how) of a function that launches one long
-    kernel: torch.profiler's time (one_kernel_ms) where its trace holds
-    the kernel, else the least of `reps` single launches between two
-    CUDA events (for a kernel of milliseconds the events add
-    microseconds). Some traces of the scan kernel came back empty on the
-    H100."""
-    ms = one_kernel_ms(fn, reps, kernel)
-    if ms is not None:
-        return ms, "profiler"
+    kernel: the least of `reps` single launches between two CUDA events,
+    after one warm-up (for a kernel of a tenth of a millisecond or more
+    the events add a few microseconds). torch.profiler's traces of the
+    scan kernel came back empty, or held part of its time (3.0963 ms for
+    a 6.3 ms launch), on the H100, so every path is timed the same
+    way."""
+    fn()
     return min(once_ms(fn) for _ in range(reps)), "events"
 
 
@@ -754,7 +782,10 @@ def main() -> int:
     fuzz_phase(dev)
     scan_fuzz_phase(dev)
     rows += scan_full_step_phase(dev, card)
-    rows += catchup_phases(dev, card)
+    catchup_rows, catchup_entries = catchup_phases(dev, card)
+    rows += catchup_rows
+    rows += paged_phase(dev, card)
+    scalar_phase(dev, card, catchup_entries)
 
     require(not spilled, f"apply kernels use stack or spill: {spilled}")
     out = []
@@ -1101,12 +1132,6 @@ def scan_geometries(batch: int, capacity: int, k: int, a: int) -> dict:
     return out
 
 
-def scan_kernel_name(geo) -> str:
-    """The kernel a scan-apply path launches, as torch.profiler names it."""
-    return "scan_apply_kernel_" + (
-        "chunked" if geo.path == "global_chunked" else geo.path)
-
-
 def scan_label(geo) -> str:
     return f"cluster{geo.blocks}" if geo.path == "cluster" else geo.path
 
@@ -1174,8 +1199,10 @@ def scan_rows(what: str, state, ops, runs, kernel_launches: dict,
               reps: int, shape: str, card: str,
               main_path: bool = True) -> list:
     """The kernel rows of one scan-apply input ([B, C] CUDA tensors) on
-    every path (scan_geometries): kernel device ms (profiler, or events)
-    and back-to-back ms, the plain scan's ms, the bound's work (the rows
+    every path (scan_geometries): kernel device ms (CUDA events,
+    long_kernel_ms) and back-to-back ms, the launches of the rule's path
+    in the main path's run (0 on the other rows), the plain scan's ms,
+    the bound's work (the rows
     in use and every slot) and the SMs the launch can occupy. Fails unless
     every path equals the plain scan and, for a main path's input, the
     rule's path is at most PATH_MARGIN slower on the device than the
@@ -1210,12 +1237,12 @@ def scan_rows(what: str, state, ops, runs, kernel_launches: dict,
             source="fluidframework_tpu_torch/kernels/csrc/scan_apply.cu",
             replaces="fluidframework_tpu/mergetree/kernel.py:396",
             on_main_path=main_path and label == rule,
-            launches=kernel_launches.get(f"{geo.path}[{variant}]", 0),
+            launches=kernel_launches.get(f"{geo.path}[{variant}]", 0)
+            if label == rule else 0,
             err=max_abs_err(run(), want), ms=ms_of(run, reps),
             plain_ms=plain_ms, library_ms=None,
             sms=min(b * geo.blocks, SM_COUNT), **work)
-        r["device_ms"], r["device_ms_by"] = long_kernel_ms(
-            run, reps, scan_kernel_name(geo))
+        r["device_ms"], r["device_ms_by"] = long_kernel_ms(run, reps)
         require(r["err"] == 0, f"scan_apply {what} {label}: kernel vs "
                 "plain differ")
         rows.append(r)
@@ -1281,7 +1308,7 @@ def catchup_split(catchup, kernel, tail, dev, captured, n_ops: int,
             "scan_ms": scan_ms}
 
 
-def catchup_phases(dev, card: str) -> list:
+def catchup_phases(dev, card: str):
     """Phase 11, the configuration at full size: keystroke_trace(100,000,
     seed=12) through mergetree/catchup.device_apply_tail on the card,
     every chunk on the scan-apply kernel and on the path scan_geometry
@@ -1289,7 +1316,7 @@ def catchup_phases(dev, card: str) -> list:
     through the plain composition, entry by entry; every path timed at
     the first chunk of each capacity; a timed and a profiled run, then the
     same with every chunk forced onto global_chunked. Returns the scan
-    kernel's rows."""
+    kernel's rows and the catch-up's entries."""
     from fluidframework_tpu_torch.mergetree import catchup, kernel
     from fluidframework_tpu_torch.mergetree import pallas_apply as pa
     from fluidframework_tpu_torch.testing import golden
@@ -1385,8 +1412,7 @@ def catchup_phases(dev, card: str) -> list:
         scan_out = kernel.scan_apply(bs, bo, br)
         torch.cuda.synchronize()
         assert_trees_equal(scan_out, fused_out, "C=4096 A=1 scan vs fused")
-        f_dev = long_kernel_ms(lambda: pa.apply_ops_fused(bs, bo, br), 3,
-                               "fused_apply_kernel")
+        f_dev = long_kernel_ms(lambda: pa.apply_ops_fused(bs, bo, br), 3)
         print(f"  C=4096 chunk at A=1: fused_apply {f_dev[0]:.4f} ms device "
               f"({f_dev[1]}; {pa.launch_geometry(1, 4096, 3, 1).path} "
               "path), equal to the scan apply", flush=True)
@@ -1407,7 +1433,7 @@ def catchup_phases(dev, card: str) -> list:
         kernel.scan_geometry = rule
     require(old["entries"] == entries,
             "catch-up on global_chunked differs from the rule's paths")
-    return rows
+    return rows, entries
 
 
 def scan_full_step_phase(dev, card: str) -> list:
@@ -1466,6 +1492,420 @@ def scan_full_step_phase(dev, card: str) -> list:
     return rows + scan_rows("full_step's ops", make_state(
         1024, 1, batch=b, device=dev), admitted, None, by_kernel, 2,
         f"{b} x C=1024 x T {t}", card, main_path=False)
+
+
+def device_busy_ms(fn):
+    """Device busy milliseconds of one call of fn: torch.profiler's device
+    time of every kernel it traced, except the scan-apply kernels, whose
+    launches through ctypes the trace often misses: those are timed with
+    a CUDA event pair around each launch (kernel._launch) in the same
+    call. None when the profiler recorded nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fluidframework_tpu_torch.mergetree import kernel
+    launch, pairs = kernel._launch, []
+
+    def timed(*args, **kwargs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = launch(*args, **kwargs)
+        e1.record()
+        pairs.append((e0, e1))
+        return out
+
+    torch.cuda.synchronize()
+    kernel._launch = timed
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        kernel._launch = launch
+    other = [ev.self_device_time_total / 1e3 for ev in prof.key_averages()
+             if ev.self_device_time_total > 0
+             and "scan_apply_kernel" not in ev.key]
+    if not other and not pairs:
+        return None
+    return sum(other) + sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def clone_state(st):
+    return type(st)(*(t.clone() for t in st))
+
+
+def paged_phase(dev, card: str) -> list:
+    """Phase 12, a paged flush with hot documents: FULL_RING's partition
+    plus HOT_RING's 64 documents pre-seeded to 3,500 live rows.
+    (a) One megakernel ring: the small page groups on the fused apply,
+    the hot group (C = 4,096, above max_fused_capacity) on the scan apply,
+    counted per kernel, held to the plain composition, timed with a stage
+    split. (b) A backlog staged as the JAX sequencer's
+    MergeLaneStore._apply_paged stages it (testing/serving.
+    stage_paged_groups): one apply_ops_paged per group of small documents,
+    one serve_paged_burst for the hot documents' HOT_BACKLOG ops each (K =
+    3 chunks at T = 256, padded to 4, C = 8,192), every output held to
+    plain=True; the burst timed (events, device idle share); a
+    rollback_pages round trip on a sub-plane of the hot group, then
+    compact_pages over it. Returns the scan kernel's rows at the ring's
+    hot-group window 0 and at the burst's first chunk."""
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.mergetree.oppack import PackedOps
+    from fluidframework_tpu_torch.mergetree.paging import (PagedMergeStore,
+                                                           pow2_pages)
+    from fluidframework_tpu_torch.server import serve_step
+    from fluidframework_tpu_torch.server import ticket_kernel as tk
+    from fluidframework_tpu_torch.server.lww_kernel import make_lww_state
+    from fluidframework_tpu_torch.testing import serving
+
+    fleet = serving.ServingFleet(getattr(serving, HOT_SPEC), seed=0)
+    spec = fleet.spec
+    store = PagedMergeStore(pages=HOT_POOL_PAGES, device=dev)
+    limit = pa.max_fused_capacity(K_SLOTS, A_SLOTS)
+
+    # -- (a) one ring: fused apply on the small groups, scan on the hot one
+    t0 = time.perf_counter()
+    staged = fleet.stage_ring(store)
+    stage_s = time.perf_counter() - t0
+    args = interop.ring_args_from_numpy(staged.args, dev)
+    caps = [p.shape[1] * store.page_rows for p in staged.args.page_ids]
+    hot = [g for g, c in enumerate(caps) if c > limit]
+    require(len(hot) == 1, f"phase 12: page group capacities {caps}, "
+            f"expected one above {limit}")
+    hot_g = hot[0]
+    ts0 = tk.make_ticket_state(serving.TICKET_CLIENTS, spec.docs,
+                               device=dev)
+    lww0 = [make_lww_state(spec.lww_capacity, fleet.lww_lanes, device=dev)]
+    pool_pre = clone_state(store.pool)
+    want = serve_step.make_serve_megakernel(keep=True, plain=True)(
+        ts0, pool_pre, lww0, *args, stats=True)
+    torch.cuda.synchronize()
+    pa.reset_launches()
+    kernel.reset_launches()
+    got = serve_step.serve_megakernel(ts0, store.pool, lww0, *args,
+                                      stats=True)
+    torch.cuda.synchronize()
+    fused_n = pa.apply_ops_fused.launches
+    fused_by = {v: n for v, n in pa.apply_ops_fused.variant_launches.items()
+                if n}
+    ring_scan = {k: n for k, n in kernel.scan_apply.kernel_launches.items()
+                 if n}
+    assert_trees_equal(got, want, "phase 12 ring vs the plain composition")
+    n_pad = staged.args.page_ids[hot_g].shape[0]
+    geo = kernel.scan_geometry(n_pad, caps[hot_g], K_SLOTS, A_SLOTS)
+    variant = "plain" if staged.args.runs_xs[hot_g] is None else "runs"
+    require(ring_scan == {f"{geo.path}[{variant}]": spec.windows},
+            f"phase 12 ring: scan launches {ring_scan}, expected "
+            f"{spec.windows} on {geo.path}[{variant}]")
+    require(fused_n == spec.windows * (len(caps) - 1),
+            f"phase 12 ring: {fused_n} fused launches for "
+            f"{len(caps) - 1} groups x {spec.windows} windows")
+    layout = serve_step.flat16_layout(spec.docs, spec.steps,
+                                      staged.merge_lanes, staged.lww_lanes,
+                                      True, True)
+    lo, _hi = layout["overflow"]
+    over = got[3][-1, lo:lo + sum(staged.merge_lanes)].cpu().numpy()
+    require(np.array_equal(over != 0,
+                           np.concatenate(staged.expected_overflow)),
+            "phase 12 ring: overflow lanes differ from the mispredicted "
+            "runs")
+    print(f"phase 12: ring of {spec.docs} documents ({staged.counts}), "
+          f"groups {[tuple(p.shape) for p in staged.args.page_ids]} (C "
+          f"{caps}; the hot group above max_fused_capacity {limit}), "
+          f"staged in {stage_s:.2f} s; fused launches {fused_by}, scan "
+          f"launches {ring_scan} ({geo}); equal to the plain composition",
+          flush=True)
+    trials = [ring_trial(serve_step.serve_megakernel, ts0, pool_pre, lww0,
+                         args) for _ in range(TRIALS)]
+    splits = [ring_trial(serve_step.serve_megakernel, ts0, pool_pre, lww0,
+                         args, RING_SCAN_STAGES)[2] for _ in range(TRIALS)]
+    ring_ms = float(np.median([t[0] for t in trials]))
+    split = {k: round(float(np.median([x[k] for x in splits])), 3)
+             for k in RING_SCAN_STAGES}
+    n_ops = staged.counts["merge_ops"] + staged.counts["lww_ops"]
+    print(f"phase 12 ring: {n_ops / (ring_ms / 1e3):.0f} ops/s, p50 "
+          f"{ring_ms:.3f} ms (host clock p50 "
+          f"{float(np.median([t[1] for t in trials])):.3f} ms, trials "
+          f"{[round(t[0], 3) for t in trials]}), stage p50 ms {split}; "
+          f"card {card}", flush=True)
+    ring_view = got[5][hot_g]
+    serving.adopt_ring(store, staged, got[3][-1].cpu().numpy(), stats=True)
+    del want, trials, splits
+
+    # -- (b) the backlog: apply_ops_paged per group, a burst for the hot one
+    streams = fleet.backlog(lambda cls: HOT_BACKLOG if cls.rows else cls.ops)
+    groups = serving.stage_paged_groups(store, streams)
+    bursts = [g for g in groups if g.burst]
+    require(len(bursts) == 1 and bursts[0].ops["kind"].shape[0] == 4
+            and bursts[0].page_ids.shape[1] * store.page_rows == 8192,
+            f"phase 12 backlog: expected one 4-chunk burst at C = 8,192, "
+            f"got {[(g.page_ids.shape, g.burst) for g in groups]}")
+
+    def dispatch(pool, g, plain):
+        dargs = [torch.from_numpy(x).to(dev) for x in (
+            g.page_ids, g.counts, g.min_seqs, g.seqs)]
+        ops = interop.packed_ops_from_numpy(g.ops, dev)
+        fn = serve_step.serve_paged_burst if g.burst \
+            else kernel.apply_ops_paged
+        return fn(pool, *dargs, ops, stats=True, plain=plain)
+
+    backlog_pre = clone_state(store.pool)
+    ref_pool = clone_state(store.pool)
+    refs = [dispatch(ref_pool, g, True) for g in groups]
+    torch.cuda.synchronize()
+    pa.reset_launches()
+    kernel.reset_launches()
+    outs = [dispatch(store.pool, g, False) for g in groups]
+    torch.cuda.synchronize()
+    backlog_scan = {k: n for k, n in kernel.scan_apply.kernel_launches.items()
+                    if n}
+    expect = {}
+    for g in groups:
+        b, p2 = g.page_ids.shape
+        geo = kernel.scan_geometry(b, p2 * store.page_rows, K_SLOTS, A_SLOTS)
+        key = f"{geo.path}[plain]"
+        expect[key] = expect.get(key, 0) + (
+            g.ops["kind"].shape[0] if g.burst else 1)
+    require(backlog_scan == expect and pa.apply_ops_fused.launches == 0,
+            f"phase 12 backlog: scan launches {backlog_scan}, expected "
+            f"{expect}; fused launches {pa.apply_ops_fused.launches}")
+    assert_trees_equal(store.pool, ref_pool, "phase 12 backlog pool")
+    for g, out, ref in zip(groups, outs, refs):
+        assert_trees_equal(out[1:], ref[1:], f"phase 12 backlog group "
+                           f"{g.page_ids.shape}")
+        require(not bool(out[5].any()), f"phase 12 backlog group "
+                f"{g.page_ids.shape} overflowed")
+    del ref_pool, refs
+    print(f"phase 12: backlog of {sum(g.n_ops for g in groups)} ops in "
+          f"{len(groups)} page groups "
+          f"{[(tuple(g.page_ids.shape), 'burst' if g.burst else 'apply') for g in groups]}"
+          f", scan launches by kernel {backlog_scan}; every output equal "
+          "to plain=True", flush=True)
+
+    hb = bursts[0]
+    hot_i = groups.index(hb)
+    hot_out = outs[hot_i]
+    bargs = [torch.from_numpy(x).to(dev) for x in (
+        hb.page_ids, hb.counts, hb.min_seqs, hb.seqs)]
+    bops = interop.packed_ops_from_numpy(hb.ops, dev)
+    burst_ms = []
+    for _ in range(TRIALS):
+        pool = clone_state(backlog_pre)
+        burst_ms.append(once_ms(lambda: serve_step.serve_paged_burst(
+            pool, *bargs, bops)))
+    pool = clone_state(backlog_pre)
+    busy = device_busy_ms(lambda: serve_step.serve_paged_burst(
+        pool, *bargs, bops))
+    b_ms = float(np.median(burst_ms))
+    print(f"phase 12 burst: {hb.n_ops} ops of {len(hb.keys)} hot documents"
+          f" in {hb.ops['kind'].shape[0]} chunks of [{hb.page_ids.shape[0]}"
+          f" x C={hb.page_ids.shape[1] * store.page_rows}] x T "
+          f"{hb.ops['kind'].shape[-1]}: {hb.n_ops / (b_ms / 1e3):.0f} "
+          f"ops/s, p50 {b_ms:.3f} ms (trials "
+          f"{[round(x, 3) for x in burst_ms]}); device busy "
+          f"{fmt_ms(busy)} (profiler, scan kernels by events; idle share "
+          + (f"{1 - busy / b_ms:.3f}" if busy else "not measured")
+          + f"); card {card}", flush=True)
+    del pool, backlog_pre
+
+    # rollback_pages round trip on the hot group's first two lanes
+    sub = torch.arange(2, device=dev)
+    sub_pids = bargs[0][sub]
+    pre_sub = type(hot_out[7])(*(t[sub] for t in hot_out[7]))
+    post_sub = kernel.gather_pages(store.pool, sub_pids, hot_out[2][sub],
+                                   hot_out[3][sub], hot_out[4][sub])
+    after_burst = clone_state(store.pool)
+    want_back = kernel.rollback_pages_keep(store.pool, sub_pids, pre_sub)
+    kernel.rollback_pages(store.pool, sub_pids, pre_sub)
+    assert_trees_equal(store.pool, want_back, "phase 12 rollback_pages")
+    back = kernel.gather_pages(store.pool, sub_pids, pre_sub.count,
+                               pre_sub.min_seq, pre_sub.seq)
+    assert_trees_equal(back, pre_sub, "phase 12 rolled-back rows")
+    kernel.rollback_pages(store.pool, sub_pids, post_sub)
+    assert_trees_equal(store.pool, after_burst, "phase 12 rollback round "
+                       "trip")
+    del after_burst, want_back
+    for g, out in zip(groups, outs):
+        serving.adopt_paged_group(store, g, out[2].cpu().numpy(),
+                                  out[3].cpu().numpy(), out[4].cpu().numpy())
+
+    # compact_pages over the hot group (its min_seq trails the removes)
+    keys = hb.keys
+    width = pow2_pages(max(len(store.tables[k]) for k in keys))
+    cargs = [torch.from_numpy(x).to(dev) for x in
+             (store.page_ids_array(keys, width),
+              *store.scalars_arrays(keys))]
+    want_c = kernel.compact_pages_keep(store.pool, *cargs)
+    got_c = kernel.compact_pages(store.pool, *cargs)
+    assert_trees_equal(got_c, want_c, "phase 12 compact_pages")
+    before = int(cargs[1].sum())
+    after = int(got_c[2].sum())
+    require(after < before, "phase 12 compact_pages freed no row")
+    pages = store.pages_in_use
+    _counts, mins, seqs = store.scalars_arrays(keys)
+    store.adopt_scalars(keys, got_c[2].cpu().numpy(), mins, seqs)
+    store.release_trailing_many(keys)
+    print(f"phase 12: rollback_pages round trip on 2 hot lanes exact; "
+          f"compact_pages over the hot group: {before} -> {after} rows, "
+          f"pages in use {pages} -> {store.pages_in_use}, fill "
+          f"{store.page_fill_frac():.3f}; equal to compact_pages_keep",
+          flush=True)
+
+    # the scan kernel's rows at the new paths' inputs
+    _ts, ticketed = tk.scan_tickets(
+        ts0, tk.RawOps(client=args.ticket_xs[0, 1],
+                       client_seq=args.ticket_xs[0, 2],
+                       ref_seq=args.ticket_xs[0, 3],
+                       kind=args.ticket_xs[0, 0]), require_join=True)
+    ops0, runs0, _over = serve_step.admit_merge_ops(
+        ticketed.seq, ticketed.min_seq, args.merge_xs[hot_g][0],
+        None if args.runs_xs[hot_g] is None else args.runs_xs[hot_g][0])
+    rows = scan_rows("phase 12 ring hot group, window 0", ring_view, ops0,
+                     runs0, ring_scan, 3,
+                     f"{ring_view.length.shape[0]} x C={caps[hot_g]} x Tm "
+                     f"{ops0.steps}", card)
+    chunk0 = PackedOps(*(col[0] for col in bops))
+    rows += scan_rows("phase 12 burst, chunk 0", hot_out[7], chunk0, None,
+                      backlog_scan, 3,
+                      f"{hb.page_ids.shape[0]} x C="
+                      f"{hb.page_ids.shape[1] * store.page_rows} x T "
+                      f"{chunk0.steps}", card)
+    return rows
+
+
+def scalar_phase(dev, card: str, catchup_entries) -> None:
+    """Phase 13, scalar against device catch-up: keystroke_trace(100,000,
+    seed=12) replayed op by op through the port's MergeTreeClient.apply_msg
+    on the host (the whole trace, or the prefix reached within
+    SCALAR_BUDGET_S), its text equal to the device catch-up's (phase 11's
+    for the whole trace); the scalar cost per op fitted against the live
+    segments (least squares over blocks of SCALAR_BLOCK ops), the device
+    wall fitted to the cost model's formula on prefixes of the same trace,
+    and where mergetree/costmodel.device_bulk_wins puts the crossover, by
+    the fit and by the committed constants."""
+    from fluidframework_tpu_torch.mergetree import catchup, costmodel
+    from fluidframework_tpu_torch.mergetree.client import MergeTreeClient
+    from fluidframework_tpu_torch.testing import golden
+    from fluidframework_tpu_torch.testing.traces import keystroke_trace
+
+    n_ops, seed, n_clients = golden.load_catchup()["full"]["trace"]
+    tail = keystroke_trace(n_ops, seed=seed, n_clients=n_clients)
+    client = MergeTreeClient(client_id=99, device=dev)
+    points, done = [], 0
+    t0 = time.perf_counter()
+    while done < n_ops and time.perf_counter() - t0 < SCALAR_BUDGET_S:
+        block = tail[done:done + SCALAR_BLOCK]
+        segs0 = len(client.tree.segments)
+        b0 = time.perf_counter()
+        for op, sq, ref, cl, msn in block:
+            client.apply_msg(op, sq, ref, cl, min_seq=msn)
+        dt = time.perf_counter() - b0
+        points.append(((segs0 + len(client.tree.segments)) / 2,
+                       dt / len(block)))
+        done += len(block)
+    scalar_s = time.perf_counter() - t0
+    if done == n_ops:
+        want_text = golden.entries_text(catchup_entries)
+        device_s = None
+    else:
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        entries = catchup.device_apply_tail([], tail[:done], 0, 0,
+                                            device=dev)
+        torch.cuda.synchronize()
+        device_s = time.perf_counter() - h0
+        want_text = golden.entries_text(entries)
+    require(client.get_text() == want_text,
+            f"phase 13: the scalar replay of {done} ops differs from the "
+            "device catch-up's text")
+    segs = np.asarray([p[0] for p in points])
+    per_op = np.asarray([p[1] for p in points])
+    base, per_seg = np.linalg.lstsq(
+        np.stack([np.ones_like(segs), segs], 1), per_op, rcond=None)[0]
+    how = "least squares"
+    if base < 0:   # keep the model's scalar cost positive at 0 segments
+        base, per_seg = 0.0, float((segs @ per_op) / (segs @ segs))
+        how = "least squares through the origin (the free fit's base < 0)"
+    print(f"phase 13: scalar replay of {done} of {n_ops} ops "
+          f"(keystroke_trace seed {seed}) through MergeTreeClient.apply_msg:"
+          f" {scalar_s * 1e3:.1f} ms ({done / scalar_s:.0f} ops/s), text "
+          f"equal to the device catch-up's; live segments "
+          f"{int(segs[0])} -> {len(client.tree.segments)}; (live segments,"
+          f" us per op) by block of {SCALAR_BLOCK} ops "
+          f"{[(int(x), round(y * 1e6, 1)) for x, y in points]}",
+          flush=True)
+
+    # the device side: the catch-up's wall on prefixes of the same trace
+    catchup.device_apply_tail([], tail[:DEVICE_PREFIXES[0]], 0, 0,
+                              device=dev)
+    walls = []
+    for n in DEVICE_PREFIXES + (n_ops,):
+        runs = []
+        for _ in range(1 if n == n_ops else 3):
+            stats = {}
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            catchup.device_apply_tail([], tail[:n], 0, 0, device=dev,
+                                      stats=stats)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - h0)
+        walls.append((n, float(np.median(runs)),
+                      sum(stats["chunks"].values())))
+    chunk_t = catchup.CHUNK_T
+    a = np.asarray([[-(-n // chunk_t), n] for n, _w, _c in walls], float)
+    w = np.asarray([wall for _n, wall, _c in walls])
+    # relative least squares: every prefix weighs alike
+    chunk_s, op_s = np.linalg.lstsq(a / w[:, None], np.ones_like(w),
+                                    rcond=None)[0]
+    if chunk_s < 0:   # keep the floor per chunk non-negative
+        chunk_s, op_s = 0.0, float(np.mean(w / a[:, 1]))
+    print(f"phase 13: device catch-up wall by prefix (ops, ms, chunks "
+          f"applied): {[(n, round(x * 1e3, 3), c) for n, x, c in walls]}; "
+          f"fit wall = ceil(ops / {chunk_t}) x {chunk_s * 1e3:.4f} ms + ops "
+          f"x {op_s * 1e6:.4f} us (fitted walls "
+          f"{[round(float(v) * 1e3, 3) for v in a @ [chunk_s, op_s]]} ms);"
+          f" card {card}", flush=True)
+    print(f"phase 13: costmodel fit (chip_smoke.py phase 13, this run): "
+          f"SCALAR_BASE_S = {base:.4g}, SCALAR_PER_SEG_S = {per_seg:.4g} "
+          f"({how}), DEVICE_CHUNK_S = {chunk_s:.4g}, DEVICE_PER_OP_S = "
+          f"{op_s:.4g}; committed: SCALAR_BASE_S = "
+          f"{costmodel.SCALAR_BASE_S:.4g}, SCALAR_PER_SEG_S = "
+          f"{costmodel.SCALAR_PER_SEG_S:.4g}, DEVICE_CHUNK_S = "
+          f"{costmodel.DEVICE_CHUNK_S:.4g}, DEVICE_PER_OP_S = "
+          f"{costmodel.DEVICE_PER_OP_S:.4g}", flush=True)
+    if device_s is not None:
+        print(f"phase 13: at the same {done}-op prefix the device catch-up "
+              f"took {device_s * 1e3:.1f} ms against the scalar replay's "
+              f"{scalar_s * 1e3:.1f} ms", flush=True)
+
+    def wins(n, live, consts):
+        sb, ss, dc, do = consts
+        dev_s = -(-n // chunk_t) * dc + n * do
+        return n * (sb + ss * live) > dev_s * costmodel.HYSTERESIS
+
+    fitted = (base, per_seg, chunk_s, op_s)
+    committed = (costmodel.SCALAR_BASE_S, costmodel.SCALAR_PER_SEG_S,
+                 costmodel.DEVICE_CHUNK_S, costmodel.DEVICE_PER_OP_S)
+    for name, consts in (("fit", fitted), ("committed", committed)):
+        cross = {}
+        for live in CROSSOVER_SEGMENTS:
+            n = 1
+            while n <= 2**20 and not wins(n, live, consts):
+                n *= 2
+            cross[live] = n if n <= 2**20 else None
+        print(f"phase 13: crossover by the {name} constants (smallest "
+              f"power-of-two tail that routes to the device, by live "
+              f"segments; None = never up to 2^20 ops): {cross}",
+              flush=True)
+    if os.environ.get("FLUID_TPU_FORCE_BULK") is None:
+        for live in CROSSOVER_SEGMENTS:
+            for n in (64, 4096, 2**20):
+                require(costmodel.device_bulk_wins(n, live, backend="cuda")
+                        == wins(n, live, committed),
+                        "phase 13: device_bulk_wins differs from its "
+                        "formula")
 
 
 if __name__ == "__main__":

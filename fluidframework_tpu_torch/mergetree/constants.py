@@ -25,3 +25,8 @@ PAGE_ROWS = 64
 
 # The serving window op-depth grid (one apply shape per (capacity, T) pair).
 DEFAULT_T_BUCKETS = (1, 4, 16, 64, 256)
+
+# The scalar oracle's default text segment granularity: adjacent acked
+# segments coalesce up to this many characters (reference mergeTree.ts
+# TextSegmentGranularity).
+TEXT_SEGMENT_GRANULARITY = 256

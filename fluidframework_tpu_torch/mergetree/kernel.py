@@ -19,9 +19,12 @@ donate it, and the port hands back a new state in every case.
 Compaction (`compact`, `compact_batched`), `apply_if_any`, `visible_mask`
 and `doc_length` are gathers, prefix sums and reductions with no op loop:
 plain PyTorch on both devices. `gather_pages` / `scatter_pages` move
-documents in and out of a page pool (mergetree/paging.py). Not ported
-yet: the paged apply and compaction (kernel.py:540-690 beyond gather and
-scatter), extraction and the narrow wire (:697-1002), and the sequence-
+documents in and out of a page pool (mergetree/paging.py). The paged ops
+(`apply_ops_paged`, `rollback_pages`, `compact_pages`, each with a `_keep`
+form, and `paged_stats_vec`) compose them with the scan apply and
+compaction: `apply_ops_paged` launches scan_apply.cu for CUDA tensors, as
+JAX's runs `_scan_ops` there. Not ported yet: `compact_extract_paged`,
+extraction and the narrow wire (kernel.py:668-1002), and the sequence-
 parallel `sp_shards` formulation.
 """
 
@@ -425,6 +428,16 @@ SCAN_PATHS = tuple(_SCAN_PATHS)
 #   CLUSTER_MIN_CAPACITY the catch-up's C = 4,096 chunk (typing at the
 #   end: short shifts, the cluster barriers of each op not repaid) was
 #   fastest on the global path, 8% ahead of the best cluster;
+# - else, from CLUSTER_MAX_DOCS to SM_COUNT - 1 documents (the paged
+#   serving groups), the smallest cluster that holds the table while the
+#   launch's blocks (B x its size) fit two waves of the card's SM_COUNT
+#   SMs. At the main paths' inputs it is the fastest path: the ring's
+#   hot group (64 x C = 4,096, two blocks) 0.25 ms against 0.40 on the
+#   global path, the paged burst's chunk (64 x C = 8,192, four blocks)
+#   8.4 ms against 15.9. On `calibrate_fused_apply.py --scan --paged`'s
+#   grid (B = 16-128, C = 4,096 / 8,192) it is the fastest or within 10%
+#   from 35-60% fill on, and loses up to 1.9x to the global path on
+#   nearly empty tables at B x blocks > 132 (PERF.md §6);
 # - else the global path.
 # Threads: C (or a rank's slots) rounded up to 32, at most LIVE_THREADS;
 # at B >= MANY_DOCS (several blocks per SM), 128 on the smem path and 256
@@ -432,6 +445,7 @@ SCAN_PATHS = tuple(_SCAN_PATHS)
 CLUSTER_BLOCKS = 8
 CLUSTER_MIN_CAPACITY = 8192
 CLUSTER_MAX_DOCS = 16
+SM_COUNT = 132   # the H100 SXM's streaming multiprocessors
 LIVE_THREADS = 512
 MANY_DOCS = 1024
 MANY_DOCS_GLOBAL_C = 8192
@@ -544,6 +558,10 @@ def scan_geometry(batch: int, capacity: int, k_slots: int,
             and capacity >= CLUSTER_MIN_CAPACITY:
         return _forced_geometry("cluster", capacity, k_slots, a_slots,
                                 max(n, CLUSTER_BLOCKS), batch=batch)
+    if n is not None and CLUSTER_MAX_DOCS <= batch < SM_COUNT \
+            and batch * n <= 2 * SM_COUNT:
+        return _forced_geometry("cluster", capacity, k_slots, a_slots, n,
+                                batch=batch)
     return _forced_geometry("global", capacity, k_slots, a_slots,
                             batch=batch)
 
@@ -819,3 +837,108 @@ def scatter_pages(pool: DocState, page_ids: torch.Tensor,
         col[dst] = v.reshape((b * p, r) + tuple(v.shape[2:]))
         col[BLANK_PAGE] = blank
     return pool
+
+
+# ---------------------------------------------------------------------------
+# paged ops: apply, rollback and compaction over gathered page views
+# ---------------------------------------------------------------------------
+#
+# JAX jits these with the page pool (and page-table plane) donated, so the
+# pool updates in place. Here the plain forms scatter into the given pool's
+# tensors in place and return it; the `_keep` forms copy the pool first and
+# leave every input as it was (JAX's non-donating twins).
+
+def _copy_pool(pool: DocState) -> DocState:
+    return DocState(*(t.clone() for t in pool))
+
+
+def paged_stats_vec(ops: PackedOps, out: DocState) -> torch.Tensor:
+    """The paged apply's device telemetry plane, an int32 [N_PAGED] vector
+    in telemetry/device_stats PAGED_SLOTS order: staged ops by kind,
+    flagged documents, post-apply live rows. Padding rows (all-NOOP
+    streams on blank views with zeroed counts) add nothing."""
+    per_kind = [(ops.kind == kv).sum(dtype=_I32)
+                for kv in (OpKind.INSERT, OpKind.REMOVE, OpKind.ANNOTATE,
+                           OpKind.ACK_INSERT, OpKind.ACK_REMOVE,
+                           OpKind.INSERT_RUN)]
+    return torch.stack(per_kind + [out.overflow.sum(dtype=_I32),
+                                   out.count.sum(dtype=_I32)])
+
+
+def _scan_group(view: DocState, ops: PackedOps, plain: bool) -> DocState:
+    """The apply inside every paged op: kernel.py's _scan_ops(batched=True)
+    (scan_apply.cu for CUDA tensors, the plain scan for CPU tensors), or
+    the plain scan on any device with plain=True."""
+    if plain:
+        return scan_ops_plain(view, ops, batched=True)
+    return _scan_ops(view, ops, batched=True)
+
+
+def _apply_ops_paged(pool, page_ids, counts, min_seqs, seqs, ops,
+                     stats, plain):
+    pre = gather_pages(pool, page_ids, counts, min_seqs, seqs)
+    out = _scan_group(pre, ops, plain)
+    scatter_pages(pool, page_ids, out)
+    base = (pool, page_ids, out.count, out.min_seq, out.seq, out.overflow,
+            pre)
+    if stats:
+        return base + (paged_stats_vec(ops, out),)
+    return base
+
+
+def apply_ops_paged(pool: DocState, page_ids: torch.Tensor, counts,
+                    min_seqs, seqs, ops: PackedOps, stats: bool = False,
+                    plain: bool = False):
+    """One [B, T] op window over paged documents: gather by page id, the
+    batched scan apply, scatter by page id into `pool` in place. Returns
+    (pool, page_ids, count, min_seq, seq, overflow, pre_view[, stats]):
+    pre_view is the gathered pre-window group, which rollback_pages
+    scatters back over flagged documents (annotate-ring or overlap-slot
+    exhaustion); stats=True appends paged_stats_vec. plain=True runs the
+    plain scan on any device (the reference the kernel is held to)."""
+    return _apply_ops_paged(pool, page_ids, counts, min_seqs, seqs, ops,
+                            stats, plain)
+
+
+def apply_ops_paged_keep(pool: DocState, page_ids: torch.Tensor, counts,
+                         min_seqs, seqs, ops: PackedOps,
+                         stats: bool = False, plain: bool = False):
+    """apply_ops_paged on a copy of the pool: no input changes."""
+    return _apply_ops_paged(_copy_pool(pool), page_ids, counts, min_seqs,
+                            seqs, ops, stats, plain)
+
+
+def rollback_pages(pool: DocState, page_ids: torch.Tensor,
+                   pre: DocState) -> DocState:
+    """Scatter a retained pre-window view back over flagged documents'
+    pages (page_ids is the flagged sub-plane), in place on `pool`: the
+    paged overflow recovery's rollback half."""
+    return scatter_pages(pool, page_ids, pre)
+
+
+def rollback_pages_keep(pool: DocState, page_ids: torch.Tensor,
+                        pre: DocState) -> DocState:
+    """rollback_pages on a copy of the pool."""
+    return scatter_pages(_copy_pool(pool), page_ids, pre)
+
+
+def _compact_pages(pool, page_ids, counts, min_seqs, seqs):
+    view = gather_pages(pool, page_ids, counts, min_seqs, seqs)
+    g = _compact_batched(view)
+    return scatter_pages(pool, page_ids, g), page_ids, g.count
+
+
+def compact_pages(pool: DocState, page_ids: torch.Tensor, counts, min_seqs,
+                  seqs):
+    """Page-granular zamboni for a group of documents: gather, left-pack
+    compaction, scatter into `pool` in place. Returns (pool, page_ids,
+    count); the caller releases the pages wholly past the new counts
+    (PagedMergeStore.release_trailing)."""
+    return _compact_pages(pool, page_ids, counts, min_seqs, seqs)
+
+
+def compact_pages_keep(pool: DocState, page_ids: torch.Tensor, counts,
+                       min_seqs, seqs):
+    """compact_pages on a copy of the pool."""
+    return _compact_pages(_copy_pool(pool), page_ids, counts, min_seqs,
+                          seqs)

@@ -1,7 +1,8 @@
 """Paged lane memory: fixed-size segment pages + per-document page tables.
 
-Counterpart of fluidframework_tpu's mergetree/paging.py, the parts that
-serving staging needs. Segment rows live in a device pool of
+Counterpart of fluidframework_tpu's mergetree/paging.py (all of it but
+`PagedMergeStore.placement_spec_table`, which waits for the multi-device
+partition rules). Segment rows live in a device pool of
 [n_pages, PAGE_ROWS] pages (a DocState whose batch axis is pages; its
 per-page scalar fields are unused padding), each document owns a host-side
 table of int32 page ids, and a refcounted free list hands pages out. A
@@ -34,6 +35,30 @@ from .constants import MAX_OVERLAP_CLIENTS, PAGE_ROWS
 from .state import DEFAULT_ANNO_SLOTS, DocState, make_state
 
 BLANK_PAGE = 0  # reserved, never allocated, always blank
+
+
+def _zero_pool_pages(pool: DocState, idx: torch.Tensor,
+                     blank: DocState) -> DocState:
+    """Blank the pages at `idx` in place (every row plane of the pool;
+    the per-page scalar fields are unused) and return the pool. A repeated
+    id writes the same blank twice, which is harmless."""
+    for col, b in zip(pool, blank):
+        if col.dim() > 1:
+            col[idx] = b
+    return pool
+
+
+def _put_pool_pages(pool: DocState, idx: torch.Tensor,
+                    row: DocState) -> DocState:
+    """Write one document's page-reshaped row planes ([k, R, ...]) into
+    pages `idx` in place and return the pool. (JAX pads `idx` to a power
+    of two with ids past the pool, which its scatter drops, to bound its
+    compiled shapes; nothing here compiles per shape, so `idx` holds the
+    document's pages only.)"""
+    for col, v in zip(pool, row):
+        if col.dim() > 1:
+            col[idx] = v
+    return pool
 
 
 class PageAllocator:
@@ -175,9 +200,7 @@ class PagedMergeStore:
         if not pids:
             return
         idx = torch.as_tensor(pids, dtype=torch.int64, device=self.device)
-        for col, blank in zip(self.pool, self._blank()):
-            if col.dim() > 1:
-                col[idx] = blank
+        _zero_pool_pages(self.pool, idx, self._blank())
 
     # -- per-doc tables ----------------------------------------------------
     def ensure(self, key: tuple) -> None:
@@ -266,6 +289,58 @@ class PagedMergeStore:
             self.min_seqs[key] = int(min_seqs[j])
             self.seqs[key] = int(seqs[j])
 
+    # -- single-document host access ----------------------------------------
+    def row(self, key: tuple) -> DocState:
+        """One document gathered into a single-document DocState view (the
+        host read path: the text, entries or summary of one lane)."""
+        table = self.tables[key]
+        idx = torch.as_tensor(table, dtype=torch.int64, device=self.device)
+
+        def g(col):
+            x = col[idx]
+            return x.reshape((len(table) * self.page_rows,)
+                             + tuple(x.shape[2:]))
+
+        def scalar(v):
+            return torch.tensor(v, dtype=torch.int32, device=self.device)
+
+        return DocState(
+            **{name: g(getattr(self.pool, name))
+               for name in DocState._fields[:10]},
+            count=scalar(self.counts[key]),
+            min_seq=scalar(self.min_seqs[key]),
+            seq=scalar(self.seqs[key]),
+            overflow=torch.tensor(False, device=self.device))
+
+    def put_row(self, key: tuple, row: DocState, count: int) -> None:
+        """Write a single-document DocState whose capacity is a whole
+        number of pages into the document's pages, in place (seeds and
+        host rescues come through here), take its scalars, and free the
+        pages wholly past `count` rows."""
+        c = row.capacity
+        self.ensure_rows(key, c)
+        table = self.tables[key][:pages_for(c, self.page_rows)]
+        assert c == len(table) * self.page_rows, (c, len(table))
+        k, r = len(table), self.page_rows
+        idx = torch.as_tensor(table, dtype=torch.int64, device=self.device)
+        paged = DocState(*(
+            v.reshape((k, r) + tuple(v.shape[1:])) if v.dim() else v
+            for v in row))
+        _put_pool_pages(self.pool, idx, paged)
+        self.counts[key] = count
+        self.min_seqs[key] = int(row.min_seq)
+        self.seqs[key] = int(row.seq)
+        self.release_trailing(key)
+
+    # -- stats ---------------------------------------------------------------
     @property
     def pages_in_use(self) -> int:
         return self.allocator.pages_in_use
+
+    def page_fill_frac(self) -> float:
+        """Live rows / allocated page rows across all documents (1.0 with
+        no pages allocated)."""
+        rows = sum(len(t) for t in self.tables.values()) * self.page_rows
+        if not rows:
+            return 1.0
+        return sum(self.counts.values()) / rows

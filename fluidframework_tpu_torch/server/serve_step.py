@@ -8,14 +8,17 @@ seq/msn gathered from the ticket output by (doc lane, step)), then one
 int16 vector (`flat16`) packing everything the host reads back. The
 megakernel runs K staged windows over paged merge lanes: gather each page
 group's documents once, apply the K windows to the gathered views, scatter
-the views back.
+the views back. The paged burst (`serve_paged_burst`) applies K stacked op
+chunks to one page group the same way, with no ticketing.
 
 Differences from the JAX program, none of which changes a result:
 - there is no `fused` argument. CUDA tensors launch the fused-apply kernel
   (kernels/csrc/fused_apply.cu, the runs= and extract=True variants where
-  the megakernel needs them) and CPU tensors run its plain version; a view
-  capacity above `max_fused_capacity` raises ValueError, because the scan
-  apply JAX uses there is not ported;
+  the megakernel needs them) and CPU tensors run its plain version. A
+  merge group whose capacity exceeds `max_fused_capacity` takes the scan
+  apply instead, as JAX's does (mergetree/kernel._scan_ops:
+  kernels/csrc/scan_apply.cu on the card), and its narrow tuple is derived
+  from the scan's output;
 - every apply runs. JAX skips the apply of an all-NOOP group under
   `noop_skip`; a NOOP stream is an exact identity, so the port launches
   anyway, and `noop_skip` only counts such applies in the stats plane;
@@ -138,13 +141,16 @@ def _serve_window_impl(tstate, ticket_cols, merge_states, merge_cols,
     SERVE_SLOTS plane as int32 halves]; msn32 is the exact [B, T] msn
     plane. `paged_scalars` is the megakernel mode: each merge apply also
     returns the narrow tuple (overflow int16, count, min_seq, seq),
-    written by the kernel's extract variant. `plain` composes the plain
-    PyTorch versions on any device (the kernels' reference). `stage`, if
-    given, is called with each stage's name as it ends: "ticket", then per
-    merge group "admit" and "apply_<variant>" (pallas_apply.variant_name),
-    then "lww" and "pack"."""
+    written by the fused kernel's extract variant, or derived from the
+    scan apply's output for a group above `max_fused_capacity`. `plain`
+    composes the plain PyTorch versions on any device (the kernels'
+    reference). `stage`, if given, is called with each stage's name as it
+    ends: "ticket", then per merge group "admit" and "apply_<variant>"
+    (pallas_apply.variant_name) for the fused apply or
+    "apply_scan_<plain|runs>" for the scan apply, then "lww" and
+    "pack"."""
     mark = stage or (lambda _name: None)
-    apply = pa.apply_ops_fused_plain if plain else pa.apply_ops_fused
+    fused = pa.apply_ops_fused_plain if plain else pa.apply_ops_fused
     raw = tk.RawOps(client=ticket_cols[1], client_seq=ticket_cols[2],
                     ref_seq=ticket_cols[3], kind=ticket_cols[0])
     tstate, ticketed = tk.scan_tickets(tstate, raw, require_join=True)
@@ -166,10 +172,19 @@ def _serve_window_impl(tstate, ticket_cols, merge_states, merge_cols,
             if noop_skip:
                 st_skips = st_skips + _i32(~(ops2.kind != OpKind.NOOP).any())
         mark("admit")
-        if paged_scalars:
-            out, nr = apply(mstate, ops2, runs=runs, extract=True)
+        limit = pa.max_fused_capacity(mstate.overlap_slots,
+                                      mstate.anno_slots)
+        if mstate.capacity <= limit:
+            if paged_scalars:
+                out, nr = fused(mstate, ops2, runs=runs, extract=True)
+            else:
+                out, nr = fused(mstate, ops2, runs=runs), None
+            name = "apply_" + pa.variant_name(runs, paged_scalars)
         else:
-            out, nr = apply(mstate, ops2, runs=runs), None
+            scan = kernel.scan_ops_plain if plain else kernel._scan_ops
+            out = scan(mstate, ops2, batched=True, runs=runs)
+            nr = pa.narrow_of(out) if paged_scalars else None
+            name = "apply_scan_" + ("plain" if runs is None else "runs")
         if over_extra is not None:
             # The voided slot's flag reaches the carried state and the
             # narrow plane the host reads.
@@ -178,7 +193,7 @@ def _serve_window_impl(tstate, ticket_cols, merge_states, merge_cols,
                 nr = (nr[0] | _i16(over_extra),) + tuple(nr[1:])
         new_merge.append(out)
         merge_narrow.append(nr)
-        mark("apply_" + pa.variant_name(runs, paged_scalars))
+        mark(name)
 
     new_lww = []
     for lstate, lc in zip(lww_states, lww_cols):
@@ -289,6 +304,51 @@ def serve_burst(tstate, merge_states, lww_states, ticket_xs, merge_xs,
     return ts, ms, ls, torch.stack(flats), torch.stack(msns)
 
 
+def _serve_paged_burst(pool, page_ids, counts, min_seqs, seqs,
+                       ops_xs: PackedOps, stats=False, plain=False):
+    pre = kernel.gather_pages(pool, page_ids, counts, min_seqs, seqs)
+    view, over_k, stats_k = pre, [], []
+    for k in range(ops_xs.kind.shape[0]):
+        ops = PackedOps(*(col[k] for col in ops_xs))
+        view = kernel._scan_group(view, ops, plain)
+        over_k.append(view.overflow)
+        if stats:
+            stats_k.append(kernel.paged_stats_vec(ops, view))
+    kernel.scatter_pages(pool, page_ids, view)
+    base = (pool, page_ids, view.count, view.min_seq, view.seq,
+            view.overflow, torch.stack(over_k), pre)
+    if stats:
+        return base + (torch.stack(stats_k),)
+    return base
+
+
+def serve_paged_burst(pool, page_ids, counts, min_seqs, seqs,
+                      ops_xs: PackedOps, stats=False, plain=False):
+    """K op chunks over one group of PAGED documents (the paged serving
+    burst): gather the documents' pages once, apply the K stacked [B, T]
+    op chunks (ops_xs fields are [K, B, T]) one after another with the
+    gathered view as the carry, scatter the view back into `pool` in
+    place. Each chunk is one scan apply (kernel._scan_ops(batched=True):
+    scan_apply.cu for CUDA tensors); plain=True runs the plain scan on
+    any device. An all-NOOP chunk (K padded to a power of two) is an
+    exact identity.
+
+    Returns (pool, page_ids, count, min_seq, seq, overflow, over_k,
+    pre_view[, stats_k]): over_k [K, B] is each chunk's overflow plane
+    (sticky across chunks), pre_view the gathered pre-burst view that
+    rollback_pages scatters back over flagged documents, and stats=True
+    appends the per-chunk [K, N_PAGED] plane (kernel.paged_stats_vec)."""
+    return _serve_paged_burst(pool, page_ids, counts, min_seqs, seqs,
+                              ops_xs, stats, plain)
+
+
+def serve_paged_burst_keep(pool, page_ids, counts, min_seqs, seqs,
+                           ops_xs: PackedOps, stats=False, plain=False):
+    """serve_paged_burst on a copy of the pool: no input changes."""
+    return _serve_paged_burst(kernel._copy_pool(pool), page_ids, counts,
+                              min_seqs, seqs, ops_xs, stats, plain)
+
+
 def _serve_megakernel(tstate, pool, lww_states, ticket_xs,
                       page_ids: Sequence[torch.Tensor], counts, min_seqs,
                       seqs, merge_xs, lww_xs, runs_xs, stats=False,
@@ -301,7 +361,8 @@ def _serve_megakernel(tstate, pool, lww_states, ticket_xs,
        the gathered views + LWW states + ticket state as the carry; each
        group x window apply is one launch of the fused-apply kernel with
        the extract variant (and the runs variant where the group has run
-       columns);
+       columns), or of the scan-apply kernel for a group above
+       max_fused_capacity;
     3. scatter each group's final view back through its page table, in
        place on `pool`.
 

@@ -1,10 +1,12 @@
-"""The serving window's device telemetry plane: slot names only.
+"""The device telemetry planes: slot names only.
 
-A copy of the SERVE_SLOTS layout of fluidframework_tpu's
-telemetry/device_stats.py, so that server/serve_step.py with stats=True
-packs the same int32 plane into its flat16 result (as lo/hi int16 halves).
-Index order is the contract with the host decode: append-only, never
-reorder. The host-side fold into counters is not ported yet.
+Copies of the SERVE_SLOTS and PAGED_SLOTS layouts of fluidframework_tpu's
+telemetry/device_stats.py: server/serve_step.py with stats=True packs the
+SERVE_SLOTS int32 plane into its flat16 result (as lo/hi int16 halves),
+and the paged apply and burst (mergetree/kernel.paged_stats_vec) return
+one PAGED_SLOTS vector per apply or chunk. Index order is the contract
+with the host decode: append-only, never reorder. The host-side fold into
+counters is not ported yet.
 """
 
 SERVE_SLOTS = (
@@ -25,3 +27,16 @@ SERVE_SLOTS = (
     "lww_keys_live",
 )
 N_SERVE = len(SERVE_SLOTS)
+
+# One paged apply / paged-burst chunk.
+PAGED_SLOTS = (
+    "ops_insert",
+    "ops_remove",
+    "ops_annotate",
+    "ops_ack_insert",
+    "ops_ack_remove",
+    "ops_insert_run",
+    "overflow_docs",
+    "rows_live",           # post-apply live rows across the group
+)
+N_PAGED = len(PAGED_SLOTS)

@@ -17,9 +17,13 @@ package's serve_megakernel_keep and the port's serve_megakernel:
                                      lane, ticket step
 
 The fleet: documents in classes of (count, merge ops per window, clients,
-typing-burst probability); one SharedString per document, and one
-SharedMap (capacity `lww_capacity` keys) on the first `lww_docs`
-documents. Window 0 of the first ring carries one JOIN per client (the
+typing-burst probability, pre-seeded rows); one SharedString per document,
+and one SharedMap (capacity `lww_capacity` keys) on the first `lww_docs`
+documents. A class with `rows` > 0 is a hot document class: long-lived
+shared documents whose `rows` live segments (1-4 characters each, visible
+to every client) are written into the store before the first ring, so
+that staging puts them in a page group of their own, above the fused
+apply's capacity when `rows` is large. Window 0 of the first ring carries one JOIN per client (the
 serving contract is require_join). The op mix is inserts, removes and
 annotates, typing bursts of cursor-advancing inserts by one client at one
 refSeq (packed into INSERT_RUN slots of RUN_MIN..RUN_K members as the
@@ -40,6 +44,14 @@ grows to `count + 2 x ops` rows (`PagedMergeStore.ensure_rows`), and
 documents group by their pow2 page count. Call `stage_ring(store)`, run
 the ring, then `adopt_ring(store, ring, flat16_k)` to take the post
 scalars before the next ring.
+
+Between rings a store can also take per-document op streams directly, as
+the JAX sequencer's MergeLaneStore._apply_paged applies a backlog:
+`ServingFleet.backlog` generates sequenced streams valid at each
+document's current length, and `stage_paged_groups` groups them by pow2
+page count and packs each group for one apply_ops_paged (streams that fit
+one T bucket) or one serve_paged_burst (K chunks at the widest T, K padded
+to a power of two with all-NOOP chunks).
 """
 
 from __future__ import annotations
@@ -48,9 +60,10 @@ import random
 from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
+import torch
 
 from ..mergetree.constants import DEFAULT_T_BUCKETS
-from ..mergetree.oppack import RUN_K, RUN_MIN, OpKind
+from ..mergetree.oppack import RUN_K, RUN_MIN, HostOp, OpKind, pack_ops
 from ..mergetree.paging import pow2_pages
 from ..mergetree.state import DEFAULT_ANNO_SLOTS
 from ..server.lww_kernel import LwwKind
@@ -66,6 +79,7 @@ class DocClass(NamedTuple):
     ops: int             # merge ops per document per window
     clients: int         # clients that join each document
     burst: float         # probability that an op starts a typing burst
+    rows: int = 0        # live rows pre-seeded before the first ring
 
 
 class FleetSpec(NamedTuple):
@@ -99,6 +113,20 @@ SMALL_RING = FleetSpec(
              DocClass(1, 12, 2, 1.0)),
     lww_docs=3, windows=2, steps=16, lww_capacity=8, dup_rate=0.08,
     nack_rate=0.08, mispredict_rate=0.5)
+
+# FULL_RING plus 64 hot documents of 3,500 live rows each: with 64-row
+# pages they grow to count + 2 x ops <= 4,096 rows, a 64-page group
+# (C = 4,096) above max_fused_capacity(3, 4) = 3,410 slots, so one ring
+# launches the fused apply for the small groups and the scan apply for
+# the hot group.
+HOT_RING = FULL_RING._replace(
+    classes=FULL_RING.classes + (DocClass(64, 16, 3, 0.8, rows=3500),))
+
+# SMALL_RING plus one hot document of 1,900 rows: a 32-page group
+# (C = 2,048 with 64-row pages), above max_fused_capacity(8, 16) = 1,705
+# slots, the CPU tests' size of HOT_RING.
+SMALL_HOT_RING = SMALL_RING._replace(
+    classes=SMALL_RING.classes + (DocClass(1, 12, 2, 1.0, rows=1900),))
 
 
 class StagedRing(NamedTuple):
@@ -175,6 +203,14 @@ class ServingFleet:
         self.rings = 0
         self.next_op_id = 0
         self.next_val = 0
+        self.seeded: Dict[int, np.ndarray] = {}  # lane -> row lengths
+        for doc in self.docs:
+            if doc.cls.rows:
+                lengths = np.asarray([self.rng.randint(1, 4)
+                                      for _ in range(doc.cls.rows)],
+                                     np.int32)
+                self.seeded[doc.lane] = lengths
+                doc.length = int(lengths.sum())
 
     @property
     def lww_lanes(self) -> int:
@@ -350,13 +386,37 @@ class ServingFleet:
             doc.length -= p2 - p1
 
     # -- staging ------------------------------------------------------------
+    def seed_store(self, store) -> None:
+        """Write each hot document's pre-seeded rows into `store`
+        (PagedMergeStore.put_row): `rows` segments at seq 0 (visible to
+        every client, not removed), each with its own op id. stage_ring
+        calls it before the first ring."""
+        from ..mergetree.paging import pages_for
+        from ..mergetree.state import make_state
+        for lane, lengths in self.seeded.items():
+            n = len(lengths)
+            row = make_state(pages_for(n, store.page_rows) * store.page_rows,
+                             store.anno_slots, store.overlap_slots,
+                             device=store.device)
+            first = self.next_op_id + 1
+            self.next_op_id += n
+            row.length[:n] = torch.from_numpy(lengths)
+            row.ins_seq[:n] = 0
+            row.ins_client[:n] = 0
+            row.origin_op[:n] = torch.arange(first, first + n,
+                                             dtype=torch.int32)
+            store.put_row((lane,), row, n)
+
     def stage_ring(self, store) -> StagedRing:
         """Generate the next ring and stage it against `store` (a
         PagedMergeStore whose host counts are current): pre-grow every
-        document, group by pow2 page count, and pack the columns."""
+        document, group by pow2 page count, and pack the columns. The
+        first ring seeds the hot documents first (seed_store)."""
         spec = self.spec
         k_n, b, t_n = spec.windows, spec.docs, spec.steps
         first_ring = self.rings == 0
+        if first_ring:
+            self.seed_store(store)
         self.rings += 1
         ticket = np.zeros((k_n, 4, b, t_n), np.int32)
         per_doc = [[] for _ in range(b)]   # per doc: per window merge slots
@@ -462,6 +522,44 @@ class ServingFleet:
                     "run_slots": n_slots, "lww_ops": len(lww_rows),
                     "mispredicted_docs": len(voided_docs)})
 
+    def backlog(self, ops_of) -> Dict[tuple, List[HostOp]]:
+        """Per-document sequenced op streams (HostOps keyed as the rings
+        key documents), `ops_of(doc_class)` ops for each document: 70%
+        inserts of 1-4 characters (typing at the end for a class without
+        bursts, else anywhere), 30% removes of 1-8 characters, each from
+        one of the document's clients at refSeq = seq - 1, with the
+        collaboration window 8 ops behind (msn = seq - 8). The sequence
+        numbers continue each document's ticketing, and every op is valid
+        at the document's length, which the stream advances."""
+        rng = self.rng
+        out: Dict[tuple, List[HostOp]] = {}
+        for doc in self.docs:
+            n = ops_of(doc.cls)
+            if not n:
+                continue
+            ops = []
+            for _ in range(n):
+                seq = doc.next_seq
+                doc.next_seq += 1
+                client = rng.randrange(doc.cls.clients)
+                msn = max(0, seq - 8)
+                if doc.length == 0 or rng.random() < 0.7:
+                    pos = doc.length if doc.cls.burst == 0.0 and \
+                        rng.random() < 0.8 else rng.randint(0, doc.length)
+                    n_chars = rng.randint(1, 4)
+                    ops.append(HostOp(OpKind.INSERT, seq, seq - 1, client,
+                                      pos, 0, self._op_id(), n_chars, 0,
+                                      msn))
+                    doc.length += n_chars
+                else:
+                    p = rng.randint(0, doc.length - 1)
+                    e = rng.randint(p + 1, min(doc.length, p + 8))
+                    ops.append(HostOp(OpKind.REMOVE, seq, seq - 1, client,
+                                      p, e, 0, 0, 0, msn))
+                    doc.length -= e - p
+            out[(doc.lane,)] = ops
+        return out
+
     @staticmethod
     def _stage_slot(col, run, slot, d: int) -> None:
         """One merge slot's 12 columns (and RUN_K member columns)."""
@@ -492,6 +590,66 @@ def adopt_ring(store, ring: StagedRing, flat16_last, stats: bool = False
                                         ring.merge_lanes)):
         store.adopt_scalars(keys, cnt, mn, sq)
         store.release_trailing_many(keys)
+
+
+class PagedGroup(NamedTuple):
+    """One page group of a backlog, staged for one paged dispatch."""
+    keys: List[tuple]        # the documents, in lane order
+    page_ids: np.ndarray     # [n_pad, p2] int32, -1 = padding
+    counts: np.ndarray       # [n_pad] int32 (padding lanes 0)
+    min_seqs: np.ndarray
+    seqs: np.ndarray
+    ops: Dict[str, np.ndarray]   # PackedOps columns [n_pad, T], or
+    #                              [K, n_pad, T] for a burst
+    burst: bool              # serve_paged_burst (else apply_ops_paged)
+    n_ops: int               # ops staged (padding excluded)
+
+
+def stage_paged_groups(store, streams: Dict[tuple, List[HostOp]]
+                       ) -> List[PagedGroup]:
+    """Group per-document streams as the JAX sequencer's
+    MergeLaneStore._apply_paged does: grow each document to count + 2 x
+    ops rows, group by pow2 page count, pad each group's lanes to a power
+    of two (page id -1, zero scalars, empty streams), take T from the
+    bucket grid for the longest stream (at most the widest bucket), and
+    stack K = ceil(longest / T) chunks, K padded to a power of two, when
+    one T does not hold it. Groups come in ascending page count."""
+    by_p2: Dict[int, List[tuple]] = {}
+    for key, ops in streams.items():
+        if not ops:
+            continue
+        store.ensure_rows(key, store.counts.get(key, 0) + 2 * len(ops))
+        by_p2.setdefault(pow2_pages(len(store.tables[key])), []).append(key)
+    groups = []
+    for p2, keys in sorted(by_p2.items()):
+        n, n_pad = len(keys), pow2_pages(len(keys))
+        pids = np.full((n_pad, p2), -1, np.int32)
+        pids[:n] = store.page_ids_array(keys, p2)
+        sc = [np.zeros(n_pad, np.int32) for _ in range(3)]
+        for arr, got in zip(sc, store.scalars_arrays(keys)):
+            arr[:n] = got
+        pad = [streams[k] for k in keys] + [[] for _ in range(n_pad - n)]
+        longest = max(len(s) for s in pad)
+        t = _bucket(min(longest, DEFAULT_T_BUCKETS[-1]))
+        k_chunks = -(-longest // t)
+        if k_chunks == 1:
+            ops = pack_ops(pad, steps=t)
+        else:
+            chunks = [pack_ops([s[c * t:(c + 1) * t] for s in pad], steps=t)
+                      for c in range(pow2_pages(k_chunks))]
+            ops = {f: np.stack([c[f] for c in chunks]) for f in chunks[0]}
+        groups.append(PagedGroup(keys, pids, sc[0], sc[1], sc[2], ops,
+                                 k_chunks > 1, sum(len(s) for s in pad)))
+    return groups
+
+
+def adopt_paged_group(store, group: PagedGroup, counts, min_seqs,
+                      seqs) -> None:
+    """Take a paged dispatch's post scalars (numpy [n_pad]) into the store
+    and free the pages wholly past each document's rows."""
+    n = len(group.keys)
+    store.adopt_scalars(group.keys, counts[:n], min_seqs[:n], seqs[:n])
+    store.release_trailing_many(group.keys)
 
 
 def ring_to_arrays(args: RingArgs) -> Dict[str, np.ndarray]:

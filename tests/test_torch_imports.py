@@ -90,3 +90,23 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert state.length.device.type == "cpu"
     assert catchup.device_apply_tail([], tail, 0, 0, device="cpu")[0][
         "text"] == "x"
+
+
+def test_slice_six_entry_points_raise_without_cuda(monkeypatch):
+    """The client's bulk catch-up and the paged store default to the
+    card too."""
+    from fluidframework_tpu_torch.mergetree.client import MergeTreeClient
+    from fluidframework_tpu_torch.mergetree.paging import PagedMergeStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tail = [({"type": 0, "pos1": 0, "seg": {"text": "x"}}, 1, 0, 1, 0)]
+    client = MergeTreeClient(5)   # the scalar path needs no device
+    client.apply_msg(*tail[0][:4])
+    assert client.get_text() == "x"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MergeTreeClient(5).apply_bulk(tail)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedMergeStore()
+    bulk = MergeTreeClient(5, device="cpu")
+    bulk.apply_bulk(tail)
+    assert bulk.get_text() == "x"

@@ -28,8 +28,10 @@ from fluidframework_tpu_torch.server import lww_kernel as tlk
 from fluidframework_tpu_torch.server import serve_step as tss
 from fluidframework_tpu_torch.server import ticket_kernel as ttk
 from fluidframework_tpu_torch.server.serve_step import RingArgs
+from fluidframework_tpu_torch.mergetree import kernel as tkernel
+from fluidframework_tpu_torch.mergetree.oppack import PackedOps
 from fluidframework_tpu_torch.testing.serving import (
-    SMALL_RING, TICKET_CLIENTS, ServingFleet, adopt_ring)
+    SMALL_HOT_RING, SMALL_RING, TICKET_CLIENTS, ServingFleet, adopt_ring)
 
 PAGE_ROWS_SMALL = 16
 _NAMES = ("tstate", "pool", "lww", "flat16_k", "msn_k", "pre")
@@ -96,12 +98,13 @@ def jax_megakernel(tstate, pool, lww, ring: RingArgs, fused=False,
 
 
 def port_megakernel(tstate, pool, lww, ring: RingArgs, stats=False,
-                    keep=True):
+                    keep=True, stage=None):
     fn = tss.serve_megakernel_keep if keep else tss.serve_megakernel
     out = fn(interop.ticket_state_from_numpy(tstate._asdict(), "cpu"),
              interop.page_pool_from_numpy(pool._asdict(), "cpu"),
              [interop.lww_state_from_numpy(s._asdict(), "cpu") for s in lww],
-             *interop.ring_args_from_numpy(ring, "cpu"), stats=stats)
+             *interop.ring_args_from_numpy(ring, "cpu"), stats=stats,
+             stage=stage)
     return to_np(out)
 
 
@@ -109,11 +112,13 @@ class Fleet:
     """A SMALL_RING fleet with its store and the states between rings,
     carried through the JAX package (the reference)."""
 
-    def __init__(self, seed, spec=SMALL_RING):
+    def __init__(self, seed, spec=SMALL_RING, page_rows=PAGE_ROWS_SMALL,
+                 k_slots=3, a_slots=4):
         self.spec = spec
         self.fleet = ServingFleet(spec, seed=seed)
-        self.store = PagedMergeStore(page_rows=PAGE_ROWS_SMALL, pages=8,
-                                     device="cpu")
+        self.store = PagedMergeStore(page_rows=page_rows, pages=8,
+                                     anno_slots=a_slots,
+                                     overlap_slots=k_slots, device="cpu")
         self.tstate = to_np(ttk.make_ticket_state(
             TICKET_CLIENTS, spec.docs, device="cpu"))
         self.lww = (to_np(tlk.make_lww_state(
@@ -202,7 +207,10 @@ def test_keep_leaves_inputs_unchanged_and_inplace_updates_pool():
 
 
 def test_view_capacity_above_fused_limit_raises():
-    """64 pages of 64 rows = 4096 > max_fused_capacity(3, 4) = 3410."""
+    """64 pages of 64 rows = 4096 > max_fused_capacity(3, 4) = 3410: the
+    fused apply refuses the view, so the megakernel routes it to the scan
+    apply, and the ring equals JAX's (whose fused program routes it to
+    its scan the same way)."""
     limit = tpa.max_fused_capacity(3, 4)
     assert limit == 3410
     n_pages = 66
@@ -215,5 +223,60 @@ def test_view_capacity_above_fused_limit_raises():
         page_ids=(pids,), counts=(zero,), min_seqs=(zero,), seqs=(zero,),
         merge_xs=(torch.zeros((1, 12, 1, 1), dtype=torch.int32),),
         lww_xs=(), runs_xs=(None,))
+    view = tkernel.gather_pages(pool, pids, zero, zero, zero)
+    ops = PackedOps(*(torch.zeros((1, 1), dtype=torch.int32)
+                      for _ in PackedOps._fields))
     with pytest.raises(ValueError, match=str(limit)):
-        tss.serve_megakernel_keep(ts, pool, [], *args)
+        tpa.apply_ops_fused(view, ops)
+    marks = []
+    got = to_np(tss.serve_megakernel_keep(ts, pool, [], *args,
+                                          stage=marks.append))
+    assert "apply_scan_plain" in marks
+    want = jax_megakernel(to_np(ts), to_np(pool), (), to_np(args),
+                          fused="interpret")
+    for name, g, w in zip(_NAMES, got, want):
+        assert_tree_equal(g, w, name)
+
+
+HOT_SHAPES = [
+    # (spec, page rows, K overlap slots, A annotate slots): one hot group
+    # above max_fused_capacity(K, A) beside the SMALL_RING groups.
+    pytest.param(SMALL_HOT_RING, 64, 8, 16, id="K8-A16-C2048"),
+    pytest.param(SMALL_HOT_RING._replace(classes=SMALL_HOT_RING.classes[
+        :-1] + (SMALL_HOT_RING.classes[-1]._replace(rows=3800),)),
+        64, 3, 4, id="K3-A4-C4096"),
+]
+
+
+@pytest.mark.parametrize("spec,page_rows,k_slots,a_slots", HOT_SHAPES)
+def test_megakernel_hot_group_above_fused_capacity_matches_jax(
+        spec, page_rows, k_slots, a_slots):
+    """A hot document pre-seeded past max_fused_capacity(K, A) lands in a
+    page group of its own (K8-A16: 32 pages of 64 rows, C = 2,048 > 1,705
+    slots; K3-A4: 64 pages, C = 4,096 > 3,410): the ring takes the scan
+    apply there and the fused apply elsewhere, and equals JAX's
+    serve_megakernel_keep (Pallas in interpret mode on the small groups,
+    its scan above the limit) bit for bit, stats on."""
+    f = Fleet(5, spec=spec, page_rows=page_rows, k_slots=k_slots,
+              a_slots=a_slots)
+    ring = f.stage()
+    limit = tpa.max_fused_capacity(k_slots, a_slots)
+    caps = [p.shape[1] * page_rows for p in ring.args.page_ids]
+    assert max(caps) > limit >= min(caps), (caps, limit)
+    marks = []
+    got = port_megakernel(f.tstate, f.pool, f.lww, ring.args, stats=True,
+                          stage=marks.append)
+    assert "apply_scan_runs" in marks or "apply_scan_plain" in marks
+    assert any(m.startswith("apply_runs_extract") or m == "apply_extract"
+               for m in marks)
+    want = jax_megakernel(f.tstate, f.pool, f.lww, ring.args,
+                          fused="interpret", stats=True)
+    for name, g, w in zip(_NAMES, got, want):
+        assert_tree_equal(g, w, name)
+    layout = tss.flat16_layout(spec.docs, spec.steps, ring.merge_lanes,
+                               ring.lww_lanes, paged_scalars=True,
+                               stats=True)
+    lo, _hi = layout["overflow"]
+    np.testing.assert_array_equal(
+        got[3][-1, lo:lo + sum(ring.merge_lanes)],
+        np.concatenate(ring.expected_overflow))

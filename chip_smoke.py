@@ -57,6 +57,19 @@ port's MergeTreeClient (a prefix, within SCALAR_BUDGET_S), holds its
 text to the device catch-up's, and fits the cost model
 (mergetree/costmodel.py): scalar cost per op against live segments,
 device wall per chunk and per op, and the crossover.
+Phase 14 is the summarize path (bench.py summarize): with the counts at
+0, full_step from fresh state, then the north-star state's extraction
+(extract_visible_batched) fetched in both wire forms; the 1%-dirty pass
+(gather_rows_pow2, compact_extract_batched(stats=True), the narrow fetch,
+assemble_snapshot of every dirty document, device_stats.fold_extract);
+compact_extract_paged(_keep) over phase 12's hot documents; the
+100,000-op catch-up again and its entries through the narrow catch-up
+wire; the counts read (fused apply, summary length, scan apply must have
+launched). Every output is held to the same function on CPU copies of its
+inputs (the paged form to compact_pages + extraction), the narrow fetch
+to the wide one (the wire must drop NARROW_MIN_DROP of the bytes), the
+blob to an exact round trip, then the card to the JAX extraction golden;
+the full and dirty passes and the paged form are timed.
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -137,6 +150,12 @@ SCALAR_BUDGET_S = 60.0
 SCALAR_BLOCK = 2_500
 DEVICE_PREFIXES = (64, 256, 512, 2_048, 8_192, 32_768)
 CROSSOVER_SEGMENTS = (20, 100, 300, 1_000, 3_000)
+# Phase 14: the dirty documents of the incremental pass (every 100th, as
+# bench.py summarize times it), the narrow wire's least byte drop against
+# the wide fetch (bench.py summarize-smoke's gate), and the documents whose
+# snapshots are assembled on the full pass.
+DIRTY_STRIDE = 100
+NARROW_MIN_DROP = 0.40
 # fused_apply.cu's ptxas registers as PERF.md §6 records them: the block
 # path 64 in every variant; the warp path by (kR, runs).
 FUSED_WARP_REGISTERS = {(1, 0): 73, (1, 1): 76, (2, 0): 71, (2, 1): 77,
@@ -784,8 +803,10 @@ def main() -> int:
     rows += scan_full_step_phase(dev, card)
     catchup_rows, catchup_entries = catchup_phases(dev, card)
     rows += catchup_rows
-    rows += paged_phase(dev, card)
+    paged_rows, hot = paged_phase(dev, card)
+    rows += paged_rows
     scalar_phase(dev, card, catchup_entries)
+    summarize_phase(dev, card, hot, catchup_entries)
 
     require(not spilled, f"apply kernels use stack or spill: {spilled}")
     out = []
@@ -1548,7 +1569,8 @@ def paged_phase(dev, card: str) -> list:
     plain=True; the burst timed (events, device idle share); a
     rollback_pages round trip on a sub-plane of the hot group, then
     compact_pages over it. Returns the scan kernel's rows at the ring's
-    hot-group window 0 and at the burst's first chunk."""
+    hot-group window 0 and at the burst's first chunk, and (the store, the
+    hot documents' keys) for phase 14."""
     from fluidframework_tpu_torch import interop
     from fluidframework_tpu_torch.mergetree import kernel
     from fluidframework_tpu_torch.mergetree import pallas_apply as pa
@@ -1772,7 +1794,7 @@ def paged_phase(dev, card: str) -> list:
                       f"{hb.page_ids.shape[0]} x C="
                       f"{hb.page_ids.shape[1] * store.page_rows} x T "
                       f"{chunk0.steps}", card)
-    return rows
+    return rows, (store, keys)
 
 
 def scalar_phase(dev, card: str, catchup_entries) -> None:
@@ -1906,6 +1928,354 @@ def scalar_phase(dev, card: str, catchup_entries) -> None:
                         == wins(n, live, committed),
                         "phase 13: device_bulk_wins differs from its "
                         "formula")
+
+
+
+def assert_arrays_equal(got, want, what: str) -> None:
+    """Two tuples of host numpy arrays: equal dtype, shape and values."""
+    require(len(got) == len(want), f"{what}: length")
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(g.dtype == w.dtype and g.shape == w.shape,
+                f"{what}[{i}]: dtype/shape {g.dtype}{g.shape} vs "
+                f"{w.dtype}{w.shape}")
+        if not np.array_equal(g, w):
+            raise SmokeFailure(f"{what}[{i}]: differs in "
+                               f"{int((g != w).sum())} elements")
+
+
+def live_rows_equal(a, b, what: str) -> None:
+    """Two fetched extractions agree on every document's live rows."""
+    counts = a[-1]
+    require(np.array_equal(counts, b[-1]), f"{what}: counts differ")
+    live = np.arange(a[0].shape[1])[None, :] < counts[:, None]
+    for i, (x, y) in enumerate(zip(a[:-1], b[:-1])):
+        require(np.array_equal(x[live], y[live]),
+                f"{what}: column {i} differs on live rows")
+
+
+def fetch_counted(kernel, packed, narrow: bool):
+    """kernel.fetch_extracted and its (bytes, refetched documents)."""
+    from fluidframework_tpu_torch.telemetry import counters
+    b0 = counters.get("summarize.bytes_d2h")
+    r0 = counters.get("summarize.wire_refetch")
+    out = kernel.fetch_extracted(packed, narrow=narrow)
+    return out, (int(counters.get("summarize.bytes_d2h") - b0),
+                 int(counters.get("summarize.wire_refetch") - r0))
+
+
+def host_and_device_ms(fn):
+    """(host p50, device p50, host trials) in ms of fn over TRIALS warm
+    calls, each between two syncs (bench.py's host clock around a synced
+    call) and two CUDA events on the current stream."""
+    fn()
+    torch.cuda.synchronize()
+    host, device = [], []
+    for _ in range(TRIALS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - h0) * 1e3)
+        device.append(e0.elapsed_time(e1))
+    return float(np.median(host)), float(np.median(device)), host
+
+
+def extract_golden_check(dev) -> None:
+    """The card against the JAX package's outputs on the extraction
+    golden's batch (testing/golden.py): compact_extract_batched(stats=True),
+    both fetches with their counter deltas, two documents' snapshots, and
+    the catch-up blob of the small golden entries."""
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.mergetree import catchup, host, kernel
+    from fluidframework_tpu_torch.mergetree.runs import encode_entry_payloads
+    from fluidframework_tpu_torch.testing import golden
+
+    g = golden.load_extract()
+    state = interop.doc_state_from_numpy(g["state_in"], dev)
+    comp, packed, pre = kernel.compact_extract_batched(state, stats=True)
+    torch.cuda.synchronize()
+    assert_matches_numpy(comp, g["compacted"], "golden compacted state")
+    assert_arrays_equal(tuple(t.cpu().numpy() for t in packed),
+                        tuple(g["packed"][f] for f in golden.PACKED_FIELDS),
+                        "golden packed rows")
+    assert_arrays_equal((pre.cpu().numpy(),), (g["pre_counts"]["count"],),
+                        "golden pre-compaction counts")
+    fetched = {}
+    for form, narrow in (("narrow", True), ("wide", False)):
+        fetched[form], (nbytes, refetch) = fetch_counted(kernel, packed,
+                                                         narrow)
+        assert_arrays_equal(fetched[form], tuple(
+            g[form][f] for f in golden.PACKED_FIELDS), f"golden {form}")
+        require(nbytes == int(g["wire"][f"{form}_bytes"]),
+                f"golden {form} fetch: {nbytes} bytes, JAX "
+                f"{int(g['wire'][f'{form}_bytes'])}")
+        if narrow:
+            require(refetch == int(g["wire"]["refetch"]),
+                    f"golden narrow fetch refetched {refetch} documents")
+    doc = g["json"]
+    for d, want in doc["snapshots"].items():
+        snap = host.assemble_snapshot(
+            fetched["narrow"], doc["payloads"], d,
+            min_seq=int(g["state_in"]["min_seq"][d]),
+            seq=int(g["state_in"]["seq"][d]))
+        require(json.loads(json.dumps(snap)) == want,
+                f"golden snapshot of document {d} differs from JAX")
+    small = encode_entry_payloads(golden.load_catchup()["small"]["entries"])
+    blob = catchup.pack_entries_narrow(small, doc["catchup_base"])
+    require(json.loads(json.dumps(blob)) == doc["catchup_blob"],
+            "golden catch-up blob differs from JAX")
+    print(f"phase 14: the extraction golden ({g['state_in']['count'].size} "
+          f"documents, one refetched) equals the JAX outputs: compacted "
+          f"state, packed rows, pre-compaction counts, both fetches and "
+          f"their bytes, {len(doc['snapshots'])} snapshots, the catch-up "
+          "blob", flush=True)
+
+
+def summarize_phase(dev, card: str, hot, catchup_entries) -> None:
+    """Phase 14, the summarize path at the north-star size (bench.py
+    summarize). Counted run: full_step from fresh state (fused apply and
+    summary length), then (1) extract_visible_batched -> fetch_extracted
+    both forms; (2) the 1%-dirty pass: gather_rows_pow2 ->
+    compact_extract_batched(stats=True) -> fetch_extracted ->
+    assemble_snapshot of each dirty document -> device_stats.fold_extract;
+    (3) compact_extract_paged(_keep) over phase 12's hot documents; (4) the
+    100,000-op catch-up again (scan apply) -> pack_entries_narrow ->
+    unpack_entries_narrow and translate_entry_clients. Every output held to
+    the same function on CPU copies of its inputs (the paged form to
+    compact_pages + extraction of the gathered view), the narrow fetch to
+    the wide one; then the JAX golden; then the timings."""
+    from fluidframework_tpu_torch import interop, kernels
+    from fluidframework_tpu_torch.mergetree import (catchup, host, kernel,
+                                                    pallas_apply, pallas_ops)
+    from fluidframework_tpu_torch.mergetree.paging import pow2_pages
+    from fluidframework_tpu_torch.mergetree.runs import encode_entry_payloads
+    from fluidframework_tpu_torch.mergetree.state import make_state
+    from fluidframework_tpu_torch.server import pipeline
+    from fluidframework_tpu_torch.server import ticket_kernel as tk
+    from fluidframework_tpu_torch.telemetry import counters, device_stats
+    from fluidframework_tpu_torch.telemetry.compile_ledger import ledger
+    from fluidframework_tpu_torch.testing import golden
+    from fluidframework_tpu_torch.testing.traces import (gen_traces,
+                                                         gen_traces_payloads,
+                                                         keystroke_trace)
+
+    store, hot_keys = hot
+    cols = gen_traces(DOCS, OPS, seed=0)
+    ops = interop.packed_ops_from_numpy(cols, dev)
+    raw = tk.RawOps(client=ops.client, client_seq=ops.seq,
+                    ref_seq=ops.ref_seq)
+    payloads = gen_traces_payloads(OPS)
+    dirty = np.arange(0, DOCS, DIRTY_STRIDE, dtype=np.int32)
+    trace = golden.load_catchup()["full"]["trace"]
+    tail = keystroke_trace(trace[0], seed=trace[1], n_clients=trace[2])
+    width = pow2_pages(max(len(store.tables[k]) for k in hot_keys))
+    p_args = [torch.from_numpy(x).to(dev) for x in (
+        store.page_ids_array(hot_keys, width),
+        *store.scalars_arrays(hot_keys))]
+    paged_pre = clone_state(store.pool)
+
+    def dirty_pass(state):
+        sub, n = kernel.gather_rows_pow2(state, dirty)
+        comp, packed, pre = kernel.compact_extract_batched(sub, stats=True)
+        return sub, n, comp, packed, pre
+
+    # -- the counted run ---------------------------------------------------
+    wrappers = (kernels.selftest, pallas_ops.summary_lengths,
+                pallas_apply.apply_ops_fused)
+    for fn in wrappers:
+        fn.launches = 0
+    pallas_apply.reset_launches()
+    kernel.reset_launches()
+    _tout, mout, _tkd, _total = pipeline.full_step(
+        tk.make_ticket_state(TICKET_K, DOCS, device=dev),
+        make_state(CAPACITY, ANNO, batch=DOCS, device=dev), raw, ops)
+    full_packed = kernel.extract_visible_batched(mout)
+    narrow, (n_bytes, n_refetch) = fetch_counted(kernel, full_packed, True)
+    wide, (w_bytes, _) = fetch_counted(kernel, full_packed, False)
+    sub, n_dirty, d_comp, d_packed, d_pre = dirty_pass(mout)
+    d_fetched, (d_bytes, _) = fetch_counted(kernel, d_packed, True)
+    t0 = time.perf_counter()
+    snaps = [host.assemble_snapshot(
+        d_fetched, payloads, j, min_seq=int(sub.min_seq[j]),
+        seq=int(sub.seq[j])) for j in range(n_dirty)]
+    assemble_ms = (time.perf_counter() - t0) * 1e3
+    pre_np, post_np = d_pre.cpu().numpy()[:n_dirty], d_fetched[-1][:n_dirty]
+    extract0 = {k: counters.get(f"device.extract.{k}")
+                for k in device_stats.EXTRACT_SLOTS}
+    device_stats.fold_extract([n_dirty, int(post_np.sum()),
+                               int((pre_np.astype(np.int64)
+                                    - post_np).sum())])
+    p_keep = kernel.compact_extract_paged_keep(store.pool, *p_args)
+    p_out = kernel.compact_extract_paged(store.pool, *p_args)
+    entries = catchup.device_apply_tail([], tail, 0, 0, device=dev)
+    torch.cuda.synchronize()
+    launches = {"selftest": kernels.selftest.launches,
+                "summary_len": pallas_ops.summary_lengths.launches,
+                "fused_apply": pallas_apply.apply_ops_fused.launches,
+                "scan_apply": kernel.scan_apply.launches}
+    require(all(n > 0 for k, n in launches.items() if k != "selftest"),
+            f"phase 14: the summarize path did not launch every kernel: "
+            f"{launches}")
+    print(f"phase 14: the summarize path's counted run launched {launches}",
+          flush=True)
+
+    # -- (1) full extraction: card vs CPU copies, narrow vs wide -----------
+    m_cpu = type(mout)(*(t.cpu() for t in mout))
+    cpu_packed = kernel.extract_visible_batched(m_cpu)
+    assert_arrays_equal(tuple(t.cpu().numpy() for t in full_packed),
+                        tuple(t.numpy() for t in cpu_packed),
+                        "full extraction vs CPU")
+    c_narrow, c_n = fetch_counted(kernel, cpu_packed, True)
+    c_wide, c_w = fetch_counted(kernel, cpu_packed, False)
+    assert_arrays_equal(narrow, c_narrow, "narrow fetch vs CPU")
+    assert_arrays_equal(wide, c_wide, "wide fetch vs CPU")
+    require((n_bytes, n_refetch) == c_n and w_bytes == c_w[0],
+            f"fetch bytes {n_bytes}/{w_bytes} vs CPU {c_n}/{c_w}")
+    live_rows_equal(narrow, wide, "narrow vs wide fetch")
+    drop = 1 - n_bytes / w_bytes
+    require(drop >= NARROW_MIN_DROP, f"narrow wire drops {drop:.3f} of the "
+            f"wide bytes ({n_bytes} vs {w_bytes}), under {NARROW_MIN_DROP}")
+    live = int(narrow[-1].sum())
+    print(f"phase 14 (1): extraction of {DOCS} documents equals the CPU "
+          f"composition; narrow fetch equals the wide one on {live} live "
+          f"rows; bytes narrow {n_bytes}, wide {w_bytes} (drop {drop:.4f}), "
+          f"{n_refetch} documents refetched", flush=True)
+
+    # -- (2) the 1%-dirty pass ---------------------------------------------
+    c_sub, c_n_dirty, c_comp, c_dpacked, c_pre = dirty_pass(m_cpu)
+    require(n_dirty == c_n_dirty == len(dirty), "dirty count")
+    assert_trees_equal(tuple(t.cpu() for t in sub), tuple(c_sub),
+                       "dirty gather vs CPU")
+    assert_trees_equal(tuple(t.cpu() for t in d_comp), tuple(c_comp),
+                       "dirty compacted state vs CPU")
+    assert_trees_equal(tuple(t.cpu() for t in d_packed), tuple(c_dpacked),
+                       "dirty packed rows vs CPU")
+    assert_trees_equal(d_pre.cpu(), c_pre, "dirty stats plane vs CPU")
+    c_fetched, c_d = fetch_counted(kernel, c_dpacked, True)
+    assert_arrays_equal(d_fetched, c_fetched, "dirty fetch vs CPU")
+    require(d_bytes == c_d[0], f"dirty fetch bytes {d_bytes} vs {c_d[0]}")
+    c_snaps = [host.assemble_snapshot(
+        c_fetched, payloads, j, min_seq=int(c_sub.min_seq[j]),
+        seq=int(c_sub.seq[j])) for j in range(n_dirty)]
+    require(snaps == c_snaps, "dirty snapshots differ from the CPU's")
+    for j, d in enumerate(dirty[:3]):   # and from the full pass's rows
+        require(snaps[j] == host.assemble_snapshot(
+            narrow, payloads, int(d), min_seq=int(m_cpu.min_seq[d]),
+            seq=int(m_cpu.seq[d])), f"dirty snapshot of document {d} "
+            "differs from the full pass's")
+    ext = {k: counters.get(f"device.extract.{k}") - extract0[k]
+           for k in device_stats.EXTRACT_SLOTS}
+    require(ext["docs"] == n_dirty and ext["rows_live"] == post_np.sum(),
+            f"device.extract counters {ext}")
+    print(f"phase 14 (2): dirty pass over {n_dirty} documents (pow2 "
+          f"{sub.length.shape[0]}) equals the CPU composition (gather, "
+          f"compaction, packed rows, stats plane, fetch, snapshots); "
+          f"device.extract deltas {ext}; {d_bytes} bytes; assembly of "
+          f"{n_dirty} snapshots {assemble_ms:.3f} ms host, "
+          f"{sum(s['header']['totalLength'] for s in snaps)} characters",
+          flush=True)
+
+    # -- (3) the paged form --------------------------------------------------
+    ref_pool, _pids, ref_counts = kernel.compact_pages_keep(paged_pre,
+                                                            *p_args)
+    view = kernel.gather_pages(ref_pool, p_args[0], ref_counts, p_args[2],
+                               p_args[3])
+    want_packed = kernel.extract_visible_batched(view)
+    for name, out in (("compact_extract_paged_keep", p_keep),
+                      ("compact_extract_paged", p_out)):
+        assert_trees_equal(out[0], ref_pool, f"{name} pool")
+        assert_trees_equal(out[2], ref_counts, f"{name} counts")
+        assert_trees_equal(tuple(out[3]), tuple(want_packed),
+                           f"{name} packed rows vs compact_pages + extract")
+    require(p_out[0] is store.pool, "compact_extract_paged not in place")
+    paged_live = int(ref_counts.sum())
+    print(f"phase 14 (3): compact_extract_paged(_keep) over {len(hot_keys)} "
+          f"hot documents [{p_args[0].shape[0]} x "
+          f"{p_args[0].shape[1] * store.page_rows}] equals compact_pages + "
+          f"extract_visible_batched ({int(p_args[1].sum())} -> {paged_live} "
+          "rows)", flush=True)
+
+    # -- (4) the read-path wire --------------------------------------------
+    require(entries == catchup_entries,
+            "phase 14 catch-up entries differ from phase 11's")
+    wire_entries = encode_entry_payloads(entries)
+    base = max(max(e.get("seq", 0), e.get("removedSeq", 0))
+               for e in wire_entries)
+    t0 = time.perf_counter()
+    blob = catchup.pack_entries_narrow(wire_entries, base)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = catchup.unpack_entries_narrow(blob)
+    unpack_ms = (time.perf_counter() - t0) * 1e3
+    require(back == wire_entries, "catch-up blob does not round-trip")
+    blob_bytes = len(json.dumps(blob))
+    json_bytes = len(json.dumps(wire_entries))
+    clients = sorted({e[f] for e in wire_entries
+                      for f in ("client", "removedClient") if f in e})
+    mapping = {c: 100 + c for c in clients}
+    moved = catchup.translate_entry_clients(wire_entries, mapping)
+    require(all(m.get(f) == mapping[e[f]] for e, m in zip(wire_entries,
+                                                          moved)
+                for f in ("client", "removedClient") if f in e),
+            "translate_entry_clients")
+    print(f"phase 14 (4): catch-up wire of {len(entries)} entries (base "
+          f"{base}): blob {blob_bytes} bytes vs json.dumps {json_bytes} "
+          f"({blob_bytes / json_bytes:.4f}); pack {pack_ms:.3f} ms, unpack "
+          f"{unpack_ms:.3f} ms host; round trip exact; clients {clients} "
+          "translated", flush=True)
+
+    extract_golden_check(dev)
+
+    # -- timings -------------------------------------------------------------
+    # Host clock around the whole call (bench.py's method); CUDA events
+    # around the device half alone (extraction + narrow pack, no copy).
+    full_host, _ev, full_trials = host_and_device_ms(
+        lambda: kernel.fetch_extracted(kernel.extract_visible_batched(mout)))
+    dirty_host, _ev, dirty_trials = host_and_device_ms(
+        lambda: kernel.fetch_extracted(dirty_pass(mout)[3]))
+    mx = narrow[0].shape[1]
+    _h, full_dev, _t = host_and_device_ms(lambda: kernel._narrow_pack(
+        kernel.extract_visible_batched(mout), mx))
+    _h, fused_dev, _t = host_and_device_ms(lambda: kernel._narrow_pack(
+        kernel.compact_extract_batched(mout)[1], mx))
+    _h, dirty_dev, _t = host_and_device_ms(lambda: kernel._narrow_pack(
+        dirty_pass(mout)[3], d_fetched[0].shape[1]))
+    paged_ms = float(np.median([once_ms(
+        lambda: kernel.compact_extract_paged(store.pool, *p_args))
+        for _ in range(TRIALS)]))
+    # Bounds: each input plane read once, each output written once. The
+    # extraction reads 7 + A planes (rem_clients' first slot only) and
+    # count / min_seq and writes the narrow wire; the fused zamboni also
+    # reads and writes every plane of the state (8 + K + A).
+    plane = DOCS * CAPACITY * 4
+    k, a = mout.overlap_slots, mout.anno_slots
+    wire = n_bytes - 4 * DOCS
+    full_bound = ((7 + a) * plane + 8 * DOCS + wire) / PEAK_BYTES_PER_S * 1e3
+    fused_bound = (2 * (8 + k + a) * plane + 16 * DOCS + wire) \
+        / PEAK_BYTES_PER_S * 1e3
+    print(f"phase 14 timings: full extraction (extract_visible_batched + "
+          f"narrow fetch, {DOCS} documents) p50 {full_host:.3f} ms host "
+          f"clock (trials {[round(x, 3) for x in full_trials]}); its device "
+          f"half (extraction + narrow pack at mx {mx}) {full_dev:.4f} ms "
+          f"events, bound {full_bound:.4f} ms; the fused zamboni + "
+          f"extraction + narrow pack {fused_dev:.4f} ms events, bound "
+          f"{fused_bound:.4f} ms (bytes over 3.35 TB/s); dirty 1% "
+          f"(gather_rows_pow2 + compact_extract_batched + narrow fetch, "
+          f"{n_dirty} documents) p50 {dirty_host:.3f} ms host (trials "
+          f"{[round(x, 3) for x in dirty_trials]}), device half "
+          f"{dirty_dev:.4f} ms events; speedup {full_host / dirty_host:.2f}x"
+          f" (bench.py summarize-smoke asks >= 5x; recorded, not gated); "
+          f"compact_extract_paged p50 {paged_ms:.4f} ms (events, in place); "
+          f"card {card}", flush=True)
+    gather = {k: counters.get(f"kernel.extract_gather.{k}")
+              for k in ("compiles", "retraces")}
+    print(f"phase 14: kernel.extract_gather {gather}; device.extract "
+          f"{device_stats.snapshot()}; compile ledger "
+          f"{json.dumps(ledger.bench_stamp(), sort_keys=True)}", flush=True)
 
 
 if __name__ == "__main__":

@@ -22,8 +22,13 @@ easy to find:
                           + its CUDA kernel), zamboni compaction,
                           visible_mask / doc_length, page gather / scatter,
                           the paged ops (apply_ops_paged, rollback_pages,
-                          compact_pages, paged_stats_vec)
-  mergetree/host.py       payload tables, OpBuilder, host extraction
+                          compact_pages, paged_stats_vec), summary
+                          extraction (extract_visible_batched, the fused
+                          compact_extract_batched / _paged,
+                          gather_rows_pow2) and the narrow device-to-host
+                          wire (fetch_extracted)
+  mergetree/host.py       payload tables, OpBuilder, host extraction,
+                          snapshot assembly (assemble_snapshot)
   mergetree/runs.py       stable-id Run payloads and their wire encoding
   mergetree/oracle.py     the scalar merge-tree oracle (MergeTreeOracle,
                           Segment, LocalReference, Items)
@@ -31,14 +36,23 @@ easy to find:
                           reconnect, apply_bulk on the device catch-up)
   mergetree/costmodel.py  device_bulk_wins: scalar vs device catch-up
   mergetree/catchup.py    one document's bulk catch-up: device_apply_tail,
-                          apply_host_ops (seed, chunked scan, fold)
+                          apply_host_ops (seed, chunked scan, fold); the
+                          catch-up narrow wire (pack_entries_narrow)
+  protocol/messages.py    wire message types (DocumentMessage, Boxcar, ...)
   server/ticket_kernel.py deli ticketing, batched over documents
   server/lww_kernel.py    LWW lanes (map / cell / counter)
   server/pipeline.py      full_step: ticket -> fused apply -> summary length
   server/serve_step.py    serving windows, the paged serving megakernel
                           and the paged burst (serve_paged_burst)
-  telemetry/device_stats.py  the serving and paged stats planes' layouts
-  telemetry/counters.py   named counters, gauges, latency histograms
+  server/wire.py          JSON wire codecs (boxcar_to_wire, ...)
+  server/log.py           the ordered log (MessageLog, topics, partitions)
+  server/lambdas/base.py  the lambda SPI (LambdaContext, IPartitionLambda)
+  telemetry/device_stats.py  the stats planes' layouts and their fold
+                          into counters
+  telemetry/counters.py   named counters, gauges, latency histograms, the
+                          input-signature probe (JitRetraceProbe)
+  telemetry/compile_ledger.py  per-symbol compile attribution (new
+                          signatures, the CUDA library build)
   telemetry/tracing.py    op-lifecycle tracing and the flight recorder
   kernels/                nvcc build of csrc/*.cu and the ctypes bindings
   interop.py              numpy <-> tensor converters for the conformance tests

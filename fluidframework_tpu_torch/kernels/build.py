@@ -103,6 +103,17 @@ _LIB = None
 BUILD_SECONDS = None
 
 
+def _note_build(wall_ms: float) -> None:
+    """Record the build or load of the library in the compile ledger: one
+    cold call per source (they compile in parallel, so each carries the
+    same wall) and the wall once in compile.backend_ms."""
+    from ..telemetry import counters
+    from ..telemetry.compile_ledger import ledger
+    for src in sorted(CSRC.glob("*.cu")):
+        ledger.note_call(f"kernels/csrc/{src.name}", wall_ms, grew=1)
+    counters.increment("compile.backend_ms", wall_ms)
+
+
 def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library, with argtypes and
     restype declared for every entry point."""
@@ -111,6 +122,7 @@ def library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         path = build()
         BUILD_SECONDS = time.perf_counter() - t0
+        _note_build(BUILD_SECONDS * 1e3)
         lib = ctypes.CDLL(str(path))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.fluid_error_string.argtypes = [i32]

@@ -1,7 +1,7 @@
 """Device bulk catch-up: replay a large sequenced-op tail through the
-merge-tree kernel instead of the scalar oracle (a port of
-fluidframework_tpu's mergetree/catchup.py:58-605; the catch-up narrow wire,
-:606-835, is not ported yet).
+merge-tree kernel instead of the scalar oracle, and the catch-up
+artifact's narrow wire (a port of fluidframework_tpu's
+mergetree/catchup.py).
 
 The reference loads summary + op tail and applies the tail one op at a time
 (container-loader/src/deltaManager.ts:1380 fetchMissingDeltas, :1401
@@ -687,3 +687,234 @@ def _pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+# ---------------------------------------------------------------------------
+# catch-up artifact narrow wire (docs/read_path.md)
+# ---------------------------------------------------------------------------
+# The read tier's per-doc catch-up delta carries full-fidelity snapshot
+# entries (the extract_entries/load_segments interchange above) packed the
+# way the serving path's flat16 readback packs its result plane: numeric
+# columns ride int16 with the sequence fields delta-encoded against the
+# artifact's base seq, and the rare out-of-range value escapes to an
+# explicit (index, int32) list — the same narrow-wire discipline as
+# kernel.fetch_extracted(narrow=True), applied at the server->client hop
+# instead of the device->host hop. Client identity fields are SMALL INT
+# INDICES into the artifact's per-doc client table (the publisher
+# translates server-interned ordinals to wire client ids; the adopting
+# client translates wire ids to its own quorum ordinals), which is what
+# keeps them int16-packable at all. Decoding is exact: unpack(pack(e))
+# round-trips byte-identically (tests/test_torch_snapshot.py locks it),
+# so the delta path's conformance bar against scalar tail replay never
+# rests on the wire.
+
+CATCHUP_WIRE_VERSION = 1
+_NARROW_ABSENT = -32768      # int16 sentinel: field absent on this entry
+_NARROW_ESCAPE = -32767      # int16 sentinel: value rides the escape list
+_NARROW_MAX = 32000          # |delta| ceiling before escaping to int32
+
+
+def _b64_col(arr: np.ndarray) -> str:
+    import base64
+    return base64.b64encode(np.ascontiguousarray(arr).tobytes()).decode(
+        "ascii")
+
+
+def _col_from_b64(data: str, dtype, n: int) -> np.ndarray:
+    import base64
+    arr = np.frombuffer(base64.b64decode(data), dtype=dtype)
+    if arr.shape[0] != n:
+        raise ValueError(f"narrow column length {arr.shape[0]} != {n}")
+    return arr
+
+
+def _pack_seq_col(entries: Sequence[dict], field: str, base_seq: int):
+    """One seq-family column: int16 delta vs base_seq, _NARROW_ABSENT for
+    entries without the field, escapes for deltas past the int16 window."""
+    n = len(entries)
+    col = np.full(n, _NARROW_ABSENT, np.int16)
+    escapes: List[List[int]] = []
+    for i, e in enumerate(entries):
+        v = e.get(field)
+        if v is None:
+            continue
+        d = base_seq - int(v)
+        if -_NARROW_MAX <= d <= _NARROW_MAX:
+            col[i] = d
+        else:
+            col[i] = _NARROW_ESCAPE
+            escapes.append([i, int(v)])
+    return col, escapes
+
+
+def _pack_client_col(entries: Sequence[dict], field: str):
+    """One client-index column (values already small ints — table
+    indices): int16 with the same escape discipline."""
+    n = len(entries)
+    col = np.full(n, _NARROW_ABSENT, np.int16)
+    escapes: List[List[int]] = []
+    for i, e in enumerate(entries):
+        v = e.get(field)
+        if v is None:
+            continue
+        v = int(v)
+        if -_NARROW_MAX <= v <= _NARROW_MAX:
+            col[i] = v
+        else:
+            col[i] = _NARROW_ESCAPE
+            escapes.append([i, v])
+    return col, escapes
+
+
+def pack_entries_narrow(entries: Sequence[dict], base_seq: int) -> dict:
+    """Snapshot entries -> the JSON-safe narrow catch-up blob.
+
+    Entries must be server-side (fully sequenced) material: pending
+    local state (localSeq / removedLocalSeq / pendingAnnotates) raises
+    ValueError — a catch-up artifact never carries another client's
+    unacked edits. Text payloads concatenate into one string (sliced
+    back by the per-entry length column); non-string payloads (wire-
+    encoded Items/Run dicts) ride an explicit escape list."""
+    n = len(entries)
+    kinds = np.zeros(n, np.int8)
+    lens = np.zeros(n, np.int32)
+    texts: List[str] = []
+    payload_escapes: List[List[Any]] = []
+    props: List[List[Any]] = []
+    overlap: List[List[Any]] = []
+    for i, e in enumerate(entries):
+        if e.get("localSeq") is not None \
+                or e.get("removedLocalSeq") is not None \
+                or e.get("pendingAnnotates"):
+            raise ValueError(
+                "pending local state is not catch-up wire material")
+        kind = e.get("kind", SEG_TEXT)
+        kinds[i] = 1 if kind == SEG_MARKER else 0
+        text = e.get("text", "")
+        if kind != SEG_MARKER:
+            if isinstance(text, str):
+                lens[i] = len(text)
+                texts.append(text)
+            else:  # wire-encoded Items/Run payload dict
+                lens[i] = -1
+                payload_escapes.append([i, text])
+        if e.get("props"):
+            props.append([i, e["props"]])
+        if e.get("removedOverlapClients"):
+            overlap.append([i, [int(c)
+                                for c in e["removedOverlapClients"]]])
+    seq_col, seq_x = _pack_seq_col(entries, "seq", base_seq)
+    rem_col, rem_x = _pack_seq_col(entries, "removedSeq", base_seq)
+    cli_col, cli_x = _pack_client_col(entries, "client")
+    rcl_col, rcl_x = _pack_client_col(entries, "removedClient")
+    return {
+        "v": CATCHUP_WIRE_VERSION,
+        "n": n,
+        "base": int(base_seq),
+        "kinds": _b64_col(kinds),
+        "lens": _b64_col(lens),
+        "text": "".join(texts),
+        "seq": _b64_col(seq_col), "seqX": seq_x,
+        "rem": _b64_col(rem_col), "remX": rem_x,
+        "cli": _b64_col(cli_col), "cliX": cli_x,
+        "rcl": _b64_col(rcl_col), "rclX": rcl_x,
+        "props": props,
+        "overlap": overlap,
+        "payloads": payload_escapes,
+    }
+
+
+def unpack_entries_narrow(blob: dict) -> List[dict]:
+    """The exact inverse of pack_entries_narrow (client fields stay the
+    packed indices — the adopter translates them through the artifact's
+    client table)."""
+    if blob.get("v") != CATCHUP_WIRE_VERSION:
+        raise ValueError(f"unknown catch-up wire version {blob.get('v')!r}")
+    n = int(blob["n"])
+    base = int(blob["base"])
+    kinds = _col_from_b64(blob["kinds"], np.int8, n)
+    lens = _col_from_b64(blob["lens"], np.int32, n)
+    seq_col = _col_from_b64(blob["seq"], np.int16, n)
+    rem_col = _col_from_b64(blob["rem"], np.int16, n)
+    cli_col = _col_from_b64(blob["cli"], np.int16, n)
+    rcl_col = _col_from_b64(blob["rcl"], np.int16, n)
+    seq_x = {int(i): int(v) for i, v in blob.get("seqX", [])}
+    rem_x = {int(i): int(v) for i, v in blob.get("remX", [])}
+    cli_x = {int(i): int(v) for i, v in blob.get("cliX", [])}
+    rcl_x = {int(i): int(v) for i, v in blob.get("rclX", [])}
+    props = {int(i): p for i, p in blob.get("props", [])}
+    overlap = {int(i): [int(c) for c in cs]
+               for i, cs in blob.get("overlap", [])}
+    payloads = {int(i): p for i, p in blob.get("payloads", [])}
+    text = blob["text"]
+
+    def seqv(col, x, i):
+        v = int(col[i])
+        if v == _NARROW_ABSENT:
+            return None
+        if v == _NARROW_ESCAPE:
+            return x[i]
+        return base - v
+
+    def cliv(col, x, i):
+        v = int(col[i])
+        if v == _NARROW_ABSENT:
+            return None
+        if v == _NARROW_ESCAPE:
+            return x[i]
+        return v
+
+    out: List[dict] = []
+    pos = 0
+    for i in range(n):
+        if kinds[i] == 1:
+            entry: Dict[str, Any] = {"kind": SEG_MARKER, "text": ""}
+        else:
+            ln = int(lens[i])
+            if ln < 0:
+                entry = {"kind": SEG_TEXT, "text": payloads[i]}
+            else:
+                entry = {"kind": SEG_TEXT, "text": text[pos:pos + ln]}
+                pos += ln
+        if i in props:
+            entry["props"] = props[i]
+        s = seqv(seq_col, seq_x, i)
+        if s is not None:
+            entry["seq"] = s
+            c = cliv(cli_col, cli_x, i)
+            if c is not None:
+                entry["client"] = c
+        r = seqv(rem_col, rem_x, i)
+        if r is not None:
+            entry["removedSeq"] = r
+            rc = cliv(rcl_col, rcl_x, i)
+            if rc is not None:
+                entry["removedClient"] = rc
+        if i in overlap:
+            entry["removedOverlapClients"] = overlap[i]
+        out.append(entry)
+    return out
+
+
+def translate_entry_clients(entries: Sequence[dict],
+                            mapping: Dict[int, int]) -> List[dict]:
+    """Rewrite every client-identity field through `mapping`, copying
+    only entries it changes (blob-cache snapshots are shared/immutable).
+    Raises KeyError on a value >= 0 with no mapping — the caller's
+    signal that this document cannot ride the delta path this epoch."""
+    out: List[dict] = []
+    for e in entries:
+        patch: Dict[str, Any] = {}
+        for field in ("client", "removedClient"):
+            v = e.get(field)
+            if v is not None and int(v) >= 0:
+                patch[field] = mapping[int(v)]
+        ov = e.get("removedOverlapClients")
+        if ov:
+            patch["removedOverlapClients"] = [
+                mapping[int(c)] if int(c) >= 0 else int(c) for c in ov]
+        if patch:
+            e = dict(e)
+            e.update(patch)
+        out.append(e)
+    return out

@@ -1,7 +1,6 @@
-"""Host glue for the device kernel: payload tables + state extraction (a
-copy of fluidframework_tpu's mergetree/host.py without the summarize
-slice's assemble_entries / assemble_snapshot / chunk_entries /
-flatten_snapshot_content).
+"""Host glue for the device kernel: payload tables, state extraction and
+snapshot assembly (a copy of fluidframework_tpu's mergetree/host.py; the
+assembly functions read kernel.fetch_extracted's numpy arrays).
 
 Device arrays hold only integers (SURVEY.md §7: "device holds offsets/lengths
 into a host rope, not characters"). The host keeps:
@@ -382,4 +381,126 @@ def extract_segments(state: DocState, payloads: PayloadTable,
                 else:
                     props[key] = value
         out.append((text, props or None))
+    return out
+
+
+def assemble_entries(packed, payloads: PayloadTable, doc: int,
+                     min_seq: int = 0) -> List[dict]:
+    """Full-fidelity snapshot entries for one document from the batched
+    device extraction (kernel.extract_visible_batched output): only the
+    live rows are touched — the device already did the mask + prefix-sum
+    packing. Entries keep contended insert/remove metadata above min_seq
+    (oracle.snapshot_segments format), so the snapshot loads mid-window."""
+    from .constants import DEV_NO_REMOVE
+
+    (origin_op, origin_off, length, anno, ins_seq, ins_client,
+     rem_seq, rem_client, counts) = packed
+    out: List[dict] = []
+    for i in range(int(counts[doc])):
+        payload = payloads.get(int(origin_op[doc, i]))
+        entry: Dict[str, Any] = {"kind": payload.kind}
+        if payload.kind == SEG_MARKER:
+            entry["text"] = ""
+        else:
+            off = int(origin_off[doc, i])
+            entry["text"] = payload.text[off:off + int(length[doc, i])]
+        props = dict(payload.props) if payload.props else {}
+        chain = []
+        for op_id in anno[doc, i]:
+            op_id = int(op_id)
+            if op_id < 0:
+                continue
+            ann = payloads.get(op_id)
+            seq = ann.seq
+            if seq == DEV_UNASSIGNED:
+                seq = PENDING_ORDER_BASE + op_id
+            chain.append((seq, ann.props))
+        chain.sort(key=lambda kv: kv[0])
+        for _, pset in chain:
+            for key, value in pset.items():
+                if value is None:
+                    props.pop(key, None)
+                else:
+                    props[key] = value
+        if props:
+            entry["props"] = props
+        if int(ins_seq[doc, i]) > min_seq:
+            entry["seq"] = int(ins_seq[doc, i])
+            entry["client"] = int(ins_client[doc, i])
+        if int(rem_seq[doc, i]) != DEV_NO_REMOVE:
+            entry["removedSeq"] = int(rem_seq[doc, i])
+            entry["removedClient"] = int(rem_client[doc, i])
+        out.append(entry)
+    return out
+
+
+def assemble_snapshot(packed, payloads: PayloadTable, doc: int,
+                      min_seq: int, seq: int,
+                      chunk_chars: int = 10000) -> dict:
+    """One document's chunked snapshot dict {"header", "chunks"} from a
+    batched device extraction — the host half of a summarize pass
+    (assemble_entries + chunk_entries + the SnapshotV1-shaped header,
+    snapshotV1.ts:33-40). Chunks arrive wire-encoded (JSON-safe): Items
+    and Run payloads encode via runs.encode_entry_payloads so the
+    materialized-snapshot writer can json.dumps them directly. The
+    summarize blob cache (server MergeLaneStore) stores exactly this
+    dict per (lane, summarize epoch)."""
+    from .constants import SEG_MARKER
+    from .runs import encode_entry_payloads
+
+    entries = assemble_entries(packed, payloads, doc, min_seq=min_seq)
+    total = sum((1 if e["kind"] == SEG_MARKER else len(e["text"]))
+                for e in entries if e.get("removedSeq") is None)
+    chunks = [encode_entry_payloads(c)
+              for c in chunk_entries(entries, chunk_chars)]
+    return {
+        "header": {
+            "sequenceNumber": seq,
+            "minimumSequenceNumber": min_seq,
+            "totalLength": total,
+            "chunkCount": len(chunks),
+        },
+        "chunks": chunks,
+    }
+
+
+def chunk_entries(entries: List[dict], chunk_chars: int = 10000
+                  ) -> List[List[dict]]:
+    """Split snapshot entries into body chunks of ~chunk_chars characters
+    (reference SnapshotV1 header + 10k-char chunks, snapshotV1.ts:33-40)."""
+    chunks: List[List[dict]] = []
+    cur: List[dict] = []
+    size = 0
+    for e in entries:
+        cur.append(e)
+        size += max(1, len(e.get("text") or ""))
+        if size >= chunk_chars:
+            chunks.append(cur)
+            cur = []
+            size = 0
+    if cur or not chunks:
+        chunks.append(cur)
+    return chunks
+
+
+def flatten_snapshot_content(snap: dict) -> List[Tuple[str, tuple]]:
+    """Flatten an assembled snapshot (assemble_snapshot's {"header",
+    "chunks"} dict) to its per-char (char, resolved props) stream of
+    VISIBLE content. Segmentation is an engine-internal artifact — the
+    bucketed store's folds coalesce acked rows, the paged store's
+    zamboni runs on its own page-granular cadence — so two conformant
+    engines may chunk the same document differently while the flattened
+    content must match to the character (the cross-engine bar
+    `bench.py paged-smoke` and the paged conformance tests apply, the
+    same normalization tests/test_kernel.py's flatten_runs uses against
+    the oracle)."""
+    out: List[Tuple[str, tuple]] = []
+    for chunk in snap["chunks"]:
+        for e in chunk:
+            if e.get("removedSeq") is not None:
+                continue
+            text = e.get("text") or ("￼" if e.get("kind") != SEG_TEXT
+                                     else "")
+            props = tuple(sorted((e.get("props") or {}).items()))
+            out.extend((ch, props) for ch in text)
     return out

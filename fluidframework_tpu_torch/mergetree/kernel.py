@@ -23,9 +23,14 @@ documents in and out of a page pool (mergetree/paging.py). The paged ops
 (`apply_ops_paged`, `rollback_pages`, `compact_pages`, each with a `_keep`
 form, and `paged_stats_vec`) compose them with the scan apply and
 compaction: `apply_ops_paged` launches scan_apply.cu for CUDA tensors, as
-JAX's runs `_scan_ops` there. Not ported yet: `compact_extract_paged`,
-extraction and the narrow wire (kernel.py:668-1002), and the sequence-
-parallel `sp_shards` formulation.
+JAX's runs `_scan_ops` there.
+
+Summary extraction (`extract_visible_batched`, the fused zamboni +
+extraction `compact_extract_batched` and its paged form
+`compact_extract_paged`, `gather_rows_pow2`) and the narrow device-to-host
+wire (`fetch_extracted`) are XLA code in JAX, not Pallas: plain PyTorch
+on both devices here. Not ported: the sequence-parallel `sp_shards`
+formulation.
 """
 
 from __future__ import annotations
@@ -33,9 +38,11 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..kernels import build
+from ..telemetry import counters
 from .constants import DEV_NO_REMOVE, DEV_UNASSIGNED
 from .oppack import RUN_K, OpKind, PackedOps, RunCols
 from .paging import BLANK_PAGE
@@ -942,3 +949,299 @@ def compact_pages_keep(pool: DocState, page_ids: torch.Tensor, counts,
     """compact_pages on a copy of the pool."""
     return _compact_pages(_copy_pool(pool), page_ids, counts, min_seqs,
                           seqs)
+
+
+def compact_extract_paged(pool: DocState, page_ids: torch.Tensor, counts,
+                          min_seqs, seqs):
+    """Fused zamboni + snapshot extraction over gathered page views (the
+    paged form of compact_extract_batched): gather, one left-pack that
+    serves both the compacted rows and the packed snapshot rows, scatter
+    into `pool` in place. Returns (pool, page_ids, count, packed), packed
+    in the extract_visible_batched layout, so host.assemble_snapshot runs
+    unchanged."""
+    view = gather_pages(pool, page_ids, counts, min_seqs, seqs)
+    g, packed = _compact_extract_batched(view)
+    return scatter_pages(pool, page_ids, g), page_ids, g.count, packed
+
+
+def compact_extract_paged_keep(pool: DocState, page_ids: torch.Tensor,
+                               counts, min_seqs, seqs):
+    """compact_extract_paged on a copy of the pool."""
+    return compact_extract_paged(_copy_pool(pool), page_ids, counts,
+                                 min_seqs, seqs)
+
+
+# ---------------------------------------------------------------------------
+# batched summary extraction
+# ---------------------------------------------------------------------------
+
+def _extract_batched(s: DocState) -> tuple:
+    """Left-pack the snapshot-relevant segment rows of a [B, C] batch:
+    everything not yet zambonied (removed at-or-before min_seq), i.e.
+    visible text plus contended collab-window metadata, through
+    compaction's own keep-mask + prefix-sum addressing (_pack_src), so the
+    host reads exactly the live rows (reference snapshotV1.ts:33). Rows
+    past each count repeat the last slot, as JAX's gather does."""
+    src, n = _pack_src(s)
+    src = src.long()
+
+    def g(x):
+        return x.gather(1, src)
+
+    return (g(s.origin_op), g(s.origin_off), g(s.length),
+            s.anno.gather(1, src[..., None].expand(-1, -1, s.anno_slots)),
+            g(s.ins_seq), g(s.ins_client), g(s.rem_seq),
+            g(s.rem_clients[..., 0]), n)
+
+
+def _compact_extract_batched(s: DocState) -> tuple:
+    """Fused zamboni + extraction: compaction's left-pack is exactly what
+    extraction keeps, so one pass gives both the compacted state and the
+    packed rows; the columns are read from the compacted rows, so padding
+    slots carry clean blanks, not stale data."""
+    g = _compact_batched(s)
+    return g, (g.origin_op, g.origin_off, g.length, g.anno, g.ins_seq,
+               g.ins_client, g.rem_seq, g.rem_clients[..., 0].contiguous(),
+               g.count)
+
+
+def extract_visible_batched(state: DocState) -> tuple:
+    """One pass over a [B, ...] batch -> packed per-document segment rows:
+    (origin_op, origin_off, length, anno, ins_seq, ins_client, rem_seq,
+    rem_client) each [B, C] (anno [B, C, A]; rows >= counts[b] are
+    padding) + counts [B]. Only the first overlap client of a removed row
+    is extracted."""
+    return _extract_batched(state)
+
+
+def compact_extract_batched(state: DocState, stats: bool = False) -> tuple:
+    """Fused zamboni + snapshot extraction over a [B, ...] batch: returns
+    (compacted_state, packed), compacted_state equal to
+    compact_batched(state) and packed in the extract_visible_batched
+    layout. The input is left as it was. stats=True appends the
+    pre-compaction per-document live-row counts (int32 [B]) as a third
+    element, from which the host derives the rows zamboni reclaimed."""
+    out = _compact_extract_batched(state)
+    if stats:
+        return out + (state.count.to(_I32, copy=True),)
+    return out
+
+
+def _gather_rows(state: DocState, idx: torch.Tensor) -> DocState:
+    idx = idx.long()
+    return type(state)(*(x[idx] if x.dim() else x for x in state))
+
+
+# The dirty-lane gather must not take a new input signature per distinct
+# dirty count: gather_rows_pow2 pads the index vector to a power of two so
+# the signatures stay bounded at log2(B). The probe counts them as
+# kernel.extract_gather.* (telemetry/counters.JitRetraceProbe).
+_gather_rows_probe = counters.JitRetraceProbe(_gather_rows,
+                                              name="kernel.extract_gather")
+
+
+def pad_pow2_indices(rows):
+    """Host ints -> (int32 index vector zero-padded to the next power of
+    two, real count). An empty list pads to one index."""
+    idx = np.asarray(rows, np.int32).reshape(-1)
+    n = idx.size
+    n_pad = 1 << max(n - 1, 0).bit_length()
+    idx_p = np.zeros(n_pad, np.int32)
+    idx_p[:n] = idx
+    return idx_p, n
+
+
+def gather_rows_pow2(state: DocState, rows):
+    """Gather batch rows `rows` (host ints) of a [B, ...] state into a
+    power-of-two-padded sub-batch (padding repeats row 0; callers index
+    only the first len(rows) rows). Returns (sub_state, n)."""
+    idx_p, n = pad_pow2_indices(rows)
+    idx = torch.from_numpy(idx_p).to(state.length.device)
+    return _gather_rows_probe(state, idx), n
+
+
+# Narrow-wire bound: deltas and values above it fall back to the exact
+# int32 plane refetch for the documents that hold them (headroom under the
+# int16 maximum, as serve_step's 32000 msn-delta cutoff).
+_NARROW_MAX = 32000
+
+
+def _narrow_pack(packed: tuple, mx: int) -> tuple:
+    """Narrow delta packing of an extraction result, on its device: the
+    bounded columns (length, origin_off, ins_client, rem_client, annotate
+    id deltas) ride int16; the seq columns delta-encode against a
+    per-document base (the least live value) with sentinel codes for
+    pending (-1 in d_ins, -2 in d_rem) and no-remove (-1 in d_rem); a
+    per-document ok bit flags a document whose values escape the narrow
+    range (the host then refetches its exact int32 planes). origin_op stays
+    int32: payload ids are unbounded. Returns (stacked16 [6, B, mx],
+    anno16 [B, mx, A], op32 [B, mx], meta [4, B] = base_ins, base_rem,
+    base_anno, ok)."""
+    (origin_op, origin_off, length, anno, ins_seq, ins_client,
+     rem_seq, rem_client, counts) = packed
+
+    def sl(x):
+        return x[:, :mx]
+
+    length, origin_off = sl(length), sl(origin_off)
+    ins_seq, ins_client = sl(ins_seq), sl(ins_client)
+    rem_seq, rem_client = sl(rem_seq), sl(rem_client)
+    op32 = sl(origin_op)
+    anno_m = anno[:, :mx, :]
+    j = torch.arange(mx, dtype=_I32, device=length.device)
+    live = j[None, :] < counts[:, None]
+    big = 1 << 30
+
+    def base_of(vals, mask, dims):
+        m = torch.where(mask, vals, big).amin(dim=dims)
+        return torch.where(m == big, 0, m)
+
+    ins_acked = live & (ins_seq != DEV_UNASSIGNED)
+    base_ins = base_of(ins_seq, ins_acked, 1)
+    d_ins = torch.where(ins_acked, ins_seq - base_ins[:, None], -1)
+
+    rem_real = live & (rem_seq != DEV_NO_REMOVE) & \
+        (rem_seq != DEV_UNASSIGNED)
+    base_rem = base_of(rem_seq, rem_real, 1)
+    d_rem = torch.where(rem_real, rem_seq - base_rem[:, None],
+                        torch.where(live & (rem_seq == DEV_UNASSIGNED),
+                                    -2, -1))
+
+    anno_live = live[:, :, None] & (anno_m >= 0)
+    base_anno = base_of(anno_m, anno_live, (1, 2))
+    d_anno = torch.where(anno_live, anno_m - base_anno[:, None, None], -1)
+
+    def in_range(x, m):
+        masked = torch.where(m, x, 0).flatten(1)
+        return ((masked >= -2) & (masked <= _NARROW_MAX)).all(dim=1)
+
+    ok = (in_range(length, live) & in_range(origin_off, live)
+          & in_range(ins_client, live) & in_range(rem_client, live)
+          & in_range(d_ins, live) & in_range(d_rem, live)
+          & in_range(d_anno, anno_live))
+
+    def n16(x):
+        return x.clamp(-(1 << 15), (1 << 15) - 1).to(torch.int16)
+
+    stacked16 = torch.stack([
+        n16(torch.where(live, length, 0)),
+        n16(torch.where(live, origin_off, 0)),
+        n16(torch.where(live, ins_client, -1)),
+        n16(torch.where(live, rem_client, -1)),
+        n16(d_ins), n16(d_rem)])
+    meta = torch.stack([base_ins, base_rem, base_anno, ok.to(_I32)])
+    return stacked16, n16(d_anno), op32, meta
+
+
+def _exact_rows(packed: tuple, idx: torch.Tensor, mx: int) -> tuple:
+    """Exact int32 planes of the (rare) documents whose values escape the
+    narrow range: one stacked gather per refetch (idx pow2-padded by the
+    caller)."""
+    (origin_op, origin_off, length, anno, ins_seq, ins_client,
+     rem_seq, rem_client, _counts) = packed
+    idx = idx.long()
+
+    def take(x):
+        return x[idx, :mx]
+
+    return (torch.stack([take(origin_op), take(origin_off), take(length),
+                         take(ins_seq), take(ins_client), take(rem_seq),
+                         take(rem_client)]), anno[idx, :mx, :])
+
+
+def _d2h(t: torch.Tensor, fresh: bool = False) -> np.ndarray:
+    """A host numpy array of t that never shares storage with the caller's
+    tensors: the device-to-host copy for a CUDA tensor; for a CPU tensor
+    (whose .numpy() shares its memory) a copy, unless t is a fresh result
+    of this module."""
+    if t.device.type != "cpu" or fresh:
+        return t.cpu().numpy()
+    return t.numpy().copy()
+
+
+def fetch_extracted(packed: tuple, narrow: bool = True) -> tuple:
+    """Host fetch of an extraction result, sliced to the batch's largest
+    live row count before the transfer (rows past it are padding), the
+    width bucketed up to a multiple of 32 and capped at the capacity;
+    same-dtype 2-D columns ride one stacked copy.
+
+    narrow=True (default) rides the bounded columns as int16 with the seq
+    columns delta-encoded per document (_narrow_pack) and decodes back to
+    the exact int32 arrays on the host; documents whose values escape
+    int16 refetch their exact planes (counted as summarize.wire_refetch).
+    Either form gives the same live rows; only the bytes differ. The bytes
+    copied accumulate in summarize.bytes_d2h. Returns numpy (origin_op,
+    origin_off, length, anno, ins_seq, ins_client, rem_seq, rem_client,
+    counts); no array shares memory with `packed`."""
+    counts = _d2h(packed[-1])
+    mx = max(int(counts.max()) if counts.size else 0, 1)
+    capacity = packed[0].shape[1]
+    mx = min(((mx + 31) // 32) * 32, capacity)
+    nbytes = counts.nbytes
+
+    if not narrow:
+        cols = packed[:-1]
+        # Same (ndim, dtype) 2-D planes stack into one [n, B, mx] copy;
+        # anything else (the 3-D anno) goes alone.
+        by_kind: dict = {}
+        for i, x in enumerate(cols):
+            key = (x.dim(), str(x.dtype)) if x.dim() == 2 else ("solo", i)
+            by_kind.setdefault(key, []).append(i)
+        fetched: dict = {}
+        for key, idxs in by_kind.items():
+            if key[0] == 2 and len(idxs) > 1:
+                arr = _d2h(torch.stack([cols[i][:, :mx] for i in idxs]),
+                           fresh=True)
+                nbytes += arr.nbytes
+                for j, i in enumerate(idxs):
+                    fetched[i] = arr[j]
+            else:
+                for i in idxs:
+                    fetched[i] = _d2h(cols[i][:, :mx])
+                    nbytes += fetched[i].nbytes
+        counters.increment("summarize.bytes_d2h", nbytes)
+        return tuple(fetched[i] for i in range(len(cols))) + (counts,)
+
+    stacked16, anno16, op32, meta = _narrow_pack(packed, mx)
+    s16 = _d2h(stacked16, fresh=True)
+    a16 = _d2h(anno16, fresh=True)
+    op32 = _d2h(op32)
+    meta = _d2h(meta, fresh=True)
+    nbytes += s16.nbytes + a16.nbytes + op32.nbytes + meta.nbytes
+    base_ins, base_rem, base_anno, ok = meta
+
+    length = s16[0].astype(np.int32)
+    origin_off = s16[1].astype(np.int32)
+    ins_client = s16[2].astype(np.int32)
+    rem_client = s16[3].astype(np.int32)
+    d_ins = s16[4].astype(np.int32)
+    ins_seq = np.where(d_ins < 0, np.int32(DEV_UNASSIGNED),
+                       base_ins[:, None] + d_ins).astype(np.int32)
+    d_rem = s16[5].astype(np.int32)
+    rem_seq = np.where(
+        d_rem == -1, np.int32(DEV_NO_REMOVE),
+        np.where(d_rem == -2, np.int32(DEV_UNASSIGNED),
+                 base_rem[:, None] + d_rem)).astype(np.int32)
+    d_anno = a16.astype(np.int32)
+    anno = np.where(d_anno < 0, np.int32(-1),
+                    base_anno[:, None, None] + d_anno).astype(np.int32)
+
+    bad = np.nonzero(ok == 0)[0]
+    if bad.size:
+        # Exact-plane refetch for the overflowing documents only.
+        counters.increment("summarize.wire_refetch", int(bad.size))
+        idx_p, _ = pad_pow2_indices(bad)
+        planes, anno_x = _exact_rows(
+            packed, torch.from_numpy(idx_p).to(packed[0].device), mx)
+        planes = _d2h(planes, fresh=True)
+        anno_x = _d2h(anno_x, fresh=True)
+        nbytes += planes.nbytes + anno_x.nbytes
+        for k, d in enumerate(bad):
+            op32[d], origin_off[d], length[d] = (
+                planes[0, k], planes[1, k], planes[2, k])
+            ins_seq[d], ins_client[d] = planes[3, k], planes[4, k]
+            rem_seq[d], rem_client[d] = planes[5, k], planes[6, k]
+            anno[d] = anno_x[k]
+    counters.increment("summarize.bytes_d2h", nbytes)
+    return (op32, origin_off, length, anno, ins_seq, ins_client,
+            rem_seq, rem_client, counts)

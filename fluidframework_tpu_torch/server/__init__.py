@@ -1,1 +1,3 @@
-"""The device half of the ordering service: ticketing and the pipeline step."""
+"""The ordering service: ticketing, the pipeline step and serving windows
+on the device; the wire codecs, the ordered log and the lambda SPI on the
+host."""

@@ -1,2 +1,2 @@
-"""Telemetry layouts shared by the port's device programs and their
-readers."""
+"""Telemetry: counters and latency histograms, op tracing, the device
+stats planes and their fold, and the compile ledger."""

@@ -1,7 +1,7 @@
-"""Process-wide named counters and stage latency histograms: a copy of
-fluidframework_tpu's telemetry/counters.py without its JIT retrace probe
-(`JitRetraceProbe` counts jax compile-cache growth; the port's
-counterpart waits for the sequencer).
+"""Process-wide named counters, stage latency histograms and the input
+signature probe (a copy of fluidframework_tpu's telemetry/counters.py,
+with `JitRetraceProbe` given the one meaning it can have without a jit
+cache: see its docstring).
 
 Wherever a broad exception handler deliberately swallows an error on an
 op-pipeline path, it calls ``record_swallow(site)`` so the drop is
@@ -14,7 +14,7 @@ from __future__ import annotations
 import math
 import os
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 _lock = threading.Lock()
 _counters: Dict[str, float] = {}
@@ -223,3 +223,73 @@ def record_swallow(site: str) -> None:
     the rate: a handful of swallows is a degraded dependency, a climbing
     counter is an outage hiding behind a broad except."""
     increment(f"swallowed.{site}")
+
+
+def input_signature(x) -> tuple:
+    """The signature of a call's arguments: the shape and dtype of each
+    tensor (anything with `shape` and `dtype`), and the structure around
+    them (container types, NamedTuple field names, dict keys, the types of
+    other leaves; not their values)."""
+    if hasattr(x, "shape") and hasattr(x, "dtype"):
+        return ("tensor", tuple(x.shape), str(x.dtype))
+    if isinstance(x, (tuple, list)):
+        return (type(x).__name__, getattr(x, "_fields", None),
+                tuple(input_signature(v) for v in x))
+    if isinstance(x, dict):
+        return ("dict", tuple((k, input_signature(v))
+                              for k, v in sorted(x.items(), key=repr)))
+    return (type(x).__name__,)
+
+
+class JitRetraceProbe:
+    """Transparent wrapper that counts the distinct input signatures
+    (input_signature: each tensor argument's shape and dtype, and the
+    structure) seen across THIS probe's calls. PyTorch has no jit cache, so
+    this is the one meaning the JAX probe's compile-cache growth has here:
+    the first signature a probe sees is an expected compile
+    (``<name>.compiles``); a new signature on a later call is a retrace, a
+    shape on a path meant to be shape-stable, counted as
+    ``<name>.retraces`` and aggregated into ``kernel.retrace_count``.
+
+    Every call also feeds the process-wide compile ledger
+    (telemetry/compile_ledger.py) with its wall time and whether its
+    signature was new (cold) or seen (warm).
+    """
+
+    def __init__(self, fn: Callable, name: str):
+        self._fn = fn
+        self.name = name
+        # Probes are module globals shared across threads: guard the
+        # signature set so two concurrent first calls count once.
+        self._probe_lock = threading.Lock()
+        self._signatures: set = set()
+
+    def _cache_size(self) -> int:
+        """Distinct signatures seen (the ledger's occupancy)."""
+        with self._probe_lock:
+            return len(self._signatures)
+
+    def __call__(self, *args, **kwargs):
+        import time as _time
+
+        from . import compile_ledger as _ledger  # lazy: avoids a cycle
+
+        sig = input_signature((args, kwargs))
+        t0 = _time.perf_counter()
+        out = self._fn(*args, **kwargs)
+        dur_ms = (_time.perf_counter() - t0) * 1000.0
+        grew = 0
+        with self._probe_lock:
+            if sig not in self._signatures:
+                grew = 1
+                increment(f"{self.name}.compiles")
+                if self._signatures:
+                    increment(f"{self.name}.retraces")
+                    increment("kernel.retrace_count")
+                self._signatures.add(sig)
+        _ledger.ledger.watch(self.name, self)
+        _ledger.ledger.note_call(self.name, dur_ms, grew=grew)
+        return out
+
+    def __getattr__(self, item):
+        return getattr(self._fn, item)

@@ -25,6 +25,19 @@ keystroke traces (testing/traces.keystroke_trace, seed 12, one client):
   full    the 100,000-op trace: entries_digest of its entries (count,
           visible length, sha256 of the canonical JSON, sha256 of the
           visible text).
+golden/extract_golden.npz (EXTRACT_GOLDEN_PATH) and extract_golden.json
+(EXTRACT_JSON_PATH) hold the summarize path on one small rich batch
+(extract_streams: four documents with annotates, markers, pending rows and
+removes in the collab window, an empty one, and one whose live seqs span
+more than int16), applied by the JAX package's scan:
+  state_in                        the batch's DocState;
+  compacted / packed / pre_counts compact_extract_batched(stats=True);
+  narrow / wide                   fetch_extracted in both forms;
+  wire                            their summarize.bytes_d2h deltas and the
+                                  narrow form's summarize.wire_refetch;
+and in the .json the payload table (encode_payloads), assemble_snapshot of
+EXTRACT_DOCS, and pack_entries_narrow of catchup_golden.json's small
+entries at base CATCHUP_BLOB_BASE.
 tests/test_torch_golden.py regenerates the files from the JAX package and
 requires equality, so the values cannot drift; chip_smoke.py holds the CUDA
 kernels against them on a machine without JAX.
@@ -43,9 +56,22 @@ GOLDEN_PATH = Path(__file__).resolve().parent / "golden" / \
     "fused_apply_golden.npz"
 SERVE_GOLDEN_PATH = GOLDEN_PATH.with_name("serve_megakernel_golden.npz")
 CATCHUP_GOLDEN_PATH = GOLDEN_PATH.with_name("catchup_golden.json")
+EXTRACT_GOLDEN_PATH = GOLDEN_PATH.with_name("extract_golden.npz")
+EXTRACT_JSON_PATH = GOLDEN_PATH.with_name("extract_golden.json")
 # The keystroke traces of the catch-up golden: (n_ops, seed, n_clients).
 CATCHUP_SMALL = (3000, 12, 1)
 CATCHUP_FULL = (100_000, 12, 1)
+# The extraction golden's batch: ops per document, capacity, annotate
+# slots; the seeds of its rich documents and of the one whose seqs jump by
+# EXTRACT_SEQ_GAP; the documents whose snapshots it assembles.
+EXTRACT_OPS, EXTRACT_CAPACITY, EXTRACT_ANNO = 48, 128, 4
+EXTRACT_SEEDS = (700, 701, 702, 703)
+EXTRACT_GAP_SEED, EXTRACT_SEQ_GAP = 716, 40_000
+EXTRACT_DOCS = (0, 5)
+CATCHUP_BLOB_BASE = 3000
+# The fields of a packed extraction (kernel.extract_visible_batched).
+PACKED_FIELDS = ("origin_op", "origin_off", "length", "anno", "ins_seq",
+                 "ins_client", "rem_seq", "rem_client", "counts")
 
 
 def load(path: Path = GOLDEN_PATH) -> Dict[str, Dict[str, np.ndarray]]:
@@ -111,4 +137,72 @@ def save_catchup(data: dict, path: Path = CATCHUP_GOLDEN_PATH) -> None:
         out["small"]["entries"])
     with open(path, "w") as f:
         json.dump(out, f, sort_keys=True, separators=(",", ":"))
+        f.write("\n")
+
+
+def extract_streams(builder) -> list:
+    """The extraction golden's op streams through `builder` (an OpBuilder
+    of either package): EXTRACT_SEEDS' rich documents, an empty one, and
+    one whose live seqs span more than int16."""
+    from .traces import summary_stream
+    streams = [summary_stream(builder, seed, EXTRACT_OPS)
+               for seed in EXTRACT_SEEDS]
+    return streams + [[], summary_stream(builder, EXTRACT_GAP_SEED,
+                                         EXTRACT_OPS,
+                                         seq_gap=EXTRACT_SEQ_GAP)]
+
+
+def encode_payloads(table) -> list:
+    """A payload table (either package's) as JSON: an insert as {"kind",
+    "text", "props"}, an annotate as {"props", "seq", "local_seq"}, a freed
+    slot as null. Text payloads only."""
+    out = []
+    for e in table.entries:
+        if e is None:
+            out.append(None)
+        elif hasattr(e, "kind"):
+            out.append({"kind": e.kind, "text": e.text, "props": e.props})
+        else:
+            out.append({"props": e.props, "seq": e.seq,
+                        "local_seq": e.local_seq})
+    return out
+
+
+def decode_payloads(entries: list):
+    """encode_payloads' inverse, as the port's PayloadTable."""
+    from ..mergetree.host import AnnotatePayload, InsertPayload, PayloadTable
+    table = PayloadTable()
+    for e in entries:
+        if e is None:
+            table.entries.append(None)
+        elif "kind" in e:
+            table.entries.append(InsertPayload(e["kind"], e["text"],
+                                               e["props"]))
+        else:
+            table.entries.append(AnnotatePayload(e["props"], e["seq"],
+                                                 e["local_seq"]))
+    table.free_ids = [i for i, e in enumerate(table.entries) if e is None]
+    return table
+
+
+def load_extract() -> dict:
+    """The extraction golden: the .npz sections, plus "json" holding
+    {"payloads" (a PayloadTable), "snapshots" ({doc: snapshot}),
+    "catchup_base", "catchup_blob"}."""
+    out = load(EXTRACT_GOLDEN_PATH)
+    with open(EXTRACT_JSON_PATH) as f:
+        data = json.load(f)
+    data["payloads"] = decode_payloads(data["payloads"])
+    data["snapshots"] = {int(k): v for k, v in data["snapshots"].items()}
+    out["json"] = data
+    return out
+
+
+def save_extract(sections: Dict[str, Dict[str, np.ndarray]],
+                 doc: dict) -> None:
+    """Write both extraction golden files; `doc` holds "payloads" already
+    encoded."""
+    save(sections, EXTRACT_GOLDEN_PATH)
+    with open(EXTRACT_JSON_PATH, "w") as f:
+        json.dump(doc, f, sort_keys=True, separators=(",", ":"))
         f.write("\n")

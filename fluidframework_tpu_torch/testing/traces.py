@@ -336,3 +336,97 @@ def keystroke_trace(n_ops: int, seed: int = 0, n_clients: int = 1,
         out.append((op, seq, max(0, seq - 1 - lag), 1 + c,
                     max(0, seq - window)))
     return out
+
+
+def summary_stream(builder, seed: int, n_ops: int, seq_gap: int = 0,
+                   gap_at: int = 4) -> list:
+    """One document's HostOp stream for the summarize path's tests and
+    golden, built through `builder` (an OpBuilder of either package: only
+    its methods are called, so two builders given the same seeds assign the
+    same op ids): a local client (1) with pending text and marker inserts,
+    removes and annotates (seq DEV_UNASSIGNED) and acks of the oldest,
+    remote inserts (some with props, some markers), removes and annotates
+    from clients 2 and 3 at lagging perspectives, and an msn trailing the
+    seq by 6, so removes below it are zambonied and removes above it stay
+    in the collab window. With seq_gap the first sequenced op from index
+    gap_at on is sequenced seq_gap later, so the document's live seqs can
+    span more than int16.
+    Positions are valid at each op's own perspective (tracked with the
+    scalar oracle)."""
+    from ..mergetree.constants import DEV_UNASSIGNED, UNASSIGNED_SEQ
+    from ..mergetree.oracle import MergeTreeOracle
+
+    rng = random.Random(seed)
+    tree = MergeTreeOracle(local_client=1)
+    ops, pending = [], []
+    for i in range(n_ops):
+        cur = tree.current_seq
+        nxt = cur + 1 + (seq_gap if i >= gap_at else 0)
+        msn = max(0, cur - 6)
+        choice = rng.random()
+        if pending and choice < 0.2:
+            seq_gap = seq_gap if i < gap_at else 0
+            kind, local = pending.pop(0)
+            tree.ack(nxt)
+            ack = {"insert": builder.ack_insert, "remove": builder.ack_remove,
+                   "annotate": builder.ack_annotate}[kind]
+            ops.append(ack(local, nxt, msn=msn))
+            continue
+        local_op = choice < 0.45
+        client = 1 if local_op else rng.choice((2, 3))
+        ref = cur if local_op else rng.randint(max(0, cur - 3), cur)
+        seq = UNASSIGNED_SEQ if local_op else nxt
+        dev_seq = DEV_UNASSIGNED if local_op else nxt
+        op_msn = 0 if local_op else msn
+        length = tree.get_length() if local_op else \
+            tree.get_length(ref_seq=ref, client=client)
+        roll = rng.random()
+        if length == 0 or roll < 0.45:
+            pos = rng.randint(0, length)
+            props = {"b": rng.randint(0, 2)} if rng.random() < 0.3 else None
+            if rng.random() < 0.15:
+                tree.insert_marker(pos, ref, client, seq, props)
+                op = builder.insert_marker(pos, ref, client, dev_seq, props,
+                                           msn=op_msn)
+            else:
+                text = "".join(rng.choice("abcxyz")
+                               for _ in range(rng.randint(1, 4)))
+                tree.insert_text(pos, text, ref, client, seq, props)
+                op = builder.insert_text(pos, text, ref, client, dev_seq,
+                                         props, msn=op_msn)
+            kind = "insert"
+        else:
+            start = rng.randint(0, length - 1)
+            end = rng.randint(start + 1, min(length, start + 4))
+            if roll < 0.8:
+                tree.remove_range(start, end, ref, client, seq)
+                op = builder.remove(start, end, ref, client, dev_seq,
+                                    msn=op_msn)
+                kind = "remove"
+            else:
+                props = {rng.choice("kq"): rng.choice((1, 2, None))}
+                tree.annotate_range(start, end, props, ref, client, seq)
+                op = builder.annotate(start, end, props, ref, client,
+                                      dev_seq, msn=op_msn)
+                kind = "annotate"
+        if local_op:
+            pending.append((kind, op.op_id if kind == "annotate"
+                            else op.local_seq))
+        else:
+            seq_gap = seq_gap if i < gap_at else 0
+            tree.update_seq(nxt)
+        ops.append(op)
+    return ops
+
+
+def gen_traces_payloads(n_ops: int):
+    """A payload table for gen_traces' ops (op id t of every document is
+    op t): each id holds eight characters, of which an insert's new_len
+    (1..8) is a prefix, so snapshot assembly can resolve the text."""
+    from ..mergetree.constants import SEG_TEXT
+    from ..mergetree.host import PayloadTable
+    table = PayloadTable()
+    for t in range(n_ops):
+        table.add_insert(SEG_TEXT, "".join(chr(97 + (t + i) % 26)
+                                           for i in range(8)))
+    return table

@@ -1,13 +1,15 @@
 """The golden files for the card (fluidframework_tpu_torch/testing/golden/
-fused_apply_golden.npz, serve_megakernel_golden.npz and
-catchup_golden.json): regenerated here from the JAX package and required
-equal to the committed files, then replayed through the port on the CPU.
+fused_apply_golden.npz, serve_megakernel_golden.npz, catchup_golden.json
+and extract_golden.npz / .json): regenerated here from the JAX package and
+required equal to the committed files, then replayed through the port on
+the CPU.
 
 To rewrite the files after a deliberate change of their inputs (the
 100,000-op catch-up digest takes about 70 s of JAX on the CPU):
     JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write
 """
 
+import json
 import os
 import random
 import sys
@@ -21,6 +23,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [_HERE, os.path.dirname(_HERE)]
 
 from fluidframework_tpu.mergetree import catchup as jcatchup  # noqa: E402
+from fluidframework_tpu.mergetree import host as jhost  # noqa: E402
+from fluidframework_tpu.mergetree import kernel as jkernel  # noqa: E402
 from fluidframework_tpu.mergetree import pallas_apply  # noqa: E402
 from fluidframework_tpu.mergetree.host import OpBuilder  # noqa: E402
 from fluidframework_tpu.mergetree.oppack import (  # noqa: E402
@@ -29,11 +33,20 @@ from fluidframework_tpu.mergetree.state import (  # noqa: E402
     make_state as jax_make_state)
 from fluidframework_tpu.server import ticket_kernel as jtk  # noqa: E402
 from fluidframework_tpu.server.pipeline import make_full_step  # noqa: E402
+from fluidframework_tpu.telemetry import counters as jcounters  # noqa: E402
 from fluidframework_tpu.testing.traces import (  # noqa: E402
     keystroke_trace as jax_keystroke_trace)
 
 from fluidframework_tpu_torch import interop  # noqa: E402
 from fluidframework_tpu_torch.mergetree import catchup  # noqa: E402
+from fluidframework_tpu_torch.mergetree import host as thost  # noqa: E402
+from fluidframework_tpu_torch.mergetree import kernel as tkernel  # noqa: E402
+from fluidframework_tpu_torch.mergetree.oppack import (  # noqa: E402
+    pack_ops as port_pack_ops)
+from fluidframework_tpu_torch.mergetree.state import (  # noqa: E402
+    make_state as port_make_state)
+from fluidframework_tpu_torch.telemetry import (  # noqa: E402
+    counters as tcounters)
 from fluidframework_tpu_torch.mergetree.pallas_apply import (  # noqa: E402
     apply_ops_fused)
 from fluidframework_tpu_torch.server import pipeline  # noqa: E402
@@ -166,6 +179,83 @@ def build_catchup_full():
                 _jax_catchup(golden.CATCHUP_FULL))}
 
 
+WIRE_COUNTERS = ("summarize.bytes_d2h", "summarize.wire_refetch")
+
+
+def fetch_counted(kernel_mod, counters_mod, packed, narrow):
+    """kernel.fetch_extracted and its counter deltas, as golden arrays."""
+    before = [counters_mod.get(c) for c in WIRE_COUNTERS]
+    out = kernel_mod.fetch_extracted(packed, narrow=narrow)
+    d_bytes, d_refetch = (counters_mod.get(c) - b
+                          for c, b in zip(WIRE_COUNTERS, before))
+    return out, np.asarray(int(d_bytes), np.int64), \
+        np.asarray(int(d_refetch), np.int64)
+
+
+def extract_sections(kernel_mod, counters_mod, state, state_in):
+    """The extraction golden's .npz sections from one package's kernel
+    module on `state` (state_in: its numpy dict)."""
+    comp, packed, pre = kernel_mod.compact_extract_batched(state, stats=True)
+    narrow, n_bytes, refetch = fetch_counted(kernel_mod, counters_mod,
+                                             packed, True)
+    wide, w_bytes, _ = fetch_counted(kernel_mod, counters_mod, packed,
+                                     False)
+
+    def host(x):
+        return np.array(x.cpu() if hasattr(x, "cpu") else x)
+
+    sections = {
+        "state_in": state_in,
+        "compacted": {f: host(v) for f, v in zip(comp._fields, comp)},
+        "packed": {f: host(v) for f, v in zip(golden.PACKED_FIELDS,
+                                              packed)},
+        "pre_counts": {"count": host(pre)},
+        "narrow": dict(zip(golden.PACKED_FIELDS, narrow)),
+        "wide": dict(zip(golden.PACKED_FIELDS, wide)),
+        "wire": {"narrow_bytes": n_bytes, "wide_bytes": w_bytes,
+                 "refetch": refetch}}
+    return sections, narrow
+
+
+def extract_doc(assemble, narrow, payloads, state_in, blob):
+    """The extraction golden's .json content (payloads left as given)."""
+    snaps = {str(d): assemble(narrow, payloads, d,
+                              min_seq=int(state_in["min_seq"][d]),
+                              seq=int(state_in["seq"][d]))
+             for d in golden.EXTRACT_DOCS}
+    return {"payloads": payloads, "snapshots": snaps,
+            "catchup_base": golden.CATCHUP_BLOB_BASE, "catchup_blob": blob}
+
+
+def _small_catchup_entries():
+    with open(golden.CATCHUP_GOLDEN_PATH) as f:
+        return json.load(f)["small"]["entries"]   # wire-encoded
+
+
+def build_extract_golden():
+    """The JAX package's summarize path on golden.extract_streams' batch:
+    (.npz sections, .json document)."""
+    builder = OpBuilder()
+    streams = golden.extract_streams(builder)
+    state = jkernel.apply_ops_batched_keep(
+        jax_make_state(golden.EXTRACT_CAPACITY, golden.EXTRACT_ANNO,
+                       batch=len(streams)),
+        jax_pack_ops(streams, steps=golden.EXTRACT_OPS))
+    sections, narrow = extract_sections(jkernel, jcounters, state,
+                                        jax_to_np(state))
+    doc = extract_doc(jhost.assemble_snapshot, narrow, builder.payloads,
+                      sections["state_in"],
+                      jcatchup.pack_entries_narrow(
+                          _small_catchup_entries(),
+                          golden.CATCHUP_BLOB_BASE))
+    doc["payloads"] = golden.encode_payloads(builder.payloads)
+    return sections, doc
+
+
+def _json_round_trip(doc):
+    return json.loads(json.dumps(doc, sort_keys=True))
+
+
 def _assert_sections_equal(got, want):
     assert sorted(got) == sorted(want)
     for section in want:
@@ -284,6 +374,58 @@ class TestCatchupGolden:
         assert g["full"]["digest"]["count"] > len(small)
 
 
+class TestExtractGolden:
+    def test_committed_files_match_jax(self):
+        sections, doc = build_extract_golden()
+        g = golden.load(golden.EXTRACT_GOLDEN_PATH)
+        _assert_sections_equal(g, sections)
+        with open(golden.EXTRACT_JSON_PATH) as f:
+            assert json.load(f) == _json_round_trip(doc)
+
+    def test_extract_golden_covers_the_hard_cases(self):
+        g = golden.load_extract()
+        assert int(g["wire"]["refetch"]) == 1            # overflow doc
+        assert g["narrow"]["counts"][4] == 0              # empty doc
+        assert (g["pre_counts"]["count"]
+                > g["compacted"]["count"]).any()          # zamboni
+        # with the refetched document's planes the drop is below 40%
+        assert g["wire"]["narrow_bytes"] < g["wire"]["wide_bytes"]
+        live = np.arange(g["narrow"]["ins_seq"].shape[1])[None, :] < \
+            g["narrow"]["counts"][:, None]
+        assert (live & (g["narrow"]["ins_seq"] == 2**31 - 1)).any()
+        assert (live[..., None] & (g["narrow"]["anno"] >= 0)).any()
+        assert sorted(g["json"]["snapshots"]) == list(golden.EXTRACT_DOCS)
+
+    def test_port_matches_extract_golden(self):
+        """The port on the CPU: the same op calls through its own builder
+        and plain scan give state_in; its extraction, fetches, counters,
+        assembly and catch-up blob give the committed outputs."""
+        g = golden.load_extract()
+        builder = thost.OpBuilder()
+        streams = golden.extract_streams(builder)
+        state = tkernel.apply_ops_batched_keep(
+            port_make_state(golden.EXTRACT_CAPACITY, golden.EXTRACT_ANNO,
+                            batch=len(streams), device="cpu"),
+            interop.packed_ops_from_numpy(
+                port_pack_ops(streams, steps=golden.EXTRACT_OPS), "cpu"))
+        _assert_sections_equal({"state_in": interop.to_numpy(state)},
+                               {"state_in": g["state_in"]})
+        sections, narrow = extract_sections(
+            tkernel, tcounters,
+            interop.doc_state_from_numpy(g["state_in"], "cpu"),
+            g["state_in"])
+        _assert_sections_equal(sections, {k: g[k] for k in sections})
+        blob = catchup.pack_entries_narrow(_small_catchup_entries(),
+                                           golden.CATCHUP_BLOB_BASE)
+        doc = extract_doc(thost.assemble_snapshot, narrow,
+                          g["json"]["payloads"], g["state_in"], blob)
+        assert {int(k): v for k, v in _json_round_trip(
+            doc["snapshots"]).items()} == g["json"]["snapshots"]
+        assert _json_round_trip(blob) == g["json"]["catchup_blob"]
+        assert golden.encode_payloads(builder.payloads) == \
+            _json_round_trip(golden.encode_payloads(g["json"]["payloads"]))
+
+
 def ring_shape(g):
     """(B, T, merge lanes, LWW lanes) of a golden ring."""
     ring = serving.ring_from_arrays(g["ring"])
@@ -301,6 +443,8 @@ if __name__ == "__main__":
     golden.save(build_serve_golden(), golden.SERVE_GOLDEN_PATH)
     golden.save_catchup({"small": build_catchup_small(),
                          "full": build_catchup_full()})
+    golden.save_extract(*build_extract_golden())
     for path in (golden.GOLDEN_PATH, golden.SERVE_GOLDEN_PATH,
-                 golden.CATCHUP_GOLDEN_PATH):
+                 golden.CATCHUP_GOLDEN_PATH, golden.EXTRACT_GOLDEN_PATH,
+                 golden.EXTRACT_JSON_PATH):
         print(f"wrote {path} ({path.stat().st_size} bytes)")

@@ -48,7 +48,8 @@ HOT_RING: FULL_RING's partition plus 64 documents pre-seeded to 3,500
 live rows): one megakernel ring, whose hot page group (C = 4,096) lies
 above the fused capacity and takes the scan apply beside the fused
 apply's groups; then a backlog staged as the JAX sequencer's paged
-applier stages it (apply_ops_paged per group, serve_paged_burst for the
+applier stages it, skipping the ring's flagged documents
+(apply_ops_paged per group, serve_paged_burst for the
 hot documents' 700 ops each at C = 8,192), a rollback_pages round trip
 and compact_pages; every output held to the plain composition, the scan
 launches per kernel held to the rule, the ring and the burst timed.
@@ -70,6 +71,16 @@ inputs (the paged form to compact_pages + extraction), the narrow fetch
 to the wide one (the wire must drop NARROW_MIN_DROP of the bytes), the
 blob to an exact round trip, then the card to the JAX extraction golden;
 the full and dirty passes and the paged form are timed.
+Phase 15 drives the sequencer's lane stores (server/tpu_sequencer.py):
+first testing/lanes.golden_run against the committed JAX golden, then a
+partition of HOT_RING's size (10,000 merge channels over 8 windows,
+1,000 SharedMaps, 64 hot channels seeded from 3,500 entries, a 700-op
+backlog on every storm and hot channel, an annotate storm, a full and a
+dirty extract_all) through a bucketed store with the LWW store and a
+paged store on the card, held to the same stores on the CPU and to each
+other, each launch checked against the scan rule, window applies and
+extractions timed, and every scan path timed at the stores' largest
+shapes.
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -119,6 +130,10 @@ PATHS = ("warp", "block")
 # on the device than the other path (timing noise; the rule's table is
 # calibrate_fused_apply.py's).
 PATH_MARGIN = 0.10
+# Single launches whose least time is a scan path's device time (the
+# launch latency varies by tens of microseconds, which decides a 0.2 ms
+# kernel's ranking when only a few are taken).
+PATH_REPS = 10
 # Phase 10: the scan apply's fuzz grid (capacities x documents x annotate
 # slots, both variants, K=3), ops per stream by capacity, and the largest
 # state (int32 elements) a cell may hold: a larger cell is dropped and
@@ -156,6 +171,22 @@ CROSSOVER_SEGMENTS = (20, 100, 300, 1_000, 3_000)
 # snapshots are assembled on the full pass.
 DIRTY_STRIDE = 100
 NARROW_MIN_DROP = 0.40
+# Phase 15: the sequencer's lane stores over a partition (testing/
+# serving.py HOT_RING: FULL_RING's 10,000 documents + 64 hot ones) from
+# testing/lanes.scenario: the seed, the backlog on each storm and hot
+# channel, the dirty pass's stride; the store shapes whose every scan path is timed.
+LANE_SPEC = "HOT_RING"
+LANE_SEED = 15
+LANE_BACKLOG = 700
+LANE_DIRTY_STRIDE = 100
+LANE_ROW_SHAPES = 4
+# The CPU composition of phase 15 runs in a process per store beside the
+# card's run (CPU threads each may use; seconds each may take).
+LANE_CPU_THREADS = 3
+LANE_CPU_TIMEOUT = 600
+# An L2 flush: a buffer larger than the H100's 50 MB L2, written before
+# each cold-timed launch.
+L2_FLUSH_INTS = 64 << 20
 # fused_apply.cu's ptxas registers as PERF.md §6 records them: the block
 # path 64 in every variant; the warp path by (kR, runs).
 FUSED_WARP_REGISTERS = {(1, 0): 73, (1, 1): 76, (2, 0): 71, (2, 1): 77,
@@ -288,6 +319,22 @@ def once_ms(fn) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Median device milliseconds of one call of fn with the L2 cold: a
+    buffer of L2_FLUSH_INTS int32 (256 MB, five times the H100's 50 MB
+    L2) is written before each timed launch (CUDA events around the
+    launch alone)."""
+    flush = torch.empty(L2_FLUSH_INTS, dtype=torch.int32,
+                        device=torch.device(DEVICE))
+    fn()
+    times = []
+    for i in range(reps):
+        flush.fill_(i)
+        times.append(once_ms(fn))
+    del flush
+    return float(np.median(times))
 
 
 def long_kernel_ms(fn, reps: int):
@@ -762,6 +809,7 @@ def main() -> int:
              err=max_abs_err([pallas_ops.summary_lengths(mout)],
                              [pallas_ops.summary_lengths_plain(mout)]),
              ms=ms_of(lambda: pallas_ops.summary_lengths(mout), 50),
+             cold_ms=cold_ms(lambda: pallas_ops.summary_lengths(mout), 20),
              device_ms=one_kernel_ms(
                  lambda: pallas_ops.summary_lengths(mout), 50,
                  "summary_len_kernel"),
@@ -795,6 +843,15 @@ def main() -> int:
     ]
     check_paths(f"north-star [{DOCS} x {CAPACITY}] x T {OPS}", rows[-1],
                 card)
+    sl = rows[1]
+    sl_bound = sl["bytes"] / PEAK_BYTES_PER_S * 1e3
+    sl_share = sl_bound / sl["cold_ms"]
+    print(f"phase 5: summary_len [{DOCS} x {CAPACITY}]: warm (the table "
+          f"L2-resident after the apply) {fmt_ms(sl['device_ms'])} device, "
+          f"{sl['ms']:.4f} ms back to back; cold (L2 flushed before each "
+          f"launch) {sl['cold_ms']:.4f} ms events; bound {sl_bound:.5f} ms "
+          f"({summary_bytes} bytes over 3.35 TB/s): {sl_share:.1%} of the "
+          f"bound cold; card {card}", flush=True)
     del mstate0, mout, p_mout, tout, p_tout, ticketed, p_ticketed, admitted
 
     rows += serving_phases(dev, card)
@@ -807,6 +864,8 @@ def main() -> int:
     rows += paged_rows
     scalar_phase(dev, card, catchup_entries)
     summarize_phase(dev, card, hot, catchup_entries)
+    del hot
+    rows += lane_store_phase(dev, card)
 
     require(not spilled, f"apply kernels use stack or spill: {spilled}")
     out = []
@@ -834,7 +893,7 @@ def main() -> int:
                 PEAK_OPS_PER_S * r["sms"] / SM_COUNT) * 1e3)
         row.update({key: r[key] for key in ("path", "paths", "shape",
                                             "device_ms_by", "sms",
-                                            "blocks", "threads")
+                                            "blocks", "threads", "cold_ms")
                     if key in r})
         out.append(row)
     print(json.dumps({"kernels": out}))
@@ -1216,12 +1275,43 @@ def scan_fuzz_phase(dev) -> None:
           flush=True)
 
 
+def scan_input_facts(state, ops) -> str:
+    """What a scan input holds that the path's time may follow: the live
+    row counts, how many documents have uniform padding (every plane's
+    slots past count hold one value: only those documents' sweeps stop at
+    count, scan_apply.cu's header), and the op mix by kind (NOOP, INSERT,
+    REMOVE, ANNOTATE, ACK_INSERT, ACK_REMOVE, INSERT_RUN)."""
+    b, c = state.length.shape
+    rows = torch.arange(b, device=state.length.device)
+    first = state.count.clamp(max=c - 1).long()
+    pad = torch.arange(c, device=rows.device)[None, :] \
+        >= state.count[:, None]
+    uniform = torch.ones(b, dtype=torch.bool, device=rows.device)
+    for name in ("length", "ins_seq", "ins_client", "local_seq", "rem_seq",
+                 "rem_local_seq", "rem_clients", "origin_op", "origin_off",
+                 "anno"):
+        x = getattr(state, name)
+        v = x[rows, first]
+        if x.dim() == 2:
+            odd = (x != v[:, None]) & pad
+        else:
+            odd = (x != v[:, None, :]) & pad[..., None]
+        uniform &= ~odd.flatten(1).any(dim=1)
+    cnt = state.count.cpu().numpy()
+    kinds = np.bincount(ops.kind.cpu().numpy().ravel(), minlength=7)
+    return (f"counts min/median/max {int(cnt.min())}/"
+            f"{int(np.median(cnt))}/{int(cnt.max())} (fill "
+            f"{cnt.mean() / c:.3f}), uniform padding "
+            f"{int(uniform.sum())}/{b} documents, op kinds {kinds.tolist()}")
+
+
 def scan_rows(what: str, state, ops, runs, kernel_launches: dict,
               reps: int, shape: str, card: str,
               main_path: bool = True) -> list:
     """The kernel rows of one scan-apply input ([B, C] CUDA tensors) on
     every path (scan_geometries): kernel device ms (CUDA events,
-    long_kernel_ms) and back-to-back ms, the launches of the rule's path
+    long_kernel_ms over PATH_REPS single launches) and back-to-back ms
+    over `reps`, the launches of the rule's path
     in the main path's run (0 on the other rows), the plain scan's ms,
     the bound's work (the rows
     in use and every slot) and the SMs the launch can occupy. Fails unless
@@ -1263,7 +1353,7 @@ def scan_rows(what: str, state, ops, runs, kernel_launches: dict,
             err=max_abs_err(run(), want), ms=ms_of(run, reps),
             plain_ms=plain_ms, library_ms=None,
             sms=min(b * geo.blocks, SM_COUNT), **work)
-        r["device_ms"], r["device_ms_by"] = long_kernel_ms(run, reps)
+        r["device_ms"], r["device_ms_by"] = long_kernel_ms(run, PATH_REPS)
         require(r["err"] == 0, f"scan_apply {what} {label}: kernel vs "
                 "plain differ")
         rows.append(r)
@@ -1273,8 +1363,8 @@ def scan_rows(what: str, state, ops, runs, kernel_launches: dict,
                 work["ops_every_slot"] / PEAK_OPS_PER_S) * 1e3
     print(f"  scan_apply[{variant}] {what} [{shape}]: bound {bound:.5f} ms "
           f"over the rows in use, {every:.5f} ms over every slot; plain "
-          f"{plain_ms:.3f} ms; the rule takes {rule}; card {card}",
-          flush=True)
+          f"{plain_ms:.3f} ms; the rule takes {rule}; "
+          f"{scan_input_facts(state, ops)}; card {card}", flush=True)
     for r in rows:
         sm_bound = max(work["bytes"] / PEAK_BYTES_PER_S, work["ops"] / (
             PEAK_OPS_PER_S * r["sms"] / SM_COUNT)) * 1e3
@@ -1563,7 +1653,9 @@ def paged_phase(dev, card: str) -> list:
     counted per kernel, held to the plain composition, timed with a stage
     split. (b) A backlog staged as the JAX sequencer's
     MergeLaneStore._apply_paged stages it (testing/serving.
-    stage_paged_groups): one apply_ops_paged per group of small documents,
+    stage_paged_groups), on every document but the ring's flagged ones
+    (which the sequencer rolls back and rescues first): one
+    apply_ops_paged per group of small documents,
     one serve_paged_burst for the hot documents' HOT_BACKLOG ops each (K =
     3 chunks at T = 256, padded to 4, C = 8,192), every output held to
     plain=True; the burst timed (events, device idle share); a
@@ -1657,7 +1749,16 @@ def paged_phase(dev, card: str) -> list:
     del want, trials, splits
 
     # -- (b) the backlog: apply_ops_paged per group, a burst for the hot one
-    streams = fleet.backlog(lambda cls: HOT_BACKLOG if cls.rows else cls.ops)
+    # The ring's flagged documents (its mispredicted runs) hold an
+    # overflowed window's leftovers, values past their count included;
+    # the sequencer rolls such a document back and rescues it on the host
+    # (MergeLaneStore._recover_paged) before it applies anything more, so
+    # the backlog skips them.
+    flagged = {k for keys, over in zip(staged.keys, staged.expected_overflow)
+               for k, o in zip(keys, over) if o}
+    streams = {k: v for k, v in fleet.backlog(
+        lambda cls: HOT_BACKLOG if cls.rows else cls.ops).items()
+        if k not in flagged}
     groups = serving.stage_paged_groups(store, streams)
     bursts = [g for g in groups if g.burst]
     require(len(bursts) == 1 and bursts[0].ops["kind"].shape[0] == 4
@@ -1700,7 +1801,8 @@ def paged_phase(dev, card: str) -> list:
         require(not bool(out[5].any()), f"phase 12 backlog group "
                 f"{g.page_ids.shape} overflowed")
     del ref_pool, refs
-    print(f"phase 12: backlog of {sum(g.n_ops for g in groups)} ops in "
+    print(f"phase 12: backlog of {sum(g.n_ops for g in groups)} ops ("
+          f"{len(flagged)} flagged documents skipped) in "
           f"{len(groups)} page groups "
           f"{[(tuple(g.page_ids.shape), 'burst' if g.burst else 'apply') for g in groups]}"
           f", scan launches by kernel {backlog_scan}; every output equal "
@@ -2276,6 +2378,363 @@ def summarize_phase(dev, card: str, hot, catchup_entries) -> None:
     print(f"phase 14: kernel.extract_gather {gather}; device.extract "
           f"{device_stats.snapshot()}; compile ledger "
           f"{json.dumps(ledger.bench_stamp(), sort_keys=True)}", flush=True)
+
+
+def lane_step_ops(step) -> tuple:
+    """(merge ops, LWW ops) of one testing/lanes.scenario step."""
+    if step[0] not in ("window", "backlog"):
+        return 0, 0
+    merge = sum(len(v) for v in step[1].values())
+    lww = sum(len(v) for v in step[2].values()) if step[0] == "window" \
+        else 0
+    return merge, lww
+
+
+def lane_results(run: dict, merge, lww, hits: float) -> dict:
+    """testing/lanes.store_results plus the run's extracts and seeds, as
+    JSON would carry them."""
+    from fluidframework_tpu_torch.testing import lanes
+    res = lanes.store_results(merge, lww)
+    res["seeded"] = lanes.named_extract(run["seeded"])
+    res["extracts"] = [lanes.named_extract(e) for e in run["extracts"]]
+    res["blob_cache_hits"] = hits
+    return json.loads(json.dumps(res, sort_keys=True))
+
+
+def lane_digest(res: dict) -> dict:
+    """lane_results in a form small enough to pass between processes:
+    each per-channel map (texts, entries, placements, snapshots, each
+    extract) as {channel: sha256 of its canonical JSON}; the rest as it
+    is."""
+    import hashlib
+
+    def sha(v):
+        return hashlib.sha256(json.dumps(v, sort_keys=True).encode()
+                              ).hexdigest()[:24]
+
+    out = {}
+    for part, v in res.items():
+        if part == "extracts":
+            out[part] = [{k: sha(x) for k, x in e.items()} for e in v]
+        elif isinstance(v, dict) and part in ("merge", "lww"):
+            out[part] = {name: ({k: sha(x) for k, x in m.items()}
+                                if name in ("text", "entries", "snapshot")
+                                else m) for name, m in v.items()}
+        else:
+            out[part] = v
+    return json.loads(json.dumps(out, sort_keys=True))
+
+
+def run_lane_stores(steps, device, timer=None, after=None,
+                    results=True, stores=("bucketed", "paged")) -> dict:
+    """The scenario through a bucketed MergeLaneStore with an
+    LwwLaneStore, then a paged MergeLaneStore, on `device`. timer(store,
+    label, fn) runs each store call; after(store, label) runs after each.
+    Returns {"bucketed": results, "paged": results} (lane_results; {} each
+    with results=False)."""
+    from fluidframework_tpu_torch.server import tpu_sequencer as seq
+    from fluidframework_tpu_torch.telemetry import counters
+    from fluidframework_tpu_torch.testing import lanes
+    out = {}
+    for name in stores:
+        paged = name == "paged"
+        merge = seq.MergeLaneStore(paged=paged, device=device)
+        lww = None if paged else seq.LwwLaneStore(device=device)
+
+        def each(label, fn, name=name):
+            got = fn() if timer is None else timer(name, label, fn)
+            if after is not None:
+                after(name, label)
+            return got
+
+        h0 = counters.get("summarize.blob_cache.hits")
+        run = lanes.run_scenario(steps, merge, lww, each)
+        out[name] = lane_results(
+            run, merge, lww, counters.get("summarize.blob_cache.hits") - h0
+        ) if results else {}
+        del merge, lww
+    return out
+
+
+def lane_cpu_main(args: str, store: str) -> int:
+    """Phase 15's CPU composition of one store ("bucketed", with the LWW
+    store, or "paged") in a process of its own: the scenario of `args`
+    (JSON: the FleetSpec, seed, backlog ops, dirty stride, as
+    lane_store_phase passes them) on device="cpu"; prints {"seconds",
+    "digests"} (lane_digest of the store's results) as one JSON line."""
+    from fluidframework_tpu_torch.testing import lanes
+    from fluidframework_tpu_torch.testing.serving import DocClass, FleetSpec
+    torch.set_num_threads(LANE_CPU_THREADS)
+    t0 = time.perf_counter()
+    spec, seed, backlog, stride = json.loads(args)
+    spec = FleetSpec(tuple(DocClass(*c) for c in spec[0]), *spec[1:])
+    steps = lanes.scenario(spec, seed, backlog, stride)
+    res = run_lane_stores(steps, "cpu", stores=(store,))
+    print(json.dumps({"seconds": time.perf_counter() - t0,
+                      "digests": {k: lane_digest(v)
+                                  for k, v in res.items()}}), flush=True)
+    return 0
+
+
+def lane_store_phase(dev, card: str) -> list:
+    """Phase 15, the sequencer's lane stores (server/tpu_sequencer.py).
+    (a) testing/lanes.golden_run on the card against the committed JAX
+    golden (states, results, extracts). (b) The partition: LANE_SPEC's
+    10,000 merge channels in three classes over its 8 windows, 1,000
+    SharedMap channels + the wide map, the hot channels seeded from 3,500
+    entries each, then a LANE_BACKLOG-op backlog on every storm and hot
+    channel with the annotate storm on channel 0, extract_all, a dirty
+    pass on every LANE_DIRTY_STRIDE-th channel, extract_all again; through
+    a bucketed store (+ the LWW store) and a paged store on the card with
+    the counts at 0, each scan-apply launch event-timed and checked to
+    take the rule's geometry, each store call timed by the host clock
+    around a synced call. (c) The same stores on the CPU over the same
+    schedules, in a child process started before (b): equal results (placements, texts, entries, recovery
+    counts, extracts, LWW snapshots). (d) The bucketed and the paged
+    store agree (testing/lanes.cross_store_mismatches); promotions, folds,
+    rescues, page compactions and the paged burst happened; every launch
+    shape is a power of two and a replay of the windows through fresh
+    stores adds no apply signature.
+    Returns the scan kernel's rows at the LANE_ROW_SHAPES largest store
+    shapes (every path timed; the rule's within PATH_MARGIN)."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.server import tpu_sequencer as seq
+    from fluidframework_tpu_torch.telemetry import counters
+    from fluidframework_tpu_torch.telemetry.compile_ledger import ledger
+    from fluidframework_tpu_torch.testing import golden, lanes, serving
+
+    t_phase = time.perf_counter()
+    split = {}
+    # -- (a) the JAX golden at its small size --------------------------------
+    g = golden.load_lanes()
+    sections, doc = lanes.golden_run(seq, counters, device=dev)
+    for name, sec in sections.items():
+        for f, arr in sec.items():
+            want = g[name][f]
+            require(arr.dtype == want.dtype and np.array_equal(arr, want),
+                    f"phase 15 golden: {name}.{f} differs from JAX")
+    require(json.loads(json.dumps(doc, sort_keys=True)) == g["json"],
+            "phase 15 golden: the card's lane stores differ from JAX")
+    print(f"phase 15 (a): the lane stores on the card equal the JAX golden "
+          f"({len(sections)} state sections; counts "
+          f"{doc['bucketed']['merge']['counts']} bucketed, "
+          f"{doc['paged']['merge']['counts']} paged)", flush=True)
+    split["golden"] = time.perf_counter() - t_phase
+
+    # -- (b) the partition on the card, the CPU composition beside it -------
+    spec = getattr(serving, LANE_SPEC)
+    cpu_procs = {store: subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+         "lane_cpu_main(sys.argv[1], sys.argv[2]))",
+         json.dumps([spec, LANE_SEED, LANE_BACKLOG, LANE_DIRTY_STRIDE]),
+         store], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+        for store in ("bucketed", "paged")}
+    t0 = time.perf_counter()
+    steps = lanes.scenario(spec, LANE_SEED, LANE_BACKLOG, LANE_DIRTY_STRIDE)
+    gen_s = time.perf_counter() - t0
+    labels, w = [], 0
+    for step in steps:
+        if step[0] == "window":
+            labels.append((f"window{w}", lane_step_ops(step)))
+            w += 1
+        elif step[0] == "backlog":
+            labels.append(("backlog", lane_step_ops(step)))
+    ops_of = dict(labels)
+
+    captured, events, off_rule = {}, [], []
+    launch = kernel._launch
+
+    def counted_launch(state, ops, runs, geo):
+        b, c = state.length.shape
+        variant = "runs" if runs is not None else "plain"
+        key = (b, c, ops.steps, variant)
+        if geo != kernel.scan_geometry(b, c, state.overlap_slots,
+                                       state.anno_slots):
+            off_rule.append((key, geo))
+        if key not in captured:
+            captured[key] = (clone_state(state), clone_state(ops),
+                             None if runs is None else clone_state(runs))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = launch(state, ops, runs, geo)
+        e1.record()
+        events.append((f"{geo.path}[{variant}]", key, e0, e1))
+        return out
+
+    times = {"bucketed": {}, "paged": {}}
+    sigs = {"bucketed": {}, "paged": {}}
+
+    def timer(store, label, fn):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        times[store][label] = (time.perf_counter() - h0) * 1e3
+        return got
+
+    def after(store, label):
+        sigs[store][label] = (seq._apply_keep_batched._cache_size(),
+                              seq._apply_paged_probe._cache_size())
+
+    ledger.reset()
+    kernel.reset_launches()
+    kernel._launch = counted_launch
+    t0 = time.perf_counter()
+    try:
+        card_res = run_lane_stores(steps, dev, timer, after)
+        torch.cuda.synchronize()
+    except BaseException:
+        for proc in cpu_procs.values():
+            proc.kill()
+            proc.wait()
+        raise
+    finally:
+        kernel._launch = launch
+    card_s = split["card"] = time.perf_counter() - t0
+    launches = {k: n for k, n in kernel.scan_apply.kernel_launches.items()
+                if n}
+    syms = ledger.snapshot()["symbols"]
+    bursts = syms.get("serve.paged_burst", {})
+    n_bursts = bursts.get("coldCalls", 0) + bursts.get("warmCalls", 0)
+
+    # -- (c) the CPU composition, from the process started above -------------
+    warm_sigs = (seq._apply_keep_batched._cache_size(),
+                 seq._apply_paged_probe._cache_size())
+    t0 = time.perf_counter()
+    cpu_dig, cpu_secs = {}, {}
+    try:
+        for store, proc in cpu_procs.items():
+            text, _ = proc.communicate(timeout=LANE_CPU_TIMEOUT)
+            require(proc.returncode == 0, f"phase 15: the {store} store's "
+                    f"CPU composition exited {proc.returncode}")
+            got = json.loads(text.strip().splitlines()[-1])
+            cpu_dig.update(got["digests"])
+            cpu_secs[store] = round(got["seconds"], 1)
+    finally:
+        for proc in cpu_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    waited_s = split["cpu_wait"] = time.perf_counter() - t0
+
+    # -- prints ----------------------------------------------------------------
+    by_path = {}
+    for label, key, e0, e1 in events:
+        n, ms = by_path.get(label, (0, 0.0))
+        by_path[label] = (n + 1, ms + e0.elapsed_time(e1))
+    path_ms = {k: (n, round(ms, 3)) for k, (n, ms) in by_path.items()}
+    shapes = {}
+    for label, key, _e0, _e1 in events:
+        shapes[key] = shapes.get(key, 0) + 1
+    print(f"phase 15 (b): {LANE_SPEC} ({spec.docs} documents) scenario "
+          f"generated in {gen_s:.2f} s; the card's run {card_s:.1f} s, the "
+          f"CPU's {cpu_secs} s in a process per store (waited "
+          f"{waited_s:.1f} s after the card's); scan launches {launches}; by path (count, "
+          f"event ms) {path_ms}; shapes (B, C, T, variant): launches "
+          f"{dict(sorted(shapes.items()))}; serve.paged_burst calls "
+          f"{n_bursts}; card {card}", flush=True)
+    for store in ("bucketed", "paged"):
+        t = times[store]
+        wins = [(lb, t[lb]) for lb, _ in labels if lb.startswith("window")]
+        win_ms = [ms for _lb, ms in wins]
+        rates = [ops_of[lb][0] / (ms / 1e3) for lb, ms in wins]
+        print(f"phase 15 {store}: window apply ms (host clock, synced) "
+              f"{[round(ms, 3) for ms in win_ms]}, p50 "
+              f"{float(np.median(win_ms)):.3f} ms, ops/s per window "
+              f"{[round(r) for r in rates]} (p50 "
+              f"{float(np.median(rates)):.0f}); seed "
+              f"{t.get('seed', 0):.1f} ms; backlog "
+              f"({ops_of['backlog'][0]} ops) {t['backlog']:.1f} ms; "
+              f"extract_all full {t['extract0']:.1f} ms, dirty "
+              f"{t['extract1']:.1f} ms; blob-cache hits "
+              f"{card_res[store]['blob_cache_hits']:.0f}; recovery "
+              f"{card_res[store]['merge']['counts']}; apply signatures "
+              f"after each call {sigs[store]}; card {card}", flush=True)
+    lww_ms = [ms for lb, ms in times["bucketed"].items()
+              if lb.startswith("lww")]
+    lww_where = card_res["bucketed"]["lww"]["where"]
+    lww_p50 = float(np.median(lww_ms))
+    print(f"phase 15 LWW: {len(lww_where)} channels, apply ms per window "
+          f"{[round(x, 3) for x in lww_ms]} (p50 {lww_p50:.3f} ms, "
+          f"{ops_of['window0'][1] / (lww_p50 / 1e3):.0f} ops/s); the wide "
+          f"map at {lww_where['|'.join(lanes.WIDE_MAP_KEY)]}; card {card}",
+          flush=True)
+
+    # -- (d) checks ---------------------------------------------------------------
+    for store in ("bucketed", "paged"):
+        got, want = lane_digest(card_res[store]), cpu_dig[store]
+        for part in sorted(set(got) | set(want)):
+            if got.get(part) == want.get(part):
+                continue
+            diff = part
+            if isinstance(got.get(part), dict):
+                diff = [(part, n) for n in got[part]
+                        if got[part][n] != want.get(part, {}).get(n)]
+            require(False, f"phase 15 {store}: {diff} differs between the "
+                    "card and the CPU")
+    bad = lanes.cross_store_mismatches(
+        card_res["bucketed"], card_res["paged"],
+        (card_res["bucketed"]["extracts"], card_res["paged"]["extracts"]))
+    require(not bad, f"phase 15: bucketed vs paged: {bad[:5]}")
+    require(not off_rule, f"phase 15: launches off the rule: {off_rule[:3]}")
+    require(sum(launches.values()) == len(events) > 0,
+            f"phase 15: scan launches {launches} vs {len(events)} events")
+    bc = card_res["bucketed"]["merge"]["counts"]
+    pc = card_res["paged"]["merge"]["counts"]
+    where = card_res["bucketed"]["merge"]["where"].values()
+    require(bc["folds"] > 0 and max(b for b, _ in where) == 2
+            and bc["fold_rescue_dispatches"] > 0,
+            f"phase 15: the bucketed store never folded or promoted to "
+            f"the last bucket: {bc}")
+    require(pc["paged_rescues"] > 0 and pc["page_compactions"] > 0
+            and n_bursts > 0, f"phase 15: the paged store took no rescue, "
+            f"page compaction or burst: {pc}, {n_bursts} bursts")
+    require(card_res["paged"]["blob_cache_hits"] > 0
+            and card_res["bucketed"]["blob_cache_hits"] > 0,
+            "phase 15: the dirty pass took nothing from the blob cache")
+    # The apply signatures grow by pow2 steps while lanes promote and page
+    # groups widen; every launch shape is a power of two in each dimension
+    # (a bounded set), and the same traffic run again (the golden run's
+    # and the card's first store warmed them) adds none: checked below on
+    # a replay of the card's windows through fresh stores.
+    odd = [k for k in shapes if any(x & (x - 1) for x in k[:3])]
+    require(not odd, f"phase 15: launch shapes off the pow2 grid: {odd}")
+    t0 = time.perf_counter()
+    replay = [st for st in steps if st[0] != "backlog"]
+    run_lane_stores(replay[:1 + spec.windows], dev, results=False)
+    torch.cuda.synchronize()
+    replay_s = split["replay"] = time.perf_counter() - t0
+    grown = (seq._apply_keep_batched._cache_size(),
+             seq._apply_paged_probe._cache_size())
+    require(grown == warm_sigs, f"phase 15: a replay of the same windows "
+            f"added apply signatures: {warm_sigs} -> {grown}")
+    print(f"phase 15 (c, d): card == CPU for both stores and the LWW "
+          f"store; bucketed vs paged agree; every launch on the rule's "
+          f"geometry, every launch shape a power of two; the apply "
+          f"signatures (merge_apply_batched, paged_apply) {warm_sigs} "
+          f"stay flat through a replay of the seed and the "
+          f"{spec.windows} windows ({replay_s:.1f} s)", flush=True)
+
+    # -- the scan kernel's rows at the store's largest shapes ------------------
+    t0 = time.perf_counter()
+    rows = []
+    biggest = sorted(captured, key=lambda k: -k[0] * k[1] * k[2])
+    most = max(shapes, key=shapes.get)
+    pick = biggest[:LANE_ROW_SHAPES] + ([most] if most not in
+                                        biggest[:LANE_ROW_SHAPES] else [])
+    for key in pick:
+        state, ops, runs = captured[key]
+        b, c, t, variant = key
+        rows += scan_rows(f"lane store, {shapes[key]} launch(es)", state,
+                          ops, runs, launches, 3,
+                          f"{b} x C={c} x T={t}", card)
+    split["rows"] = time.perf_counter() - t0
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s (seconds by "
+          f"part {({k: round(v, 1) for k, v in split.items()})})",
+          flush=True)
+    return rows
 
 
 if __name__ == "__main__":

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import interop
-from ..core.errors import BulkApplyUnsupported
+from ..core.errors import BulkApplyUnsupported, CapacityExceeded
 from ..telemetry.counters import increment
 from . import kernel
 from .constants import (
@@ -285,8 +285,8 @@ def seed_device_state(entries: Sequence[dict], payloads: PayloadTable,
     of planting a crash in the extraction pipeline. device defaults to
     "cuda"."""
     if len(entries) > capacity:
-        raise ValueError(f"{len(entries)} segments exceed capacity "
-                         f"{capacity}")
+        raise CapacityExceeded(f"{len(entries)} segments exceed "
+                               f"capacity {capacity}")
     cols = seed_host_cols(entries, payloads, anno_slots=anno_slots,
                           allow_runs=allow_runs, allow_items=allow_items)
     from .state import state_from_numpy

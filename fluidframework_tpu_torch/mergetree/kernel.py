@@ -437,14 +437,19 @@ SCAN_PATHS = tuple(_SCAN_PATHS)
 #   fastest on the global path, 8% ahead of the best cluster;
 # - else, from CLUSTER_MAX_DOCS to SM_COUNT - 1 documents (the paged
 #   serving groups), the smallest cluster that holds the table while the
-#   launch's blocks (B x its size) fit two waves of the card's SM_COUNT
+#   launch's blocks (B x its size) fit one wave of the card's SM_COUNT
 #   SMs. At the main paths' inputs it is the fastest path: the ring's
-#   hot group (64 x C = 4,096, two blocks) 0.25 ms against 0.40 on the
-#   global path, the paged burst's chunk (64 x C = 8,192, four blocks)
-#   8.4 ms against 15.9. On `calibrate_fused_apply.py --scan --paged`'s
-#   grid (B = 16-128, C = 4,096 / 8,192) it is the fastest or within 10%
-#   from 35-60% fill on, and loses up to 1.9x to the global path on
-#   nearly empty tables at B x blocks > 132 (PERF.md §6);
+#   hot group (64 x C = 4,096, two blocks) 0.27 ms against 0.42 on the
+#   global path; the lane store's burst chunk (64 x C = 8,192: four
+#   blocks would take two waves) 6.2 ms on the global path against 8.3
+#   on four blocks (chip_smoke.py phase 15). On `calibrate_fused_apply.py
+#   --scan --paged`'s grid (B = 16-128, C = 4,096 / 8,192) a two-wave
+#   cluster lost to the global path up to 35% fill (1.2-1.9x) and won
+#   only at 90%. (A document whose padding past count is not canonical
+#   sweeps its whole table on every path, which the global path pays
+#   most for: 15.5 ms against 8.5 on four blocks with 5 of 64 such
+#   documents, an overflowed window's leftovers that the sequencer rolls
+#   back. PERF.md §6);
 # - else the global path.
 # Threads: C (or a rank's slots) rounded up to 32, at most LIVE_THREADS;
 # at B >= MANY_DOCS (several blocks per SM), 128 on the smem path and 256
@@ -566,7 +571,7 @@ def scan_geometry(batch: int, capacity: int, k_slots: int,
         return _forced_geometry("cluster", capacity, k_slots, a_slots,
                                 max(n, CLUSTER_BLOCKS), batch=batch)
     if n is not None and CLUSTER_MAX_DOCS <= batch < SM_COUNT \
-            and batch * n <= 2 * SM_COUNT:
+            and batch * n <= SM_COUNT:
         return _forced_geometry("cluster", capacity, k_slots, a_slots, n,
                                 batch=batch)
     return _forced_geometry("global", capacity, k_slots, a_slots,

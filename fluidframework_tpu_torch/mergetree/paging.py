@@ -161,6 +161,11 @@ class PagedMergeStore:
         self.counts: Dict[tuple, int] = {}
         self.min_seqs: Dict[tuple, int] = {}
         self.seqs: Dict[tuple, int] = {}
+        # Ops applied since the document's last defrag pass: the
+        # fragmentation pressure the lane store's budgeted compact tick
+        # ranks documents by (an upper bound on new tombstones, known
+        # without a device read).
+        self.ops_since_compact: Dict[tuple, int] = {}
         self._blank_row: DocState | None = None
         self.pool_grows = 0
 
@@ -252,7 +257,8 @@ class PagedMergeStore:
 
     def free_all(self, key: tuple) -> None:
         table = self.tables.pop(key, None)
-        for d in (self.counts, self.min_seqs, self.seqs):
+        for d in (self.counts, self.min_seqs, self.seqs,
+                  self.ops_since_compact):
             d.pop(key, None)
         if table:
             self.zero_pages([pid for pid in table

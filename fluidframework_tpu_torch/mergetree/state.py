@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.errors import CapacityExceeded
 from .constants import DEV_NO_REMOVE, DEV_UNASSIGNED, MAX_OVERLAP_CLIENTS
 
 DEFAULT_ANNO_SLOTS = 4
@@ -105,7 +106,7 @@ def _host_state(columns: dict, capacity: int, anno_slots: int,
     padding after them, count n, min_seq and seq 0, no overflow."""
     n = len(columns["length"])
     if n > capacity:
-        raise ValueError(f"{n} segments exceed capacity {capacity}")
+        raise CapacityExceeded(f"{n} segments exceed capacity {capacity}")
     a = max(anno_slots, 1)
 
     def plane(name, pad):

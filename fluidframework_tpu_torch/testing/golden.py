@@ -38,6 +38,16 @@ more than int16), applied by the JAX package's scan:
 and in the .json the payload table (encode_payloads), assemble_snapshot of
 EXTRACT_DOCS, and pack_entries_narrow of catchup_golden.json's small
 entries at base CATCHUP_BLOB_BASE.
+golden/lane_store_golden.npz (LANES_GOLDEN_PATH) and lane_store_golden.json
+(LANES_JSON_PATH) hold the JAX package's lane stores (server/
+tpu_sequencer.py) driven through testing/lanes.scenario(GOLDEN_SPEC,
+GOLDEN_SEED): a bucketed MergeLaneStore with an LwwLaneStore, and a paged
+MergeLaneStore, over a small fleet whose run promotes, folds, rescues,
+compacts pages and passes a dirty epoch:
+  bucket<i> / lww<i> / pool       the final states (the page pool);
+and in the .json, per store, testing/lanes.store_results (placements,
+texts, entries, recovery counts; LWW snapshots), which hot documents
+seeded, both extract_all results and the blob-cache hits.
 tests/test_torch_golden.py regenerates the files from the JAX package and
 requires equality, so the values cannot drift; chip_smoke.py holds the CUDA
 kernels against them on a machine without JAX.
@@ -69,6 +79,8 @@ EXTRACT_SEEDS = (700, 701, 702, 703)
 EXTRACT_GAP_SEED, EXTRACT_SEQ_GAP = 716, 40_000
 EXTRACT_DOCS = (0, 5)
 CATCHUP_BLOB_BASE = 3000
+LANES_GOLDEN_PATH = GOLDEN_PATH.with_name("lane_store_golden.npz")
+LANES_JSON_PATH = GOLDEN_PATH.with_name("lane_store_golden.json")
 # The fields of a packed extraction (kernel.extract_visible_batched).
 PACKED_FIELDS = ("origin_op", "origin_off", "length", "anno", "ins_seq",
                  "ins_client", "rem_seq", "rem_client", "counts")
@@ -204,5 +216,21 @@ def save_extract(sections: Dict[str, Dict[str, np.ndarray]],
     encoded."""
     save(sections, EXTRACT_GOLDEN_PATH)
     with open(EXTRACT_JSON_PATH, "w") as f:
+        json.dump(doc, f, sort_keys=True, separators=(",", ":"))
+        f.write("\n")
+
+
+def load_lanes() -> dict:
+    """The lane-store golden: the .npz sections, plus "json"."""
+    out = load(LANES_GOLDEN_PATH)
+    with open(LANES_JSON_PATH) as f:
+        out["json"] = json.load(f)
+    return out
+
+
+def save_lanes(sections: Dict[str, Dict[str, np.ndarray]],
+               doc: dict) -> None:
+    save(sections, LANES_GOLDEN_PATH)
+    with open(LANES_JSON_PATH, "w") as f:
         json.dump(doc, f, sort_keys=True, separators=(",", ":"))
         f.write("\n")

@@ -27,8 +27,9 @@ apply's capacity when `rows` is large. Window 0 of the first ring carries one JO
 serving contract is require_join). The op mix is inserts, removes and
 annotates, typing bursts of cursor-advancing inserts by one client at one
 refSeq (packed into INSERT_RUN slots of RUN_MIN..RUN_K members as the
-sequencer packs them), acks (the serving path sequences every op, so none
-reaches the apply as pending-local; an ack exercises the ack phase), and
+sequencer packs them), acks of local seqs 1-3 (the serving path sequences
+every op, so none reaches the apply as pending-local and an ack matches no
+row; it exercises the ack phase), and
 at small rates duplicate clientSeqs (dropped by the ticket pass), stale
 and un-joined messages (nacked), and a duplicate inside a run (a
 mispredicted run: the slot is voided and its lane flagged).
@@ -237,7 +238,10 @@ class ServingFleet:
             e = self.rng.randint(p + 1, min(doc.length, p + 8))
             return kind, p, e, 0, 0
         kind = OpKind.ACK_INSERT if r < 0.98 else OpKind.ACK_REMOVE
-        return kind, 0, 0, 0, self.rng.randint(0, 2)
+        # Local seqs 1-3: no sequenced row is pending, so the ack matches
+        # nothing. (Local seq 0 would match the padding rows, which look
+        # pending, an ack no server receives.)
+        return kind, 0, 0, 0, 1 + self.rng.randint(0, 2)
 
     def _window(self, doc: _Doc, first: bool):
         """One window of one document: a list of messages in ticket order,

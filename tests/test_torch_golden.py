@@ -1,6 +1,6 @@
 """The golden files for the card (fluidframework_tpu_torch/testing/golden/
-fused_apply_golden.npz, serve_megakernel_golden.npz, catchup_golden.json
-and extract_golden.npz / .json): regenerated here from the JAX package and
+fused_apply_golden.npz, serve_megakernel_golden.npz, catchup_golden.json,
+extract_golden.npz / .json and lane_store_golden.npz / .json): regenerated here from the JAX package and
 required equal to the committed files, then replayed through the port on
 the CPU.
 
@@ -32,6 +32,7 @@ from fluidframework_tpu.mergetree.oppack import (  # noqa: E402
 from fluidframework_tpu.mergetree.state import (  # noqa: E402
     make_state as jax_make_state)
 from fluidframework_tpu.server import ticket_kernel as jtk  # noqa: E402
+from fluidframework_tpu.server import tpu_sequencer as jseq  # noqa: E402
 from fluidframework_tpu.server.pipeline import make_full_step  # noqa: E402
 from fluidframework_tpu.telemetry import counters as jcounters  # noqa: E402
 from fluidframework_tpu.testing.traces import (  # noqa: E402
@@ -51,6 +52,9 @@ from fluidframework_tpu_torch.mergetree.pallas_apply import (  # noqa: E402
     apply_ops_fused)
 from fluidframework_tpu_torch.server import pipeline  # noqa: E402
 from fluidframework_tpu_torch.testing import golden  # noqa: E402
+from fluidframework_tpu_torch.testing import lanes  # noqa: E402
+from fluidframework_tpu_torch.server import (  # noqa: E402
+    tpu_sequencer as tseq)
 from fluidframework_tpu_torch.server import serve_step  # noqa: E402
 from fluidframework_tpu_torch.testing import serving  # noqa: E402
 from fluidframework_tpu_torch.testing.traces import (  # noqa: E402
@@ -252,6 +256,11 @@ def build_extract_golden():
     return sections, doc
 
 
+def build_lane_store_golden():
+    """The JAX package's lane stores on the golden scenario."""
+    return lanes.golden_run(jseq, jcounters)
+
+
 def _json_round_trip(doc):
     return json.loads(json.dumps(doc, sort_keys=True))
 
@@ -426,6 +435,42 @@ class TestExtractGolden:
             _json_round_trip(golden.encode_payloads(g["json"]["payloads"]))
 
 
+class TestLaneStoreGolden:
+    def test_committed_files_match_jax(self):
+        sections, doc = build_lane_store_golden()
+        g = golden.load(golden.LANES_GOLDEN_PATH)
+        _assert_sections_equal(g, sections)
+        with open(golden.LANES_JSON_PATH) as f:
+            assert json.load(f) == _json_round_trip(doc)
+
+    def test_lane_store_golden_covers_the_hard_cases(self):
+        doc = golden.load_lanes()["json"]
+        b, p = doc["bucketed"], doc["paged"]
+        bm, pm = b["merge"], p["merge"]
+        assert bm["counts"]["folds"] > 0            # a fold at C >= 256
+        assert max(w[0] for w in bm["where"].values()) == 2   # C = 1,024
+        assert pm["counts"]["paged_rescues"] > 0    # the annotate storm
+        assert pm["counts"]["page_compactions"] > 0
+        assert b["blob_cache_hits"] > 0 and p["blob_cache_hits"] > 0
+        assert all(b["seeded"].values()) and all(p["seeded"].values())
+        assert b["extracts"][1] != b["extracts"][0]
+        assert max(w[0] for w in b["lww"]["where"].values()) == 1
+        assert sorted(bm["text"]) == sorted(pm["text"])
+        assert bm["reseeded"] and set(bm["text"]) - set(bm["reseeded"])
+        # the paged and the bucketed store agree on every channel
+        assert lanes.cross_store_mismatches(
+            b, p, (b["extracts"], p["extracts"])) == []
+
+    def test_port_matches_lane_store_golden(self):
+        """The port's stores on the CPU: the same scenario through its own
+        builders gives the committed states and results."""
+        g = golden.load_lanes()
+        sections, doc = lanes.golden_run(tseq, tcounters, device="cpu")
+        _assert_sections_equal(sections, {k: g[k] for k in sections})
+        assert sorted(sections) == sorted(k for k in g if k != "json")
+        assert _json_round_trip(doc) == g["json"]
+
+
 def ring_shape(g):
     """(B, T, merge lanes, LWW lanes) of a golden ring."""
     ring = serving.ring_from_arrays(g["ring"])
@@ -444,7 +489,9 @@ if __name__ == "__main__":
     golden.save_catchup({"small": build_catchup_small(),
                          "full": build_catchup_full()})
     golden.save_extract(*build_extract_golden())
+    golden.save_lanes(*build_lane_store_golden())
     for path in (golden.GOLDEN_PATH, golden.SERVE_GOLDEN_PATH,
                  golden.CATCHUP_GOLDEN_PATH, golden.EXTRACT_GOLDEN_PATH,
-                 golden.EXTRACT_JSON_PATH):
+                 golden.EXTRACT_JSON_PATH, golden.LANES_GOLDEN_PATH,
+                 golden.LANES_JSON_PATH):
         print(f"wrote {path} ({path.stat().st_size} bytes)")

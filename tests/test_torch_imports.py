@@ -144,3 +144,31 @@ def test_slice_seven_modules_are_covered():
             (counters, ("JitRetraceProbe",))):
         for name in names:
             assert callable(getattr(mod, name)), f"{mod.__name__}.{name}"
+
+
+def test_slice_eight_lane_stores_raise_without_cuda(monkeypatch):
+    """The sequencer's lane stores default to the card: without CUDA they
+    raise instead of building CPU lanes; device="cpu" builds them."""
+    from fluidframework_tpu_torch.server import tpu_sequencer
+
+    assert "fluidframework_tpu_torch.server.tpu_sequencer" in \
+        _port_modules()
+    assert "fluidframework_tpu_torch.testing.lanes" in _port_modules()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (tpu_sequencer.MergeLaneStore,
+                 lambda: tpu_sequencer.MergeLaneStore(paged=True),
+                 tpu_sequencer.LwwLaneStore):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    for store in (tpu_sequencer.MergeLaneStore(device="cpu"),
+                  tpu_sequencer.MergeLaneStore(paged=True, device="cpu"),
+                  tpu_sequencer.LwwLaneStore(device="cpu")):
+        assert store.device.type == "cpu"
+    for name in ("MergeLaneStore", "LwwLaneStore", "_MergeBucket",
+                 "_LwwBucket", "_LwwValueBlock", "_PagedFlushGroup",
+                 "_stack_seed_rows", "_repad_batch", "_bucket",
+                 "matrix_base_key", "lane_base_key",
+                 "_compose_matrix_channels", "directory_route",
+                 "_child_path", "_norm_path", "_flatten_directory",
+                 "_nest_directory", "matrix_route", "looks_like_lww_op"):
+        assert callable(getattr(tpu_sequencer, name)), name

@@ -427,18 +427,23 @@ def test_row_and_put_row_round_trip():
     (8, 8192, "cluster", 8),     # B < 16: the 8-block rule, unchanged
     (16, 4096, "cluster", 2),    # the paged band 16 <= B < 132: the
     (64, 4096, "cluster", 2),    # smallest cluster that holds the
-    (131, 4096, "cluster", 2),   # table, up to two waves of 132 SMs
+    (66, 4096, "cluster", 2),    # table, in one wave of 132 SMs
+    (67, 4096, "global", 1),     # 134 blocks > one wave
+    (131, 4096, "global", 1),
     (132, 4096, "global", 1),    # B >= 132: unchanged
     (32, 8192, "cluster", 4),
-    (64, 8192, "cluster", 4),
-    (67, 8192, "global", 1),     # 268 blocks > two waves
+    (33, 8192, "cluster", 4),
+    (34, 8192, "global", 1),     # 136 blocks > one wave
+    (64, 8192, "global", 1),     # the lane store's burst chunk
+    (67, 8192, "global", 1),
     (1024, 8192, "global", 1),   # full_step above the fused capacity
     (64, 1024, "smem", 1),       # one block's shared memory holds it
 ])
 def test_scan_rule_at_paged_shapes(batch, capacity, path, blocks):
     """kernel.scan_geometry at K=3, A=4 (the serving defaults) in and
     around the paged band (PERF.md §6, `calibrate_fused_apply.py --scan
-    --paged`, chip_smoke.py phase 12)."""
+    --paged`, chip_smoke.py phases 12 and 15)."""
     geo = tkernel.scan_geometry(batch, capacity, 3, 4)
     assert (geo.path, geo.blocks) == (path, blocks)
-    assert batch * geo.blocks <= 2 * tkernel.SM_COUNT or geo.blocks == 1
+    assert batch * geo.blocks <= tkernel.SM_COUNT or geo.blocks == 1 \
+        or batch < tkernel.CLUSTER_MAX_DOCS

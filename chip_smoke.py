@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--north-star]
 
 Builds the port's CUDA kernels from this checkout, holds each against its
 plain PyTorch version (bit-exact: all state is int32/int16/bool), holds the
@@ -9,7 +9,13 @@ committed in fluidframework_tpu_torch/testing/golden/, then drives the two
 main paths through the kernels, checks each against its plain composition
 and times it with CUDA events:
   - the north-star step (10,000 docs x 100 ops, capacity 256, ticket table
-    K=8): phases 1-5;
+    K=8): phases 1-5. Phase 2 holds the summary-length kernel and its
+    first design (the yardstick summary_lengths_v1) bit-exact on aligned
+    and misaligned rows; phase 2b holds the ticket-scan kernel
+    (kernels/csrc/ticket_scan.cu) bit-exact against scan_tickets_plain
+    on a grid of client slots, contracts, steps and batches, two windows
+    each; phase 5 times the ticket scan, and both summary-length designs
+    warm and cold;
   - the paged serving megakernel: the fused apply's runs= and extract=True
     variants (phase 6), the golden ring (phase 7), and two rings back to
     back of a 10,000-document partition (testing/serving.py FULL_RING:
@@ -187,6 +193,36 @@ LANE_CPU_TIMEOUT = 600
 # An L2 flush: a buffer larger than the H100's 50 MB L2, written before
 # each cold-timed launch.
 L2_FLUSH_INTS = 64 << 20
+# Phase 2: summary-length shapes (B, C): the north-star's, a batch of one
+# block less one document, C past and short of whole 16-byte vectors and
+# of whole warps, and the block path's 1,100.
+SUMMARY_SHAPES = ((10_000, 256), (9_999, 256), (37, 64), (8, 1024),
+                  (37, 1), (37, 3), (37, 33), (37, 1100))
+# Phase 2b: the ticket scan's grid. Client slots (K = 40 takes two table
+# registers a lane), message steps (T = 0 launches nothing; 32 is one load
+# chunk), documents (the plain version runs once at the largest B;
+# documents are independent, so its first rows are the smaller batches'
+# reference), and the contracts (kind column, require_join).
+TICKET_SLOTS = (1, 3, 8, 32, 40)
+TICKET_STEPS = (0, 1, 31, 32, 33, 100, 256)
+TICKET_BATCHES = (1, 7, 10_000)
+TICKET_MODES = ((False, False), (False, True), (True, False), (True, True))
+# The ticket scan's operations for its bound, counted on this run's
+# messages, a table slot at a time where the function needs the table:
+# a LEAVE's match compare and evicting select (2 a slot); an OP's or a
+# JOIN's match and free compares (2 a slot; the first-true picks and the
+# any are votes on them); a ticketed OP's or JOIN's update of its slot
+# (1 a slot); every ticketed message's MSN, the active test, the masked
+# select and the min (3 a slot); the emptiness test where the table
+# changed, the OR of those active tests (1 a slot); and 30 operations on
+# every message's own scalars (the kind tests, the dup / stale / nack
+# decisions, the seq and the MSN's clamp).
+TICKET_OPS_LEAVE_SLOT = 2
+TICKET_OPS_VOTE_SLOT = 2
+TICKET_OPS_UPDATE_SLOT = 1
+TICKET_OPS_MSN_SLOT = 3
+TICKET_OPS_EMPTY_SLOT = 1
+TICKET_OPS_PER_MESSAGE = 30
 # fused_apply.cu's ptxas registers as PERF.md §6 records them: the block
 # path 64 in every variant; the warp path by (kR, runs).
 FUSED_WARP_REGISTERS = {(1, 0): 73, (1, 1): 76, (2, 0): 71, (2, 1): 77,
@@ -337,6 +373,89 @@ def cold_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def cold_device_ms(fn, reps: int, kernel: str):
+    """Device milliseconds per launch of the kernels whose name holds
+    `kernel` (fn launches one) with the L2 cold: torch.profiler's trace
+    of `reps` calls, each after a write of the L2_FLUSH_INTS buffer. The
+    kernel's own time: no host launch latency, unlike cold_ms. None when
+    the trace holds no such kernel (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(L2_FLUSH_INTS, dtype=torch.int32,
+                        device=torch.device(DEVICE))
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            flush.fill_(i)
+            fn()
+        torch.cuda.synchronize()
+    del flush
+    got = [(ev.self_device_time_total, ev.count)
+           for ev in prof.key_averages()
+           if kernel in ev.key and ev.self_device_time_total > 0]
+    if not got:
+        return None
+    return sum(us for us, _n in got) / 1e3 / sum(n for _us, n in got)
+
+
+def ticket_scan_bytes(b: int, t: int, k: int, with_kind: bool) -> int:
+    """Bytes the ticket scan must move: the [B, T] int32 message columns
+    read once (client, client_seq, ref_seq, and kind where given), the
+    [B, T] outputs written once (seq and msn int32, three bools), and the
+    state read and written once ([B, K] int32 x 3, [B] int32 x 2, [B]
+    bool)."""
+    per_message = (4 if with_kind else 3) * 4 + 2 * 4 + 3
+    state = 3 * k * 4 + 2 * 4 + 1
+    return b * t * per_message + 2 * b * state
+
+
+def ticket_scan_ops(ops, ticketed, overflow, k: int) -> int:
+    """Operations the ticket scan needs on this run's messages (ops, a
+    RawOps) given what the plain version made of them (ticketed, and the
+    [B] overflow flags after the window), by the TICKET_OPS_* counts. A
+    message was ticketed where its seq is not 0 (the first seq is 1). A
+    ticketed JOIN in a document that overflowed may have found the table
+    full and changed nothing: it is counted without the update and the
+    emptiness test, an under-count only there."""
+    from fluidframework_tpu_torch.server.ticket_kernel import MsgKind
+    has_client = ops.client >= 0
+    if ops.kind is None:
+        op, join, leave = has_client, torch.zeros_like(has_client), \
+            torch.zeros_like(has_client)
+    else:
+        op = has_client & (ops.kind == MsgKind.OP)
+        join = has_client & (ops.kind == MsgKind.JOIN)
+        leave = has_client & (ops.kind == MsgKind.LEAVE)
+    ticket = ticketed.seq != 0
+    updated = ticket & (op | (join & ~overflow[:, None]))
+    changed = updated | (ticket & leave)
+    per_slot = (TICKET_OPS_LEAVE_SLOT * int(leave.sum())
+                + TICKET_OPS_VOTE_SLOT * int((op | join).sum())
+                + TICKET_OPS_UPDATE_SLOT * int(updated.sum())
+                + TICKET_OPS_MSN_SLOT * int(ticket.sum())
+                + TICKET_OPS_EMPTY_SLOT * int(changed.sum()))
+    return k * per_slot + TICKET_OPS_PER_MESSAGE * ops.client.numel()
+
+
+def rows_of(tup, n: int):
+    """The first n documents of a NamedTuple of [B, ...] tensors."""
+    return type(tup)(*(None if x is None else x[:n] for x in tup))
+
+
+def misaligned(state):
+    """state with its length, ins_seq and rem_seq planes copied into
+    contiguous views that start one int32 past an allocation (not 16-byte
+    aligned: the summary kernel's scalar loop)."""
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+    return state._replace(length=shifted(state.length),
+                          ins_seq=shifted(state.ins_seq),
+                          rem_seq=shifted(state.rem_seq))
+
+
 def long_kernel_ms(fn, reps: int):
     """(device ms per launch, how) of a function that launches one long
     kernel: the least of `reps` single launches between two CUDA events,
@@ -381,12 +500,28 @@ def ptxas_report(text: str) -> dict:
     for name, rep in out.items():
         if "registers" not in rep:  # a device function, not a kernel
             continue
-        m = re.search(r"([a-z_]*kernel[a-z_]*)", name)
         args = re.findall(r"L[ib](\d+)E", name)
-        key = (m.group(1) if m else name) + \
-            (f"<{','.join(args)}>" if args else "")
+        key = kernel_ident(name) + (f"<{','.join(args)}>" if args else "")
         pretty[key] = rep
     return pretty
+
+
+def kernel_ident(mangled: str) -> str:
+    """The first length-prefixed identifier of a mangled name that holds
+    "kernel" (summary_len_v1_kernel out of _ZN..21summary_len_v1_kernel..),
+    else the name as it is."""
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        start = i + m.end()
+        ident = mangled[start:start + int(m.group())]
+        if "kernel" in ident:
+            return ident
+        i = start + len(ident)
+    return mangled
 
 
 def max_abs_err(a, b) -> int:
@@ -587,7 +722,11 @@ def ring_trial(serve, ts, pool_pre, lww, args, stage_names=None):
     return e0.elapsed_time(e1), host, split
 
 
-def main() -> int:
+def main(north_star_only: bool = False) -> int:
+    """Every phase; north_star_only=True (--north-star) stops after phase
+    5 and prints that part's kernel rows, for a quick check of a kernel
+    change."""
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     if not torch.cuda.is_available():
@@ -628,9 +767,17 @@ def main() -> int:
     require(len(scan_kernels) == 8,
             f"expected 8 scan apply kernels (4 paths x 2 variants), ptxas "
             f"reports {sorted(scan_kernels)}")
-    spilled = sorted(k for k, r in {**apply_kernels, **scan_kernels}.items()
-                     if r.get("stack") or r.get("spill_stores")
-                     or r.get("spill_loads"))  # refused after the timings
+    mine = sorted(k for k in report if "ticket_scan" in k
+                  or "summary_len" in k)
+    require(mine == ["summary_len_kernel", "summary_len_v1_kernel",
+                     "ticket_scan_kernel<1>", "ticket_scan_kernel<2>",
+                     "ticket_scan_kernel<3>", "ticket_scan_kernel<4>"],
+            f"expected the summary-length kernels (new and v1) and 4 "
+            f"ticket-scan kernels, ptxas reports {mine}")
+    checked = {*apply_kernels, *scan_kernels, *mine}
+    spilled = sorted(k for k in checked  # refused after the timings
+                     if any(report[k].get(key) for key in
+                            ("stack", "spill_stores", "spill_loads")))
     moved = {k: (r.get("registers"), fused_registers_recorded(k))
              for k, r in apply_kernels.items()
              if r.get("registers") != fused_registers_recorded(k)}
@@ -646,15 +793,22 @@ def main() -> int:
     print("phase 1: selftest bit-exact", flush=True)
 
     # -- phase 2: summary length kernel vs plain -------------------------
-    for seed, (b, c) in enumerate([(10_000, 256), (37, 64), (8, 1024)]):
+    for seed, (b, c) in enumerate(SUMMARY_SHAPES):
         st = random_tables(seed, b, c, dev)
-        got, want = pallas_ops.summary_lengths(st), \
-            pallas_ops.summary_lengths_plain(st)
-        torch.cuda.synchronize()
-        require(bool((got == want).all()),
-                f"summary_lengths differs at B={b} C={c}")
-        print(f"phase 2: summary_lengths bit-exact at B={b} C={c}",
-              flush=True)
+        want = pallas_ops.summary_lengths_plain(st)
+        for what, st_in in (("aligned", st), ("misaligned", misaligned(st))):
+            for fn in (pallas_ops.summary_lengths,
+                       pallas_ops.summary_lengths_v1):
+                got = fn(st_in)
+                torch.cuda.synchronize()
+                require(bool((got == want).all()),
+                        f"{fn.__name__} differs at B={b} C={c} ({what} "
+                        "rows)")
+        print(f"phase 2: summary_lengths and summary_lengths_v1 bit-exact "
+              f"at B={b} C={c}, aligned and misaligned rows", flush=True)
+
+    # -- phase 2b: ticket scan kernel vs plain ---------------------------
+    ticket_phase(dev)
 
     # -- phase 3: fused apply kernel vs plain vs JAX golden --------------
     def check_apply(state, ops, what):
@@ -707,6 +861,7 @@ def main() -> int:
                 make_state(CAPACITY, ANNO, batch=DOCS, device=dev))
 
     wrappers = {"selftest": kernels.selftest,
+                "ticket_scan": tk.scan_tickets,
                 "summary_len": pallas_ops.summary_lengths,
                 "fused_apply": pallas_apply.apply_ops_fused}
 
@@ -727,7 +882,8 @@ def main() -> int:
     tout, mout, ticketed, total = pipeline.full_step(*fresh(), raw, ops)
     torch.cuda.synchronize()
     launches = read_counts()
-    require(launches["fused_apply"] > 0 and launches["summary_len"] > 0,
+    require(launches["ticket_scan"] == 1 and launches["fused_apply"] > 0
+            and launches["summary_len"] > 0,
             f"main path did not launch every kernel: {launches}")
     geo = pallas_apply.launch_geometry(DOCS, CAPACITY, 3, ANNO)
     require(launches[f"fused_apply<{geo.path}>"] == launches["fused_apply"],
@@ -786,11 +942,39 @@ def main() -> int:
           f"card {card}", flush=True)
 
     # -- phase 5: per-kernel numbers at the north-star path's shapes -------
-    mstate0 = fresh()[1]
+    tstate0, mstate0 = fresh()
     admitted = pipeline.admit_ops(ops, ticketed)
     x = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
     summary_bytes = DOCS * (3 * CAPACITY * 4 + 3 * 4)
+
+    def scan_kernel():
+        return tk.scan_tickets(tstate0, raw)
+
+    def scan_plain():
+        return tk.scan_tickets_plain(tstate0, raw)
+
+    p_plain = scan_plain()
+
+    def summary_kernel():
+        return pallas_ops.summary_lengths(mout)
+
+    def summary_v1():
+        return pallas_ops.summary_lengths_v1(mout)
+
     rows = [
+        dict(name="ticket_scan", variant="no_kind", source="fluidframework_"
+             "tpu_torch/kernels/csrc/ticket_scan.cu",
+             replaces="fluidframework_tpu/server/ticket_kernel.py:192",
+             on_main_path=True, launches=launches["ticket_scan"],
+             err=max_abs_err(scan_kernel()[0] + scan_kernel()[1],
+                             p_plain[0] + p_plain[1]),
+             ms=ms_of(scan_kernel, 20),
+             device_ms=one_kernel_ms(scan_kernel, 20, "ticket_scan_kernel"),
+             plain_ms=ms_of(scan_plain, 1), library_ms=None,
+             shape=f"{DOCS} x T {OPS} x K {TICKET_K}",
+             bytes=ticket_scan_bytes(DOCS, OPS, TICKET_K, False),
+             ops=ticket_scan_ops(raw, p_plain[1], p_plain[0].overflow,
+                                 TICKET_K)),
         dict(name="selftest", variant=None, source="fluidframework_tpu_"
              "torch/kernels/csrc/selftest.cu",
              replaces="fluidframework_tpu/mergetree/pallas_ops.py:42",
@@ -806,13 +990,20 @@ def main() -> int:
              "torch/kernels/csrc/summary_len.cu",
              replaces="fluidframework_tpu/mergetree/pallas_ops.py:58",
              on_main_path=True, launches=launches["summary_len"],
-             err=max_abs_err([pallas_ops.summary_lengths(mout)],
-                             [pallas_ops.summary_lengths_plain(mout)]),
-             ms=ms_of(lambda: pallas_ops.summary_lengths(mout), 50),
-             cold_ms=cold_ms(lambda: pallas_ops.summary_lengths(mout), 20),
-             device_ms=one_kernel_ms(
-                 lambda: pallas_ops.summary_lengths(mout), 50,
-                 "summary_len_kernel"),
+             err=max_abs_err([summary_kernel(), summary_v1()],
+                             [pallas_ops.summary_lengths_plain(mout)] * 2),
+             ms=ms_of(summary_kernel, 50),
+             cold_ms=cold_ms(summary_kernel, 20),
+             cold_device_ms=cold_device_ms(summary_kernel, 20,
+                                           "summary_len_kernel"),
+             device_ms=one_kernel_ms(summary_kernel, 50,
+                                     "summary_len_kernel"),
+             yardstick_v1=dict(
+                 ms=ms_of(summary_v1, 50), cold_ms=cold_ms(summary_v1, 20),
+                 cold_device_ms=cold_device_ms(summary_v1, 20,
+                                               "summary_len_v1_kernel"),
+                 device_ms=one_kernel_ms(summary_v1, 50,
+                                         "summary_len_v1_kernel")),
              plain_ms=ms_of(lambda: pallas_ops.summary_lengths_plain(mout),
                             10),
              library_ms=None, bytes=summary_bytes,
@@ -843,31 +1034,39 @@ def main() -> int:
     ]
     check_paths(f"north-star [{DOCS} x {CAPACITY}] x T {OPS}", rows[-1],
                 card)
-    sl = rows[1]
+    print_ticket_row(rows[0], card, "5")
+    sl = rows[2]
     sl_bound = sl["bytes"] / PEAK_BYTES_PER_S * 1e3
-    sl_share = sl_bound / sl["cold_ms"]
-    print(f"phase 5: summary_len [{DOCS} x {CAPACITY}]: warm (the table "
-          f"L2-resident after the apply) {fmt_ms(sl['device_ms'])} device, "
-          f"{sl['ms']:.4f} ms back to back; cold (L2 flushed before each "
-          f"launch) {sl['cold_ms']:.4f} ms events; bound {sl_bound:.5f} ms "
-          f"({summary_bytes} bytes over 3.35 TB/s): {sl_share:.1%} of the "
-          f"bound cold; card {card}", flush=True)
-    del mstate0, mout, p_mout, tout, p_tout, ticketed, p_ticketed, admitted
+    for what, r in (("summary_len", sl),
+                    ("summary_len_v1 (yardstick)", sl["yardstick_v1"])):
+        share = (f"{sl_bound / r['cold_device_ms']:.1%}"
+                 if r["cold_device_ms"] else "not measured")
+        print(f"phase 5: {what} [{DOCS} x {CAPACITY}]: warm (the table "
+              f"L2-resident after the apply) {fmt_ms(r['device_ms'])} "
+              f"device, {r['ms']:.4f} ms back to back; cold (L2 flushed "
+              f"before each launch) {fmt_ms(r['cold_device_ms'])} device, "
+              f"{r['cold_ms']:.4f} ms by events around one launch (host "
+              f"launch latency included); bound {sl_bound:.5f} ms "
+              f"({summary_bytes} bytes over 3.35 TB/s): {share} of the "
+              f"bound cold (device); card {card}", flush=True)
+    del tstate0, mstate0, mout, p_mout, tout, p_tout, ticketed, p_ticketed
+    del admitted, p_plain
 
-    rows += serving_phases(dev, card)
-    fuzz_phase(dev)
-    scan_fuzz_phase(dev)
-    rows += scan_full_step_phase(dev, card)
-    catchup_rows, catchup_entries = catchup_phases(dev, card)
-    rows += catchup_rows
-    paged_rows, hot = paged_phase(dev, card)
-    rows += paged_rows
-    scalar_phase(dev, card, catchup_entries)
-    summarize_phase(dev, card, hot, catchup_entries)
-    del hot
-    rows += lane_store_phase(dev, card)
+    if not north_star_only:
+        rows += serving_phases(dev, card)
+        fuzz_phase(dev)
+        scan_fuzz_phase(dev)
+        rows += scan_full_step_phase(dev, card)
+        catchup_rows, catchup_entries = catchup_phases(dev, card)
+        rows += catchup_rows
+        paged_rows, hot = paged_phase(dev, card)
+        rows += paged_rows
+        scalar_phase(dev, card, catchup_entries)
+        summarize_phase(dev, card, hot, catchup_entries)
+        del hot
+        rows += lane_store_phase(dev, card)
 
-    require(not spilled, f"apply kernels use stack or spill: {spilled}")
+    require(not spilled, f"kernels use stack or spill: {spilled}")
     out = []
     for r in rows:
         b_ms = r["bytes"] / PEAK_BYTES_PER_S * 1e3
@@ -893,9 +1092,13 @@ def main() -> int:
                 PEAK_OPS_PER_S * r["sms"] / SM_COUNT) * 1e3)
         row.update({key: r[key] for key in ("path", "paths", "shape",
                                             "device_ms_by", "sms",
-                                            "blocks", "threads", "cold_ms")
+                                            "blocks", "threads", "cold_ms",
+                                            "cold_device_ms",
+                                            "yardstick_v1")
                     if key in r})
         out.append(row)
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s, the "
+          f"kernel build included; card {card}", flush=True)
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -904,9 +1107,93 @@ def main() -> int:
     return 0
 
 
+def print_ticket_row(r: dict, card: str, phase: str) -> None:
+    bound = max(r["bytes"] / PEAK_BYTES_PER_S, r["ops"] / PEAK_OPS_PER_S)
+    share = (f"{bound * 1e3 / r['device_ms']:.1%}" if r["device_ms"]
+             else "not measured")
+    print(f"phase {phase}: ticket_scan[{r['variant']}] {r['shape']}: "
+          f"{fmt_ms(r['device_ms'])} kernel device time, {r['ms']:.4f} ms "
+          f"back to back, {r['launches']} launch(es) on the main path; "
+          f"bound {bound * 1e3:.5f} ms ({r['bytes']} bytes, {r['ops']} "
+          f"lane ops): {share}; plain {r['plain_ms']:.3f} ms; max_abs_err "
+          f"{r['err']}; card {card}", flush=True)
+
+
+def ticket_phase(dev) -> None:
+    """Phase 2b: the ticket-scan kernel bit-exact against
+    scan_tickets_plain over TICKET_SLOTS x TICKET_MODES x TICKET_STEPS x
+    TICKET_BATCHES, each case two windows (the second continues the
+    state the kernel left), on testing/traces.raw_ticket_trace messages
+    from K + 3 clients: joins, leaves, duplicates, stale refs, SYSTEM
+    messages, unknown clients and overflowing tables. Every call with
+    messages launches once; T = 0 launches nothing and returns the state
+    as it was."""
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.server import ticket_kernel as tk
+    from fluidframework_tpu_torch.testing.traces import raw_ticket_trace
+
+    t0 = time.perf_counter()
+    big = max(TICKET_BATCHES)
+    checked = 0
+    seen = dict.fromkeys(("overflow", "not_joined", "stale", "dup",
+                          "slot_32_used"), False)
+    for k in TICKET_SLOTS:
+        for with_kind, require_join in TICKET_MODES:
+            for t in TICKET_STEPS:
+                seed = 1000 * k + 100 * with_kind + 10 * require_join + t
+                windows = [interop.raw_ops_from_numpy(raw_ticket_trace(
+                    seed + w, big, t, n_clients=k + 3, with_kind=with_kind),
+                    dev) for w in range(2)]
+                want, s = [], tk.make_ticket_state(k, big, device=dev)
+                for ops in windows:
+                    s, out = tk.scan_tickets_plain(s, ops, require_join)
+                    want.append((s, out))
+                what = (f"ticket_scan K={k} kind={with_kind} "
+                        f"require_join={require_join} T={t}")
+                for b in TICKET_BATCHES:
+                    s = rows_of(tk.make_ticket_state(k, big, device=dev), b)
+                    for w, ops in enumerate(windows):
+                        n0 = tk.scan_tickets.launches
+                        s_in = s
+                        s, out = tk.scan_tickets(s, rows_of(ops, b),
+                                                 require_join)
+                        torch.cuda.synchronize()
+                        n = tk.scan_tickets.launches - n0
+                        require(n == (t > 0), f"{what} B={b}: {n} launches")
+                        if t == 0:
+                            require(s is s_in and out.seq.shape == (b, 0),
+                                    f"{what} B={b}: T = 0 changed the state")
+                        assert_tuple_equal(s, rows_of(want[w][0], b),
+                                           f"{what} B={b} window {w} state")
+                        assert_tuple_equal(out, rows_of(want[w][1], b),
+                                           f"{what} B={b} window {w} "
+                                           "outputs")
+                        checked += 1
+                if t == 0:
+                    continue
+                for (st, out), ops in zip(want, windows):
+                    is_op = ops.client >= 0 if ops.kind is None else \
+                        (ops.kind == tk.MsgKind.OP) & (ops.client >= 0)
+                    seen["overflow"] |= bool(st.overflow.any())
+                    seen["not_joined"] |= bool(out.not_joined.any())
+                    seen["stale"] |= bool((out.nacked
+                                           & ~out.not_joined).any())
+                    seen["dup"] |= bool((is_op & (out.seq == 0)
+                                         & ~out.nacked).any())
+                    seen["slot_32_used"] |= k > 32 and bool(
+                        (st.client_ids[:, 32:] >= 0).any())
+    require(all(seen.values()), f"phase 2b: the grid missed a case: {seen}")
+    print(f"phase 2b: ticket_scan bit-exact against scan_tickets_plain in "
+          f"{checked} calls (K {TICKET_SLOTS} x kind / require_join "
+          f"{TICKET_MODES} x T {TICKET_STEPS} x B {TICKET_BATCHES} x 2 "
+          f"windows), reaching {sorted(seen)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def serving_phases(dev, card: str) -> list:
     """Phases 6-8, the paged serving megakernel; returns the kernel rows
-    of the fused apply's extract and runs+extract variants."""
+    of the ticket scan at the ring's shape and of the fused apply's
+    extract and runs+extract variants."""
     from fluidframework_tpu_torch import interop
     from fluidframework_tpu_torch.mergetree import oppack
     from fluidframework_tpu_torch.mergetree import pallas_apply as pa
@@ -989,12 +1276,17 @@ def serving_phases(dev, card: str) -> list:
         want = plain_serve(ts, pool_pre, lww, *args, stats=True)
         torch.cuda.synchronize()
         pa.reset_launches()
+        tk.scan_tickets.launches = 0
         got = serve_step.serve_megakernel(ts, store.pool, lww, *args,
                                           stats=True)
         torch.cuda.synchronize()
         counts = dict(wrappers[0].variant_launches)
+        counts["ticket_scan"] = tk.scan_tickets.launches
         paths = dict(wrappers[0].path_launches)
         assert_trees_equal(got, want, "ring vs the plain composition")
+        require(counts["ticket_scan"] == spec.windows,
+                f"ring: {counts['ticket_scan']} ticket_scan launches for "
+                f"{spec.windows} windows")
         expect = dict.fromkeys(paths, 0)
         for gi, view in enumerate(got[5]):
             b, c = view.length.shape
@@ -1068,12 +1360,36 @@ def serving_phases(dev, card: str) -> list:
           f"{[round(t[0], 3) for t in trials]}), stage p50 ms {split}; "
           f"card {card}", flush=True)
 
-    # -- per-variant numbers at the ring's shapes: window 0 of each group
-    _ts, ticketed = tk.scan_tickets(
-        ts1, tk.RawOps(client=args.ticket_xs[0, 1],
-                       client_seq=args.ticket_xs[0, 2],
-                       ref_seq=args.ticket_xs[0, 3],
-                       kind=args.ticket_xs[0, 0]), require_join=True)
+    # -- per-kernel numbers at the ring's shapes: window 0 of ring 2 -------
+    raw0 = tk.RawOps(client=args.ticket_xs[0, 1],
+                     client_seq=args.ticket_xs[0, 2],
+                     ref_seq=args.ticket_xs[0, 3], kind=args.ticket_xs[0, 0])
+
+    def scan_kernel():
+        return tk.scan_tickets(ts1, raw0, require_join=True)
+
+    def scan_plain():
+        return tk.scan_tickets_plain(ts1, raw0, require_join=True)
+
+    p_plain = scan_plain()
+
+    _ts, ticketed = scan_kernel()
+    k_slots = ts1.client_ids.shape[1]
+    ticket_row = dict(
+        name="ticket_scan", variant="kind_require_join",
+        source="fluidframework_tpu_torch/kernels/csrc/ticket_scan.cu",
+        replaces="fluidframework_tpu/server/ticket_kernel.py:192",
+        on_main_path=True, launches=counts["ticket_scan"],
+        err=max_abs_err(scan_kernel()[0] + scan_kernel()[1],
+                        p_plain[0] + p_plain[1]),
+        ms=ms_of(scan_kernel, 20),
+        device_ms=one_kernel_ms(scan_kernel, 20, "ticket_scan_kernel"),
+        plain_ms=ms_of(scan_plain, 1), library_ms=None,
+        shape=f"{spec.docs} x T {spec.steps} x K {k_slots} (ring 2, window "
+              "0)",
+        bytes=ticket_scan_bytes(spec.docs, spec.steps, k_slots, True),
+        ops=ticket_scan_ops(raw0, p_plain[1], p_plain[0].overflow, k_slots))
+    print_ticket_row(ticket_row, card, "8")
     per_group = []
     for gi, view in enumerate(got[5]):
         ops2, runs, _over = serve_step.admit_merge_ops(
@@ -1119,7 +1435,7 @@ def serving_phases(dev, card: str) -> list:
         require(r["err"] == 0, f"group {gi}: kernel vs plain differ")
         per_group.append(r)
     # the JSON row of a variant is its largest group
-    rows = []
+    rows = [ticket_row]
     for variant in ("extract", "runs_extract"):
         mine = [r for r in per_group if r["variant"] == variant]
         require(bool(mine), f"no page group runs the {variant} variant")
@@ -1573,15 +1889,17 @@ def scan_full_step_phase(dev, card: str) -> list:
     kernel.reset_launches()
     pa.reset_launches()
     pallas_ops.summary_lengths.launches = 0
+    tk.scan_tickets.launches = 0
     out = pipeline.full_step(*fresh(), raw, ops)
     torch.cuda.synchronize()
     by_kernel = {k: n for k, n in kernel.scan_apply.kernel_launches.items()
                  if n}
-    launches = {"scan_apply": kernel.scan_apply.launches,
+    launches = {"ticket_scan": tk.scan_tickets.launches,
+                "scan_apply": kernel.scan_apply.launches,
                 "summary_len": pallas_ops.summary_lengths.launches,
                 "fused_apply": pa.apply_ops_fused.launches}
-    require(launches == {"scan_apply": 1, "summary_len": 1,
-                         "fused_apply": 0},
+    require(launches == {"ticket_scan": 1, "scan_apply": 1,
+                         "summary_len": 1, "fused_apply": 0},
             f"full_step at C={c}: launches {launches}")
     rule = kernel.scan_geometry(b, c, 3, 1)
     require(by_kernel == {f"{rule.path}[plain]": 1},
@@ -1698,9 +2016,13 @@ def paged_phase(dev, card: str) -> list:
     torch.cuda.synchronize()
     pa.reset_launches()
     kernel.reset_launches()
+    tk.scan_tickets.launches = 0
     got = serve_step.serve_megakernel(ts0, store.pool, lww0, *args,
                                       stats=True)
     torch.cuda.synchronize()
+    require(tk.scan_tickets.launches == spec.windows,
+            f"phase 12 ring: {tk.scan_tickets.launches} ticket_scan "
+            f"launches for {spec.windows} windows")
     fused_n = pa.apply_ops_fused.launches
     fused_by = {v: n for v, n in pa.apply_ops_fused.variant_launches.items()
                 if n}
@@ -2186,8 +2508,8 @@ def summarize_phase(dev, card: str, hot, catchup_entries) -> None:
         return sub, n, comp, packed, pre
 
     # -- the counted run ---------------------------------------------------
-    wrappers = (kernels.selftest, pallas_ops.summary_lengths,
-                pallas_apply.apply_ops_fused)
+    wrappers = (kernels.selftest, tk.scan_tickets,
+                pallas_ops.summary_lengths, pallas_apply.apply_ops_fused)
     for fn in wrappers:
         fn.launches = 0
     pallas_apply.reset_launches()
@@ -2216,6 +2538,7 @@ def summarize_phase(dev, card: str, hot, catchup_entries) -> None:
     entries = catchup.device_apply_tail([], tail, 0, 0, device=dev)
     torch.cuda.synchronize()
     launches = {"selftest": kernels.selftest.launches,
+                "ticket_scan": tk.scan_tickets.launches,
                 "summary_len": pallas_ops.summary_lengths.launches,
                 "fused_apply": pallas_apply.apply_ops_fused.launches,
                 "scan_apply": kernel.scan_apply.launches}
@@ -2739,7 +3062,7 @@ def lane_store_phase(dev, card: str) -> list:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(north_star_only="--north-star" in sys.argv[1:]))
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as exc:
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}",
               file=sys.stderr)

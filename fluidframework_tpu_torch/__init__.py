@@ -3,8 +3,9 @@
 The JAX package (`fluidframework_tpu`) stays the reference; this package
 re-implements its device paths in PyTorch, with every Pallas kernel on a
 ported path replaced by a CUDA kernel written by hand for Hopper
-(`sm_90a`). Module names follow the JAX package so each counterpart is
-easy to find:
+(`sm_90a`), as are the merge-tree scan and the deli ticket scan, XLA
+loops in JAX. Module names follow the JAX package so each counterpart
+is easy to find:
 
   core/device.py          device resolution ("cuda" unless the caller asks
                           for the CPU; never a silent fallback)
@@ -40,6 +41,7 @@ easy to find:
                           catch-up narrow wire (pack_entries_narrow)
   protocol/messages.py    wire message types (DocumentMessage, Boxcar, ...)
   server/ticket_kernel.py deli ticketing, batched over documents
+                          (scan_tickets + its CUDA kernel)
   server/lww_kernel.py    LWW lanes (map / cell / counter)
   server/pipeline.py      full_step: ticket -> fused apply -> summary length
   server/serve_step.py    serving windows, the paged serving megakernel

@@ -132,6 +132,12 @@ def library() -> ctypes.CDLL:
         lib.fluid_summary_len.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32,
                                           vp]
         lib.fluid_summary_len.restype = i32
+        lib.fluid_summary_len_v1.argtypes = lib.fluid_summary_len.argtypes
+        lib.fluid_summary_len_v1.restype = i32
+        # ptrs, batch, steps, slots, require_join, stream
+        lib.fluid_ticket_scan.argtypes = [ctypes.POINTER(vp), i32, i32, i32,
+                                          i32, vp]
+        lib.fluid_ticket_scan.restype = i32
         # ptrs, batch, capacity, K, A, steps, with_runs, extract, path,
         # docs_per_block, threads, smem_bytes, stream
         lib.fluid_fused_apply.argtypes = [ctypes.POINTER(vp), i32, i32, i32,

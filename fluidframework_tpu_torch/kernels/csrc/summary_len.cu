@@ -13,39 +13,173 @@
 // about 9 us at 3.35 TB/s; the predicate is a handful of integer
 // operations per slot, far below the ALU rate.
 //
-// Design: one warp per document, lanes striding over C (consecutive lanes
-// on consecutive addresses, so every plane is read in 128-byte lines), the
-// predicate in registers, and an int32 warp reduction (__reduce_add_sync).
-// Integer sums are order-free, so the result is bit-exact against any
-// other order of summation, including the JAX one. Nothing is written but
-// the [B] totals.
+// Design (summary_len_kernel): keep enough loads in flight to cover the
+// memory's latency. One warp per document at a time, in a persistent grid
+// of whole waves (the SMs times the blocks each holds), each warp walking
+// documents with the grid's stride. Every load of a chunk (two 16-byte
+// int4 loads per lane per plane: 3 KB a warp, some 120 KB an SM at the
+// 40 warps that 48 registers a thread allow) is issued before any
+// compare, and the predicate is branchless, so no load waits on another.
+// The loads skip L1 (ld.global.cg): the table is read once. L2 keeps its
+// usual policy, so a table the apply has just written (the main path) is
+// read from L2; with the streaming hint (ld.global.cs, evict-first) the
+// H100's back-to-back reads of an L2-sized table ran at two speeds from
+// one run to the next. Rows that are not 16-byte aligned (C % 4 != 0, or
+// an offset view) take a scalar loop in the same kernel, four loads per
+// lane per plane in flight. Integer sums are order-free, so the result is
+// bit-exact against any other order of summation, including the JAX one.
+// Nothing is written but the [B] totals.
+//
+// summary_len_v1_kernel is the first design (one warp per document, a
+// 4-byte load per lane per plane at a time, the loads of rem_seq and
+// length behind the && chain), kept as the yardstick the card times the
+// new design against; nothing else launches it.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;  // 8 warps a block
 
-__global__ void summary_len_kernel(const int* __restrict__ length,
-                                   const int* __restrict__ ins_seq,
-                                   const int* __restrict__ rem_seq,
-                                   const int* __restrict__ count,
-                                   const int* __restrict__ seq,
-                                   int* __restrict__ out, int batch,
-                                   int capacity) {
+struct SummaryArgs {
+  const int* length;
+  const int* ins_seq;
+  const int* rem_seq;
+  const int* count;
+  const int* seq;
+  int* out;
+  int batch;
+  int capacity;
+  int vec;  // rows are 16-byte aligned and C % 4 == 0
+};
+
+__device__ __forceinline__ unsigned visible(int c, int cnt, int s, int len,
+                                            int ins, int rem) {
+  const bool vis = (c < cnt) & (ins <= s) & (rem > s);
+  return vis ? static_cast<unsigned>(len) : 0u;
+}
+
+__device__ __forceinline__ unsigned visible4(int c, int cnt, int s, int4 len,
+                                             int4 ins, int4 rem) {
+  return visible(c, cnt, s, len.x, ins.x, rem.x) +
+         visible(c + 1, cnt, s, len.y, ins.y, rem.y) +
+         visible(c + 2, cnt, s, len.z, ins.z, rem.z) +
+         visible(c + 3, cnt, s, len.w, ins.w, rem.w);
+}
+
+__global__ void __launch_bounds__(kThreads) summary_len_kernel(
+    SummaryArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (kThreads / 32);
+  for (int doc = (blockIdx.x * kThreads + threadIdx.x) >> 5; doc < a.batch;
+       doc += warps) {  // uniform per warp
+    const long long row = static_cast<long long>(doc) * a.capacity;
+    const int cnt = a.count[doc];
+    const int s = a.seq[doc];
+    unsigned acc = 0;
+    if (a.vec) {
+      const int4* len = reinterpret_cast<const int4*>(a.length + row);
+      const int4* ins = reinterpret_cast<const int4*>(a.ins_seq + row);
+      const int4* rem = reinterpret_cast<const int4*>(a.rem_seq + row);
+      const int c4 = a.capacity >> 2;
+      for (int base = 0; base < c4; base += 64) {
+        const int i0 = base + lane, i1 = base + 32 + lane;
+        const int4 zero = make_int4(0, 0, 0, 0);
+        int4 l0 = zero, n0 = zero, r0 = zero, l1 = zero, n1 = zero,
+             r1 = zero;
+        if (i0 < c4) {
+          l0 = __ldcg(len + i0);
+          n0 = __ldcg(ins + i0);
+          r0 = __ldcg(rem + i0);
+        }
+        if (i1 < c4) {
+          l1 = __ldcg(len + i1);
+          n1 = __ldcg(ins + i1);
+          r1 = __ldcg(rem + i1);
+        }
+        // a lane past the row keeps length 0: it adds nothing
+        acc += visible4(4 * i0, cnt, s, l0, n0, r0) +
+               visible4(4 * i1, cnt, s, l1, n1, r1);
+      }
+    } else {
+      for (int base = 0; base < a.capacity; base += 128) {
+        int l[4], n[4], r[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int c = base + 32 * u + lane;
+          const bool in = c < a.capacity;
+          l[u] = in ? __ldcg(a.length + row + c) : 0;
+          n[u] = in ? __ldcg(a.ins_seq + row + c) : 0;
+          r[u] = in ? __ldcg(a.rem_seq + row + c) : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          acc += visible(base + 32 * u + lane, cnt, s, l[u], n[u], r[u]);
+      }
+    }
+    acc = __reduce_add_sync(kFull, acc);
+    if (lane == 0) a.out[doc] = static_cast<int>(acc);
+  }
+}
+
+__global__ void summary_len_v1_kernel(SummaryArgs a) {
   const int doc = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (doc >= batch) return;  // uniform per warp
-  const long long row = static_cast<long long>(doc) * capacity;
-  const int cnt = count[doc];
-  const int s = seq[doc];
+  if (doc >= a.batch) return;  // uniform per warp
+  const long long row = static_cast<long long>(doc) * a.capacity;
+  const int cnt = a.count[doc];
+  const int s = a.seq[doc];
   unsigned acc = 0;
-  for (int c = lane; c < capacity; c += 32) {
-    const bool vis = c < cnt && ins_seq[row + c] <= s && !(rem_seq[row + c] <= s);
-    if (vis) acc += static_cast<unsigned>(length[row + c]);
+  for (int c = lane; c < a.capacity; c += 32) {
+    const bool vis = c < cnt && a.ins_seq[row + c] <= s &&
+                     !(a.rem_seq[row + c] <= s);
+    if (vis) acc += static_cast<unsigned>(a.length[row + c]);
   }
   acc = __reduce_add_sync(kFull, acc);
-  if (lane == 0) out[doc] = static_cast<int>(acc);
+  if (lane == 0) a.out[doc] = static_cast<int>(acc);
+}
+
+// Blocks of summary_len_kernel that one wave of the card holds (its SMs
+// times the blocks an SM keeps resident), asked once per process: the
+// process's card is the first one it launches on.
+cudaError_t wave_blocks(int* blocks) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, summary_len_kernel, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (sms * per_sm < 1) return cudaErrorInvalidValue;
+    cached = sms * per_sm;
+  }
+  *blocks = cached;
+  return cudaSuccess;
+}
+
+SummaryArgs args_of(const void* length, const void* ins_seq,
+                    const void* rem_seq, const void* count, const void* seq,
+                    void* out, int batch, int capacity) {
+  SummaryArgs a;
+  a.length = static_cast<const int*>(length);
+  a.ins_seq = static_cast<const int*>(ins_seq);
+  a.rem_seq = static_cast<const int*>(rem_seq);
+  a.count = static_cast<const int*>(count);
+  a.seq = static_cast<const int*>(seq);
+  a.out = static_cast<int*>(out);
+  a.batch = batch;
+  a.capacity = capacity;
+  const uintptr_t planes = reinterpret_cast<uintptr_t>(length) |
+                           reinterpret_cast<uintptr_t>(ins_seq) |
+                           reinterpret_cast<uintptr_t>(rem_seq);
+  a.vec = capacity % 4 == 0 && (planes & 15u) == 0;
+  return a;
 }
 
 }  // namespace
@@ -54,16 +188,31 @@ extern "C" int fluid_summary_len(const void* length, const void* ins_seq,
                                  const void* rem_seq, const void* count,
                                  const void* seq, void* out, int batch,
                                  int capacity, void* stream) {
-  const int threads = 256;  // 8 documents per block
-  const int docs_per_block = threads / 32;
+  const SummaryArgs a = args_of(length, ins_seq, rem_seq, count, seq, out,
+                                batch, capacity);
+  if (batch > 0) {
+    int wave = 0;
+    const cudaError_t err = wave_blocks(&wave);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int needed = (batch + kThreads / 32 - 1) / (kThreads / 32);
+    const int grid = needed < wave ? needed : wave;
+    summary_len_kernel<<<grid, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fluid_summary_len_v1(const void* length, const void* ins_seq,
+                                    const void* rem_seq, const void* count,
+                                    const void* seq, void* out, int batch,
+                                    int capacity, void* stream) {
+  const SummaryArgs a = args_of(length, ins_seq, rem_seq, count, seq, out,
+                                batch, capacity);
+  const int docs_per_block = kThreads / 32;
   const int blocks = (batch + docs_per_block - 1) / docs_per_block;
   if (batch > 0) {
-    summary_len_kernel<<<blocks, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(length), static_cast<const int*>(ins_seq),
-        static_cast<const int*>(rem_seq), static_cast<const int*>(count),
-        static_cast<const int*>(seq), static_cast<int*>(out), batch,
-        capacity);
+    summary_len_v1_kernel<<<blocks, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,9 @@ Counterpart of fluidframework_tpu's mergetree/pallas_ops.py. At the acked
 perspective (ref_seq = state.seq) only (ins_seq, rem_seq, count) decide
 visibility, so the pass reads three [B, C] planes once and writes [B].
 `summary_lengths` runs the CUDA kernel (kernels/csrc/summary_len.cu) for
-CUDA tensors and `summary_lengths_plain` for CPU tensors.
+CUDA tensors and `summary_lengths_plain` for CPU tensors;
+`summary_lengths_v1` launches the kernel's first design, the yardstick
+the card times it against.
 """
 
 from __future__ import annotations
@@ -26,26 +28,38 @@ def summary_lengths_plain(state: DocState) -> torch.Tensor:
     return torch.where(vis, state.length, 0).sum(dim=1, dtype=torch.int32)
 
 
-def summary_lengths(state: DocState) -> torch.Tensor:
-    """Per-document visible length of a batched DocState, int32 [B]."""
-    if state.length.device.type == "cpu":
-        return summary_lengths_plain(state)
+def _launch(state: DocState, entry: str, what: str) -> torch.Tensor:
+    """One launch of the library's `entry` over a CUDA DocState."""
     planes = (state.length, state.ins_seq, state.rem_seq, state.count,
               state.seq)
     for t in planes:
         if t.device.type != "cuda" or t.dtype != torch.int32 \
                 or not t.is_contiguous():
-            raise ValueError("summary_lengths takes contiguous int32 CUDA "
-                             "tensors")
+            raise ValueError(f"{what} takes contiguous int32 CUDA tensors")
     batch, capacity = state.length.shape
     lib = build.library()
     out = torch.empty(batch, dtype=torch.int32, device=state.length.device)
-    summary_lengths.launches += 1
-    build.check(lib.fluid_summary_len(
+    build.check(getattr(lib, entry)(
         *(ctypes.c_void_p(t.data_ptr()) for t in planes),
         ctypes.c_void_p(out.data_ptr()), batch, capacity,
-        ctypes.c_void_p(build.stream_handle())), "summary_lengths")
+        ctypes.c_void_p(build.stream_handle())), what)
     return out
+
+
+def summary_lengths(state: DocState) -> torch.Tensor:
+    """Per-document visible length of a batched DocState, int32 [B]."""
+    if state.length.device.type == "cpu":
+        return summary_lengths_plain(state)
+    out = _launch(state, "fluid_summary_len", "summary_lengths")
+    summary_lengths.launches += 1
+    return out
+
+
+def summary_lengths_v1(state: DocState) -> torch.Tensor:
+    """The kernel's first design (summary_len_v1_kernel), kept as the
+    yardstick the card times summary_lengths against; CUDA tensors
+    only."""
+    return _launch(state, "fluid_summary_len_v1", "summary_lengths_v1")
 
 
 summary_lengths.launches = 0

@@ -1,6 +1,9 @@
 """The north-star pipeline step: deli ticketing -> merge-tree apply ->
 per-document visible length.
 
+Each stage is a hand-written CUDA kernel for CUDA tensors: the ticket scan
+(kernels/csrc/ticket_scan.cu), the apply, the summary length.
+
 Counterpart of fluidframework_tpu's server/pipeline.py make_full_step with
 fused_apply=True: the fused apply up to its shared-memory capacity, the
 scan apply above it. The ticketing output feeds the apply: each admitted op's
@@ -43,6 +46,7 @@ def make_full_step(plain: bool = False):
     routes capacities beyond its fused kernel's budget to kernel._scan_ops."""
     fused = apply_ops_fused_plain if plain else apply_ops_fused
     summary = summary_lengths_plain if plain else summary_lengths
+    ticket = tk.scan_tickets_plain if plain else tk.scan_tickets
 
     def scan(mstate, ops):
         if plain:
@@ -52,7 +56,7 @@ def make_full_step(plain: bool = False):
     def full_step(tstate, mstate, raw, ops):
         limit = max_fused_capacity(mstate.overlap_slots, mstate.anno_slots)
         apply = fused if mstate.capacity <= limit else scan
-        tstate, ticketed = tk.scan_tickets(tstate, raw)
+        tstate, ticketed = ticket(tstate, raw)
         mstate = apply(mstate, admit_ops(ops, ticketed))
         total_len = summary(mstate)
         return tstate, mstate, ticketed, total_len

@@ -12,6 +12,9 @@ the views back. The paged burst (`serve_paged_burst`) applies K stacked op
 chunks to one page group the same way, with no ticketing.
 
 Differences from the JAX program, none of which changes a result:
+- the ticketing is one launch of the ticket-scan kernel
+  (kernels/csrc/ticket_scan.cu) for CUDA tensors, its plain version for
+  CPU tensors and under `plain`;
 - there is no `fused` argument. CUDA tensors launch the fused-apply kernel
   (kernels/csrc/fused_apply.cu, the runs= and extract=True variants where
   the megakernel needs them) and CPU tensors run its plain version. A
@@ -151,9 +154,10 @@ def _serve_window_impl(tstate, ticket_cols, merge_states, merge_cols,
     "pack"."""
     mark = stage or (lambda _name: None)
     fused = pa.apply_ops_fused_plain if plain else pa.apply_ops_fused
+    ticket = tk.scan_tickets_plain if plain else tk.scan_tickets
     raw = tk.RawOps(client=ticket_cols[1], client_seq=ticket_cols[2],
                     ref_seq=ticket_cols[3], kind=ticket_cols[0])
-    tstate, ticketed = tk.scan_tickets(tstate, raw, require_join=True)
+    tstate, ticketed = ticket(tstate, raw, require_join=True)
     seq_bt, msn_bt = ticketed.seq, ticketed.min_seq
     mark("ticket")
 

@@ -4,19 +4,27 @@ Counterpart of fluidframework_tpu's server/ticket_kernel.py. The sequencer
 assigns each raw op a sequenceNumber and a minimumSequenceNumber (min over
 per-client refSeqs, a masked min over a [B, K] client table here), nacks
 stale refSeqs and drops duplicate clientSeqs. The JAX version is a
-`lax.scan` over T with `vmap` over docs, not a Pallas kernel; here it is a
-Python loop over T whose every step is vectorized over [B, K].
+`lax.scan` over T with `vmap` over docs. Here `scan_tickets` launches one
+hand-written CUDA kernel (kernels/csrc/ticket_scan.cu: one warp per
+document, the whole T loop inside) for CUDA tensors, and runs
+`scan_tickets_plain`, a Python loop over T whose every step is vectorized
+over [B, K], for CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core.device import resolve_device
+from ..kernels import build
 
 INT32_MAX = 2**31 - 1
+# The kernel holds a document's client table in one warp's registers, at
+# most four slots a lane.
+MAX_KERNEL_SLOTS = 128
 
 
 class MsgKind:
@@ -172,10 +180,11 @@ def _ticket_one(s: TicketState, kind, client, client_seq, ref_seq,
     return s2, (seq, s2.min_seq, nacked, not_joined, empty_after)
 
 
-def scan_tickets(state: TicketState, ops: RawOps,
-                 require_join: bool = False
-                 ) -> Tuple[TicketState, Ticketed]:
-    """Ticket [B, T] message streams, stepping over T."""
+def scan_tickets_plain(state: TicketState, ops: RawOps,
+                       require_join: bool = False
+                       ) -> Tuple[TicketState, Ticketed]:
+    """Plain PyTorch version: ticket [B, T] message streams, stepping over
+    T on any device."""
     kind = ops.kind if ops.kind is not None else torch.where(
         ops.client >= 0, MsgKind.OP, MsgKind.NOOP).to(torch.int32)
     outs = []
@@ -185,12 +194,84 @@ def scan_tickets(state: TicketState, ops: RawOps,
                                  require_join)
         outs.append(out)
     if not outs:
-        b = ops.client.shape[0]
-        empty_i = torch.zeros((b, 0), dtype=torch.int32,
-                              device=ops.client.device)
-        empty_b = empty_i.bool()
-        return state, Ticketed(empty_i, empty_i, empty_b, empty_b, empty_b)
+        return state, _empty_ticketed(ops)
     return state, Ticketed(*(torch.stack(col, dim=1) for col in zip(*outs)))
+
+
+def _empty_ticketed(ops: RawOps) -> Ticketed:
+    b, t = ops.client.shape
+    ints = torch.zeros((b, t), dtype=torch.int32, device=ops.client.device)
+    bools = ints.bool()
+    return Ticketed(ints, ints, bools, bools, bools)
+
+
+def _check_launchable(state: TicketState, ops: RawOps) -> None:
+    """Raise ValueError unless the kernel takes these tensors: the types,
+    contiguity and shapes first, the CUDA device last."""
+    b, k = state.client_ids.shape
+    t = ops.client.shape[-1]
+    if not 1 <= k <= MAX_KERNEL_SLOTS:
+        raise ValueError(f"scan_tickets: the kernel takes 1 to "
+                         f"{MAX_KERNEL_SLOTS} client slots, not {k}")
+    want = [(f"state.{name}", x, torch.bool if name == "overflow"
+             else torch.int32, (b, k) if i < 3 else (b,))
+            for i, (name, x) in enumerate(zip(TicketState._fields, state))]
+    want += [(f"ops.{name}", x, torch.int32, (b, t))
+             for name, x in zip(RawOps._fields, ops) if x is not None]
+    for what, x, dtype, shape in want:
+        if x.dtype != dtype:
+            raise ValueError(f"scan_tickets: {what} is {x.dtype}, not "
+                             f"{dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"scan_tickets: {what} has shape "
+                             f"{tuple(x.shape)}, not {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"scan_tickets: {what} is not contiguous")
+    for what, x, _dtype, _shape in want:
+        if x.device.type != "cuda" or x.device != state.client_ids.device:
+            raise ValueError(f"scan_tickets: {what} is on {x.device}, not "
+                             f"the CUDA device of the client table")
+
+
+def scan_tickets(state: TicketState, ops: RawOps,
+                 require_join: bool = False
+                 ) -> Tuple[TicketState, Ticketed]:
+    """Ticket [B, T] message streams: scan_tickets_plain for CPU tensors;
+    for CUDA tensors one launch of kernels/csrc/ticket_scan.cu (_launch),
+    or ValueError for tensors it does not take. The new state is new
+    tensors; the inputs are not written."""
+    if state.client_ids.device.type == "cpu":
+        return scan_tickets_plain(state, ops, require_join)
+    return _launch(state, ops, require_join)
+
+
+def _launch(state: TicketState, ops: RawOps, require_join: bool
+            ) -> Tuple[TicketState, Ticketed]:
+    """One kernel launch over CUDA tensors, counted in
+    scan_tickets.launches. With no message (T = 0) or no document the
+    state comes back as it was and nothing launches."""
+    _check_launchable(state, ops)
+    b, k = state.client_ids.shape
+    t = ops.client.shape[-1]
+    if b == 0 or t == 0:
+        return state, _empty_ticketed(ops)
+    dev = state.client_ids.device
+    new = TicketState(*(torch.empty_like(x) for x in state))
+    out = Ticketed(*(torch.empty((b, t), dtype=dtype, device=dev)
+                     for dtype in (torch.int32, torch.int32, torch.bool,
+                                   torch.bool, torch.bool)))
+    ptrs = [x.data_ptr() for x in state]
+    ptrs += [None if x is None else x.data_ptr() for x in ops]
+    ptrs += [x.data_ptr() for x in new] + [x.data_ptr() for x in out]
+    lib = build.library()
+    build.check(lib.fluid_ticket_scan(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), b, t, k, int(require_join),
+        ctypes.c_void_p(build.stream_handle())), "scan_tickets")
+    scan_tickets.launches += 1
+    return new, out
+
+
+scan_tickets.launches = 0
 
 
 def ticket_ops_batched(state: TicketState, ops: RawOps

@@ -255,6 +255,28 @@ WORDS = ("the quick brown fox jumps over a lazy dog while typing "
          "structured paragraphs of filler prose for replay traces").split()
 
 
+def raw_ticket_trace(seed: int, b: int, t: int, n_clients: int,
+                     with_kind: bool) -> dict:
+    """Unsequenced messages for the deli ticketing ([B, T] int32 numpy
+    columns client, client_seq, ref_seq and, with_kind, kind): up to
+    n_clients clients per document (more than the table's slots overflow
+    it), increasing clientSeqs with ~15% repeats (duplicates), refSeqs
+    that lag or run stale, NOOP gaps (client -1), and (with_kind) JOIN,
+    LEAVE and SYSTEM messages beside the OPs."""
+    rng = np.random.default_rng(seed)
+    client = rng.integers(-1, n_clients, (b, t)).astype(np.int32)
+    step = (rng.random((b, t)) > 0.15).astype(np.int32)
+    client_seq = np.cumsum(step, axis=1).astype(np.int32)
+    lag = rng.integers(0, 6, (b, t))
+    ref_seq = np.maximum(np.arange(t)[None, :] - lag, 0).astype(np.int32)
+    out = {"client": client, "client_seq": client_seq, "ref_seq": ref_seq}
+    if with_kind:
+        kind = rng.choice(np.array([0, 1, 2, 3, 4], np.int32), (b, t),
+                          p=[0.05, 0.6, 0.2, 0.1, 0.05])
+        out["kind"] = kind.astype(np.int32)
+    return out
+
+
 def keystroke_trace(n_ops: int, seed: int = 0, n_clients: int = 1,
                     window: int = 128) -> List[Tuple[dict, int, int, int,
                                                      int]]:

@@ -1,8 +1,11 @@
 // A SIMT emulator that runs a CUDA C++ kernel source on the CPU, for the
 // conformance tests of the port's hand-written kernels
-// (tests/test_torch_fused_emu.py, tests/test_torch_scan_emu.py). It is not
-// a CUDA implementation: it provides only what fused_apply.cu and
-// scan_apply.cu use, and no timing means anything.
+// (tests/test_torch_fused_emu.py, tests/test_torch_scan_emu.py,
+// tests/test_torch_ticket_emu.py, tests/test_torch_summary_emu.py). It is
+// not a CUDA implementation: it provides only what fused_apply.cu,
+// scan_apply.cu, ticket_scan.cu and summary_len.cu use, and no timing
+// means anything. The device it reports has EMU_SMS multiprocessors, each
+// holding one block of any kernel.
 //
 // Every CUDA thread of a block is a ucontext coroutine; the blocks of one
 // thread-block cluster run together under one scheduler, each with its own
@@ -50,6 +53,27 @@ cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
+constexpr int EMU_SMS = 2;
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr attr, int) {
+  if (attr != cudaDevAttrMultiProcessorCount) return cudaErrorInvalidValue;
+  *v = EMU_SMS;
+  return cudaSuccess;
+}
+template <class T>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T, int,
+                                                          size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+
+struct int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+
 struct EmuDim { unsigned x, y, z; };
 struct dim3 {
   unsigned x, y, z;
@@ -85,6 +109,7 @@ struct EmuThread {
 inline EmuThread* emu_cur;
 inline ucontext_t emu_sched;
 inline EmuDim blockDim;  // every block of a launch has the same
+inline EmuDim gridDim;
 inline std::vector<EmuBlock> emu_blocks;  // the running cluster's blocks
 inline EmuGroup emu_cluster;              // all of their threads
 inline size_t emu_smem_bytes;
@@ -111,6 +136,7 @@ inline void emu_full(unsigned mask) {
 }
 
 template <class T> T __ldg(const T* p) { return *p; }
+template <class T> T __ldcg(const T* p) { return *p; }
 template <class T> T __shfl_sync(unsigned m, T v, int src) {
   emu_full(m);
   EmuGroup& g = emu_warp();
@@ -152,6 +178,20 @@ inline int __any_sync(unsigned m, int p) {
 }
 inline int __all_sync(unsigned m, int p) {
   return emu_reduce(m, p != 0, [](int a, int b) { return a & b; });
+}
+inline unsigned __ballot_sync(unsigned m, int p) {
+  emu_full(m);
+  EmuGroup& g = emu_warp();
+  g.vals[emu_lane()] = p != 0;
+  emu_barrier(g);
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i)
+    if (g.vals[i]) r |= 1u << i;
+  emu_barrier(g);
+  return r;
+}
+inline int __ffs(int x) {
+  return x == 0 ? 0 : __builtin_ctz(static_cast<unsigned>(x)) + 1;
 }
 inline void __syncwarp(unsigned m = 0xffffffffu) {
   emu_full(m);
@@ -219,6 +259,7 @@ void emu_run(K kern, int grid, int cluster, int threads, size_t smem, A a) {
   EmuCall<K, A>::args = &a;
   emu_smem_bytes = smem;
   blockDim = EmuDim{static_cast<unsigned>(threads), 1, 1};
+  gridDim = EmuDim{static_cast<unsigned>(grid), 1, 1};
   const int n = cluster * threads;
   std::vector<EmuThread> th(n);
   std::vector<int> order(n);

@@ -9,13 +9,12 @@ committed in fluidframework_tpu_torch/testing/golden/, then drives the two
 main paths through the kernels, checks each against its plain composition
 and times it with CUDA events:
   - the north-star step (10,000 docs x 100 ops, capacity 256, ticket table
-    K=8): phases 1-5. Phase 2 holds the summary-length kernel and its
-    first design (the yardstick summary_lengths_v1) bit-exact on aligned
-    and misaligned rows; phase 2b holds the ticket-scan kernel
+    K=8): phases 1-5. Phase 2 holds the summary-length kernel bit-exact on
+    aligned and misaligned rows; phase 2b holds the ticket-scan kernel
     (kernels/csrc/ticket_scan.cu) bit-exact against scan_tickets_plain
     on a grid of client slots, contracts, steps and batches, two windows
-    each; phase 5 times the ticket scan, and both summary-length designs
-    warm and cold;
+    each; phase 5 times the ticket scan, and the summary length warm and
+    cold;
   - the paged serving megakernel: the fused apply's runs= and extract=True
     variants (phase 6), the golden ring (phase 7), and two rings back to
     back of a 10,000-document partition (testing/serving.py FULL_RING:
@@ -87,6 +86,18 @@ paged store on the card, held to the same stores on the CPU and to each
 other, each launch checked against the scan rule, window applies and
 extractions timed, and every scan path timed at the stores' largest
 shapes.
+Phase 16 drives the sequencer lambda (server/tpu_sequencer.
+TpuSequencerLambda, testing/lambda_runs.py scenarios) on the card: the
+serving-ingest fleet at its full width (4,096 documents x 32 ops a wave)
+through handler_raw and the pipelined ring, bucketed and paged, timed
+(ops/s, flush p50, dispatches and kernel launches per window, the
+device's busy share) and held to the JAX golden and to the port's CPU
+twin in a child process; the ragged storm fleet, whose megakernel stream
+must be order-identical to the per-window stream at fewer than 0.25
+dispatches per window; and the mixed-family stream of 1,024 documents
+through handler and handler_raw with a restart from the checkpoint, its
+summaries and catch-up artifacts held to the JAX golden (the LWW apply
+timed per call).
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -95,6 +106,7 @@ before that line. Exits nonzero when CUDA is not available.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 import subprocess
@@ -190,6 +202,12 @@ LANE_ROW_SHAPES = 4
 # card's run (CPU threads each may use; seconds each may take).
 LANE_CPU_THREADS = 3
 LANE_CPU_TIMEOUT = 600
+# Phase 16, the sequencer lambda: the serving-ingest fleet's measured
+# waves (after testing/ingest.warm_waves; traced by the profiler for the
+# device's busy share), the extra wave after them, and the CPU twins.
+LAMBDA_MEASURED, LAMBDA_EXTRA = 3, 1
+LAMBDA_CPU_THREADS = 3
+LAMBDA_CPU_TIMEOUT = 900
 # An L2 flush: a buffer larger than the H100's 50 MB L2, written before
 # each cold-timed launch.
 L2_FLUSH_INTS = 64 << 20
@@ -204,7 +222,7 @@ SUMMARY_SHAPES = ((10_000, 256), (9_999, 256), (37, 64), (8, 1024),
 # documents are independent, so its first rows are the smaller batches'
 # reference), and the contracts (kind column, require_join).
 TICKET_SLOTS = (1, 3, 8, 32, 40)
-TICKET_STEPS = (0, 1, 31, 32, 33, 100, 256)
+TICKET_STEPS = (0, 1, 31, 32, 33, 100)
 TICKET_BATCHES = (1, 7, 10_000)
 TICKET_MODES = ((False, False), (False, True), (True, False), (True, True))
 # The ticket scan's operations for its bound, counted on this run's
@@ -508,7 +526,7 @@ def ptxas_report(text: str) -> dict:
 
 def kernel_ident(mangled: str) -> str:
     """The first length-prefixed identifier of a mangled name that holds
-    "kernel" (summary_len_v1_kernel out of _ZN..21summary_len_v1_kernel..),
+    "kernel" (summary_len_kernel out of _ZN..18summary_len_kernel..),
     else the name as it is."""
     i = 0
     while i < len(mangled):
@@ -769,11 +787,11 @@ def main(north_star_only: bool = False) -> int:
             f"reports {sorted(scan_kernels)}")
     mine = sorted(k for k in report if "ticket_scan" in k
                   or "summary_len" in k)
-    require(mine == ["summary_len_kernel", "summary_len_v1_kernel",
+    require(mine == ["summary_len_kernel",
                      "ticket_scan_kernel<1>", "ticket_scan_kernel<2>",
                      "ticket_scan_kernel<3>", "ticket_scan_kernel<4>"],
-            f"expected the summary-length kernels (new and v1) and 4 "
-            f"ticket-scan kernels, ptxas reports {mine}")
+            f"expected the summary-length kernel and 4 ticket-scan "
+            f"kernels, ptxas reports {mine}")
     checked = {*apply_kernels, *scan_kernels, *mine}
     spilled = sorted(k for k in checked  # refused after the timings
                      if any(report[k].get(key) for key in
@@ -797,15 +815,13 @@ def main(north_star_only: bool = False) -> int:
         st = random_tables(seed, b, c, dev)
         want = pallas_ops.summary_lengths_plain(st)
         for what, st_in in (("aligned", st), ("misaligned", misaligned(st))):
-            for fn in (pallas_ops.summary_lengths,
-                       pallas_ops.summary_lengths_v1):
-                got = fn(st_in)
-                torch.cuda.synchronize()
-                require(bool((got == want).all()),
-                        f"{fn.__name__} differs at B={b} C={c} ({what} "
-                        "rows)")
-        print(f"phase 2: summary_lengths and summary_lengths_v1 bit-exact "
-              f"at B={b} C={c}, aligned and misaligned rows", flush=True)
+            got = pallas_ops.summary_lengths(st_in)
+            torch.cuda.synchronize()
+            require(bool((got == want).all()),
+                    f"summary_lengths differs at B={b} C={c} ({what} "
+                    "rows)")
+        print(f"phase 2: summary_lengths bit-exact at B={b} C={c}, "
+              f"aligned and misaligned rows", flush=True)
 
     # -- phase 2b: ticket scan kernel vs plain ---------------------------
     ticket_phase(dev)
@@ -958,9 +974,6 @@ def main(north_star_only: bool = False) -> int:
     def summary_kernel():
         return pallas_ops.summary_lengths(mout)
 
-    def summary_v1():
-        return pallas_ops.summary_lengths_v1(mout)
-
     rows = [
         dict(name="ticket_scan", variant="no_kind", source="fluidframework_"
              "tpu_torch/kernels/csrc/ticket_scan.cu",
@@ -990,20 +1003,14 @@ def main(north_star_only: bool = False) -> int:
              "torch/kernels/csrc/summary_len.cu",
              replaces="fluidframework_tpu/mergetree/pallas_ops.py:58",
              on_main_path=True, launches=launches["summary_len"],
-             err=max_abs_err([summary_kernel(), summary_v1()],
-                             [pallas_ops.summary_lengths_plain(mout)] * 2),
+             err=max_abs_err([summary_kernel()],
+                             [pallas_ops.summary_lengths_plain(mout)]),
              ms=ms_of(summary_kernel, 50),
              cold_ms=cold_ms(summary_kernel, 20),
              cold_device_ms=cold_device_ms(summary_kernel, 20,
                                            "summary_len_kernel"),
              device_ms=one_kernel_ms(summary_kernel, 50,
                                      "summary_len_kernel"),
-             yardstick_v1=dict(
-                 ms=ms_of(summary_v1, 50), cold_ms=cold_ms(summary_v1, 20),
-                 cold_device_ms=cold_device_ms(summary_v1, 20,
-                                               "summary_len_v1_kernel"),
-                 device_ms=one_kernel_ms(summary_v1, 50,
-                                         "summary_len_v1_kernel")),
              plain_ms=ms_of(lambda: pallas_ops.summary_lengths_plain(mout),
                             10),
              library_ms=None, bytes=summary_bytes,
@@ -1037,18 +1044,16 @@ def main(north_star_only: bool = False) -> int:
     print_ticket_row(rows[0], card, "5")
     sl = rows[2]
     sl_bound = sl["bytes"] / PEAK_BYTES_PER_S * 1e3
-    for what, r in (("summary_len", sl),
-                    ("summary_len_v1 (yardstick)", sl["yardstick_v1"])):
-        share = (f"{sl_bound / r['cold_device_ms']:.1%}"
-                 if r["cold_device_ms"] else "not measured")
-        print(f"phase 5: {what} [{DOCS} x {CAPACITY}]: warm (the table "
-              f"L2-resident after the apply) {fmt_ms(r['device_ms'])} "
-              f"device, {r['ms']:.4f} ms back to back; cold (L2 flushed "
-              f"before each launch) {fmt_ms(r['cold_device_ms'])} device, "
-              f"{r['cold_ms']:.4f} ms by events around one launch (host "
-              f"launch latency included); bound {sl_bound:.5f} ms "
-              f"({summary_bytes} bytes over 3.35 TB/s): {share} of the "
-              f"bound cold (device); card {card}", flush=True)
+    share = (f"{sl_bound / sl['cold_device_ms']:.1%}"
+             if sl["cold_device_ms"] else "not measured")
+    print(f"phase 5: summary_len [{DOCS} x {CAPACITY}]: warm (the table "
+          f"L2-resident after the apply) {fmt_ms(sl['device_ms'])} "
+          f"device, {sl['ms']:.4f} ms back to back; cold (L2 flushed "
+          f"before each launch) {fmt_ms(sl['cold_device_ms'])} device, "
+          f"{sl['cold_ms']:.4f} ms by events around one launch (host "
+          f"launch latency included); bound {sl_bound:.5f} ms "
+          f"({summary_bytes} bytes over 3.35 TB/s): {share} of the "
+          f"bound cold (device); card {card}", flush=True)
     del tstate0, mstate0, mout, p_mout, tout, p_tout, ticketed, p_ticketed
     del admitted, p_plain
 
@@ -1065,6 +1070,7 @@ def main(north_star_only: bool = False) -> int:
         summarize_phase(dev, card, hot, catchup_entries)
         del hot
         rows += lane_store_phase(dev, card)
+        lambda_phase(dev, card)
 
     require(not spilled, f"kernels use stack or spill: {spilled}")
     out = []
@@ -1093,8 +1099,7 @@ def main(north_star_only: bool = False) -> int:
         row.update({key: r[key] for key in ("path", "paths", "shape",
                                             "device_ms_by", "sms",
                                             "blocks", "threads", "cold_ms",
-                                            "cold_device_ms",
-                                            "yardstick_v1")
+                                            "cold_device_ms")
                     if key in r})
         out.append(row)
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s, the "
@@ -3059,6 +3064,301 @@ def lane_store_phase(dev, card: str) -> list:
           flush=True)
     return rows
 
+
+def lambda_cpu_main(layout: str) -> int:
+    """Phase 16's CPU twin of one layout ("bucketed" or "paged") in a
+    process of its own: the serving-ingest fleet at its full width through
+    the port's lambda on device="cpu"; prints the scenario's digests as
+    one JSON line."""
+    from fluidframework_tpu_torch.testing import golden, lambda_runs
+    torch.set_num_threads(LAMBDA_CPU_THREADS)
+    t0 = time.perf_counter()
+    res = lambda_runs.serving_run(lambda_runs.port_package("cpu"),
+                                  *golden.LAMBDA_SERVING,
+                                  measured=LAMBDA_MEASURED,
+                                  extra=LAMBDA_EXTRA,
+                                  paged=layout == "paged")
+    res["seconds"] = time.perf_counter() - t0
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def lambda_counts():
+    """The lambda path's kernel counts: ticket scan, fused apply by
+    variant and path, scan apply by kernel."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.server import ticket_kernel as tk
+    got = {"ticket_scan": tk.scan_tickets.launches,
+           "fused_apply": pa.apply_ops_fused.launches,
+           "scan_apply": kernel.scan_apply.launches}
+    got.update({f"fused_apply[{v}]": n for v, n in
+                pa.apply_ops_fused.variant_launches.items() if n})
+    got.update({f"fused_apply<{p}>": n for p, n in
+                pa.apply_ops_fused.path_launches.items() if n})
+    got.update({f"scan_apply:{k}": n for k, n in
+                kernel.scan_apply.kernel_launches.items() if n})
+    return got
+
+
+def counts_since(before: dict) -> dict:
+    """The lambda path's launches since `before` (a lambda_counts())."""
+    return {k: n - before.get(k, 0) for k, n in lambda_counts().items()
+            if n != before.get(k, 0)}
+
+
+def reset_lambda_counts() -> None:
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.server import ticket_kernel as tk
+    tk.scan_tickets.launches = 0
+    pa.reset_launches()
+    kernel.reset_launches()
+
+
+SERVING_COUNTERS = ("serving.window_dispatches", "serving.bursts",
+                    "serving.burst_windows", "serving.recovery_dispatches",
+                    "serving.megakernel_rings")
+
+
+def lambda_serving(dev, card: str, layout: str, want: dict) -> dict:
+    """Phase 16 (a), one layout: the serving-ingest fleet at its full
+    width through handler_raw with emit_window and the pipelined ring.
+    The measured waves run with the counts at 0, timed by the host clock
+    (feed, flush, the final drain, synced) and traced by the profiler for
+    the device's busy share; the extra wave, in which the fleet's next
+    lane recovery lands, is timed alone. The digests must equal the JAX
+    golden's."""
+    from fluidframework_tpu_torch.telemetry import counters
+    from fluidframework_tpu_torch.testing import golden, lambda_runs
+    docs, ops = golden.LAMBDA_SERVING
+    facts = {}
+
+    def measure(lam, run):
+        before = {n: counters.get(n) for n in SERVING_COUNTERS}
+        launched = lambda_counts()
+        flush_ms = []
+
+        def timed():
+            t0 = time.perf_counter()
+            run(flush_ms)
+            lam.drain()
+            torch.cuda.synchronize()
+            facts["wall_s"] = time.perf_counter() - t0
+
+        facts["busy_ms"] = device_busy_ms(timed)
+        facts["counts"] = counts_since(launched)
+        facts["flush_ms"] = flush_ms
+        facts["counters"] = {n: counters.get(n) - before[n]
+                             for n in SERVING_COUNTERS}
+
+    def extra(lam, run):
+        launched = lambda_counts()
+        flush_ms = []
+        run(flush_ms)
+        lam.drain()
+        torch.cuda.synchronize()
+        facts["extra_flush_ms"] = flush_ms
+        facts["extra_counts"] = counts_since(launched)
+
+    t0 = time.perf_counter()
+    res = lambda_runs.serving_run(lambda_runs.port_package(dev), docs, ops,
+                                  measured=LAMBDA_MEASURED,
+                                  extra=LAMBDA_EXTRA,
+                                  paged=layout == "paged",
+                                  hooks={"measure": measure,
+                                         "extra": extra})
+    total_s = time.perf_counter() - t0
+    for key in want:
+        require(res[key] == want[key], f"phase 16 (a) {layout}: {key} "
+                f"{res[key]} differs from the JAX golden {want[key]}")
+    c = facts["counters"]
+    windows = c["serving.window_dispatches"] + c["serving.burst_windows"]
+    dispatches = c["serving.window_dispatches"] + c["serving.bursts"] \
+        + c["serving.recovery_dispatches"]
+    n_ops = LAMBDA_MEASURED * docs * ops
+    counts = facts["counts"]
+    require(counts.get("ticket_scan", 0) > 0
+            and counts.get("fused_apply", 0) > 0,
+            f"phase 16 (a) {layout}: the measured waves did not launch the "
+            f"ticket scan and the fused apply: {counts}")
+    busy = facts["busy_ms"]
+    busy_share = None if busy is None else busy / (facts["wall_s"] * 1e3)
+    per_window = {k: round(n / windows, 3) for k, n in counts.items()} \
+        if windows else {}
+    print(f"phase 16 (a) {layout}: {docs} documents x {ops} ops a wave, "
+          f"{LAMBDA_MEASURED} measured waves: {n_ops / facts['wall_s']:.0f} "
+          f"ops/s warm (host clock, feed + flush + drain), flush ms "
+          f"{[round(x, 2) for x in facts['flush_ms']]} (p50 "
+          f"{float(np.median(facts['flush_ms'])):.2f}); {windows:.0f} "
+          f"windows, {dispatches:.0f} dispatches ({dispatches / windows:.3f} "
+          f"a window; counters {c}); kernel launches {counts}, per window "
+          f"{per_window}; device busy {fmt_ms(busy)} of the measured "
+          f"waves' {facts['wall_s'] * 1e3:.1f} ms (busy share "
+          f"{'not measured' if busy_share is None else f'{busy_share:.1%}'}"
+          f"; the profiler traced the measured waves); the extra wave's "
+          f"flush (a lane recovery lands in it) "
+          f"{facts['extra_flush_ms'][0]:.1f} ms, its kernel launches "
+          f"{facts['extra_counts']}; the emitted stream "
+          f"({res['stream']['admitted']} messages) "
+          f"and the texts ({res['texts']['chars']} chars) equal the JAX "
+          f"golden; {total_s:.1f} s in all; card {card}", flush=True)
+    return res
+
+
+def lambda_phase(dev, card: str) -> None:
+    """Phase 16, the sequencer lambda (server/tpu_sequencer.
+    TpuSequencerLambda) on the card, client_timeout_s=0.0, through the
+    scenarios of testing/lambda_runs.py. The kernel counts are set to 0
+    at the start; the lambda must launch the ticket scan, the fused apply
+    and the scan apply.
+    (a) The serving-ingest fleet at its full width (testing/golden.
+    LAMBDA_SERVING: 4,096 documents, 32 ops a document a wave, each boxcar
+    on one refSeq, ingest.warm_waves warm waves, LAMBDA_MEASURED measured
+    and profiled, LAMBDA_EXTRA more), bucketed and paged: warm ops/s, flush p50,
+    dispatches and kernel launches per window, the device's busy share;
+    the emitted stream and the texts held to the JAX golden and to the
+    port's CPU twin (a child process per layout, started first).
+    (b) The ragged storm fleet on paged lanes: the megakernel stream
+    order-identical to the per-window (sync) stream, fewer than 0.25
+    dispatches per served window, both equal to the JAX golden.
+    (c) The mixed-family stream (LAMBDA_MIXED: 1,024 documents), half
+    through handler, a restart from the checkpoint and the delta store,
+    half through handler_raw; summaries and catch-up artifacts; equal to
+    the JAX golden. The LWW apply (plain PyTorch) is timed per call with
+    CUDA events: its stage time, calls and bytes."""
+    from fluidframework_tpu_torch.server import lww_kernel
+    from fluidframework_tpu_torch.server import tpu_sequencer as seq
+    from fluidframework_tpu_torch.testing import golden, lambda_runs
+
+    t_phase = time.perf_counter()
+    g = golden.load_lambda()
+    # The CPU twins (LAMBDA_CPU_THREADS threads each) run beside the
+    # card's run, as phase 15's do: the host's other cores are theirs.
+    twins = {layout: subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+         "lambda_cpu_main(sys.argv[1]))", layout],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+        for layout in ("bucketed", "paged")}
+    try:
+        reset_lambda_counts()
+        # Each part's launches, counted from where the last part ended.
+        parts = {}
+        card_res = {}
+        for layout in ("bucketed", "paged"):
+            launched = lambda_counts()
+            card_res[layout] = lambda_serving(dev, card, layout,
+                                              g["serving"][layout])
+            parts[f"(a) {layout}"] = counts_since(launched)
+
+        # -- (b) the ragged storm fleet -------------------------------------
+        pkg = lambda_runs.port_package(dev)
+        storm = {}
+        for mode in ("sync", "mega"):
+            launched = lambda_counts()
+            storm[mode] = lambda_runs.storm_run(pkg, mode)
+            parts[f"(b) {mode}"] = counts_since(launched)
+        require(storm["mega"]["stream"] == storm["sync"]["stream"],
+                "phase 16 (b): the megakernel stream differs from the "
+                "per-window stream")
+        per_window = storm["mega"]["dispatches_per_window"]
+        require(per_window is not None and per_window < 0.25,
+                f"phase 16 (b): {per_window} dispatches per served window")
+        require(storm == g["storm"], f"phase 16 (b): the storm fleet "
+                f"differs from the JAX golden: {storm} vs {g['storm']}")
+        print(f"phase 16 (b): the storm fleet's megakernel stream "
+              f"({storm['mega']['messages']} messages) is order-identical "
+              f"to the per-window stream, {per_window:.4f} dispatches per "
+              f"served window ({storm['mega']['rings']} rings, "
+              f"{storm['mega']['served_windows']} windows); both equal the "
+              f"JAX golden; card {card}", flush=True)
+
+        # -- (c) the mixed-family stream, the LWW apply timed --------------
+        apply_lww = lww_kernel.apply_lww_batched
+        lww_calls = []
+
+        def timed_lww(state, ops):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = apply_lww(state, ops)
+            e1.record()
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in (*state, *ops, *out))
+            lww_calls.append((e0, e1, nbytes, tuple(ops.kind.shape)))
+            return out
+
+        lww_kernel.apply_lww_batched = timed_lww
+        # The stream's undecodable frames are counted (mixed["poison"]);
+        # their one warning each stays off the output.
+        log = logging.getLogger(seq.__name__)
+        level = log.level
+        log.setLevel(logging.ERROR)
+        t0 = time.perf_counter()
+        launched = lambda_counts()
+        try:
+            mixed = lambda_runs.mixed_run(pkg, *golden.LAMBDA_MIXED)
+            torch.cuda.synchronize()
+        finally:
+            lww_kernel.apply_lww_batched = apply_lww
+            log.setLevel(level)
+        parts["(c)"] = counts_since(launched)
+        mixed_s = time.perf_counter() - t0
+        for key in g["mixed"]:
+            require(mixed[key] == g["mixed"][key], f"phase 16 (c): {key} "
+                    f"{mixed[key]} differs from the JAX golden "
+                    f"{g['mixed'][key]}")
+        lww_ms = sum(a.elapsed_time(b) for a, b, _n, _s in lww_calls)
+        lww_bytes = sum(n for _a, _b, n, _s in lww_calls)
+        print(f"phase 16 (c): the mixed stream ({mixed['docs']} documents, "
+              f"{mixed['messages']} messages, {mixed['nacks']} nacks, "
+              f"{mixed['poison']} poison frames, {mixed['promoted']} lanes "
+              f"promoted, a restart restoring {mixed['restored_docs']} "
+              f"documents, {mixed['catchup_docs']} catch-up artifacts) "
+              f"equals the JAX golden: stream, nacks, views, summaries, "
+              f"catch-up; {mixed_s:.1f} s; card {card}", flush=True)
+        shapes = sorted({s for _a, _b, _n, s in lww_calls})
+        print(f"phase 16 LWW apply (lww_kernel.apply_lww_batched, plain "
+              f"PyTorch): {len(lww_calls)} calls, {lww_ms:.3f} ms by CUDA "
+              f"events in all ({lww_ms / max(1, len(lww_calls)):.4f} ms a "
+              f"call), {lww_bytes} bytes read and written: bound "
+              f"{lww_bytes / PEAK_BYTES_PER_S * 1e3:.5f} ms at 3.35 TB/s; "
+              f"op shapes [B, T] {shapes[:8]}; card {card}", flush=True)
+        counts = lambda_counts()
+        require(counts["ticket_scan"] > 0 and counts["fused_apply"] > 0
+                and counts["scan_apply"] > 0, f"phase 16: the lambda did "
+                f"not launch every kernel of its path: {counts}")
+        summed = {k: sum(p.get(k, 0) for p in parts.values())
+                  for k in counts}
+        require(summed == counts, f"phase 16: the parts' launches {parts} "
+                f"do not add up to the phase's {counts}")
+        for name, part in parts.items():
+            print(f"phase 16 {name}: kernel launches {part}", flush=True)
+        print(f"phase 16: the lambda's kernel launches, all parts (counts "
+              f"from 0 at the phase's start) {counts}", flush=True)
+
+        # -- (a) the CPU twin -------------------------------------------------
+        t0 = time.perf_counter()
+        for layout, proc in twins.items():
+            text, _ = proc.communicate(timeout=LAMBDA_CPU_TIMEOUT)
+            require(proc.returncode == 0, f"phase 16: the {layout} CPU twin "
+                    f"exited {proc.returncode}")
+            twin = json.loads(text.strip().splitlines()[-1])
+            for key in card_res[layout]:
+                require(twin[key] == card_res[layout][key],
+                        f"phase 16 (a) {layout}: {key} differs between the "
+                        f"card and the CPU twin")
+            print(f"phase 16 (a) {layout}: the card equals the CPU twin "
+                  f"({twin['seconds']:.1f} s in its process; waited "
+                  f"{time.perf_counter() - t0:.1f} s after the card)",
+                  flush=True)
+    finally:
+        for proc in twins.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 if __name__ == "__main__":
     try:

@@ -132,8 +132,6 @@ def library() -> ctypes.CDLL:
         lib.fluid_summary_len.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32,
                                           vp]
         lib.fluid_summary_len.restype = i32
-        lib.fluid_summary_len_v1.argtypes = lib.fluid_summary_len.argtypes
-        lib.fluid_summary_len_v1.restype = i32
         # ptrs, batch, steps, slots, require_join, stream
         lib.fluid_ticket_scan.argtypes = [ctypes.POINTER(vp), i32, i32, i32,
                                           i32, vp]

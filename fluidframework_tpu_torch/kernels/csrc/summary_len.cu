@@ -29,11 +29,7 @@
 // lane per plane in flight. Integer sums are order-free, so the result is
 // bit-exact against any other order of summation, including the JAX one.
 // Nothing is written but the [B] totals.
-//
-// summary_len_v1_kernel is the first design (one warp per document, a
-// 4-byte load per lane per plane at a time, the loads of rem_seq and
-// length behind the && chain), kept as the yardstick the card times the
-// new design against; nothing else launches it.
+
 
 #include <cuda_runtime.h>
 
@@ -125,23 +121,6 @@ __global__ void __launch_bounds__(kThreads) summary_len_kernel(
   }
 }
 
-__global__ void summary_len_v1_kernel(SummaryArgs a) {
-  const int doc = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (doc >= a.batch) return;  // uniform per warp
-  const long long row = static_cast<long long>(doc) * a.capacity;
-  const int cnt = a.count[doc];
-  const int s = a.seq[doc];
-  unsigned acc = 0;
-  for (int c = lane; c < a.capacity; c += 32) {
-    const bool vis = c < cnt && a.ins_seq[row + c] <= s &&
-                     !(a.rem_seq[row + c] <= s);
-    if (vis) acc += static_cast<unsigned>(a.length[row + c]);
-  }
-  acc = __reduce_add_sync(kFull, acc);
-  if (lane == 0) a.out[doc] = static_cast<int>(acc);
-}
-
 // Blocks of summary_len_kernel that one wave of the card holds (its SMs
 // times the blocks an SM keeps resident), asked once per process: the
 // process's card is the first one it launches on.
@@ -198,21 +177,6 @@ extern "C" int fluid_summary_len(const void* length, const void* ins_seq,
     const int grid = needed < wave ? needed : wave;
     summary_len_kernel<<<grid, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int fluid_summary_len_v1(const void* length, const void* ins_seq,
-                                    const void* rem_seq, const void* count,
-                                    const void* seq, void* out, int batch,
-                                    int capacity, void* stream) {
-  const SummaryArgs a = args_of(length, ins_seq, rem_seq, count, seq, out,
-                                batch, capacity);
-  const int docs_per_block = kThreads / 32;
-  const int blocks = (batch + docs_per_block - 1) / docs_per_block;
-  if (batch > 0) {
-    summary_len_v1_kernel<<<blocks, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,9 +4,7 @@ Counterpart of fluidframework_tpu's mergetree/pallas_ops.py. At the acked
 perspective (ref_seq = state.seq) only (ins_seq, rem_seq, count) decide
 visibility, so the pass reads three [B, C] planes once and writes [B].
 `summary_lengths` runs the CUDA kernel (kernels/csrc/summary_len.cu) for
-CUDA tensors and `summary_lengths_plain` for CPU tensors;
-`summary_lengths_v1` launches the kernel's first design, the yardstick
-the card times it against.
+CUDA tensors and `summary_lengths_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -53,13 +51,6 @@ def summary_lengths(state: DocState) -> torch.Tensor:
     out = _launch(state, "fluid_summary_len", "summary_lengths")
     summary_lengths.launches += 1
     return out
-
-
-def summary_lengths_v1(state: DocState) -> torch.Tensor:
-    """The kernel's first design (summary_len_v1_kernel), kept as the
-    yardstick the card times summary_lengths against; CUDA tensors
-    only."""
-    return _launch(state, "fluid_summary_len_v1", "summary_lengths_v1")
 
 
 summary_lengths.launches = 0

@@ -1,0 +1,7 @@
+"""Native (C++) host components, built with g++ at first use and bound
+with ctypes: the wire pump (src/wirepump.cpp), which parses raw boxcar
+bytes into the sequencer's int32 staging columns."""
+
+from .build import NativeBuildError, ensure_built, sources
+
+__all__ = ["NativeBuildError", "ensure_built", "sources"]

@@ -48,9 +48,19 @@ compacts pages and passes a dirty epoch:
 and in the .json, per store, testing/lanes.store_results (placements,
 texts, entries, recovery counts; LWW snapshots), which hot documents
 seeded, both extract_all results and the blob-cache hits.
+golden/lambda_golden.json (LAMBDA_GOLDEN_PATH) holds the JAX package's
+sequencer lambda (server/tpu_sequencer.TpuSequencerLambda) through the
+scenarios of testing/lambda_runs.py, as their digests:
+  serving/<bucketed|paged>       serving_run at LAMBDA_SERVING (the
+                                 serving-ingest fleet at its full width)
+                                 and at LAMBDA_SERVING_SMALL;
+  storm/<sync|mega>              storm_run of the ragged storm fleet;
+  mixed, mixed_small            mixed_run at LAMBDA_MIXED and at
+                                 LAMBDA_MIXED_SMALL.
 tests/test_torch_golden.py regenerates the files from the JAX package and
-requires equality, so the values cannot drift; chip_smoke.py holds the CUDA
-kernels against them on a machine without JAX.
+requires equality, so the values cannot drift (the lambda golden through
+tests/test_torch_lambda_golden.py); chip_smoke.py holds the CUDA kernels
+and the lambda against them on a machine without JAX.
 """
 
 from __future__ import annotations
@@ -79,6 +89,12 @@ EXTRACT_SEEDS = (700, 701, 702, 703)
 EXTRACT_GAP_SEED, EXTRACT_SEQ_GAP = 716, 40_000
 EXTRACT_DOCS = (0, 5)
 CATCHUP_BLOB_BASE = 3000
+LAMBDA_GOLDEN_PATH = GOLDEN_PATH.with_name("lambda_golden.json")
+# (documents, ops a document a wave) of the lambda golden's scenarios.
+LAMBDA_SERVING = (4_096, 32)
+LAMBDA_SERVING_SMALL = (512, 16)
+LAMBDA_MIXED = (1_024, 6)          # documents, waves
+LAMBDA_MIXED_SMALL = (160, 6)
 LANES_GOLDEN_PATH = GOLDEN_PATH.with_name("lane_store_golden.npz")
 LANES_JSON_PATH = GOLDEN_PATH.with_name("lane_store_golden.json")
 # The fields of a packed extraction (kernel.extract_visible_batched).
@@ -233,4 +249,15 @@ def save_lanes(sections: Dict[str, Dict[str, np.ndarray]],
     save(sections, LANES_GOLDEN_PATH)
     with open(LANES_JSON_PATH, "w") as f:
         json.dump(doc, f, sort_keys=True, separators=(",", ":"))
+        f.write("\n")
+
+
+def load_lambda(path: Path = LAMBDA_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def save_lambda(doc: dict, path: Path = LAMBDA_GOLDEN_PATH) -> None:
+    with open(path, "w") as f:
+        json.dump(doc, f, sort_keys=True, indent=1)
         f.write("\n")

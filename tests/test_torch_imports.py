@@ -172,3 +172,36 @@ def test_slice_eight_lane_stores_raise_without_cuda(monkeypatch):
                  "_child_path", "_norm_path", "_flatten_directory",
                  "_nest_directory", "matrix_route", "looks_like_lww_op"):
         assert callable(getattr(tpu_sequencer, name)), name
+
+
+SLICE_TEN_MODULES = (
+    "fluidframework_tpu_torch.native",
+    "fluidframework_tpu_torch.native.build",
+    "fluidframework_tpu_torch.server.pump",
+    "fluidframework_tpu_torch.server.database",
+    "fluidframework_tpu_torch.server.lambdas.scriptorium",
+    "fluidframework_tpu_torch.testing.ingest",
+)
+
+
+def test_slice_ten_lambda_is_covered_and_defaults_to_the_card(monkeypatch):
+    """The lambda's modules are walked by the checks above; the lambda
+    itself defaults to the card and raises without CUDA."""
+    assert set(SLICE_TEN_MODULES) <= set(_port_modules())
+    from fluidframework_tpu_torch.server import tpu_sequencer
+
+    class Ctx:
+        def checkpoint(self, *_):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tpu_sequencer.TpuSequencerLambda(Ctx(), emit=print, nack=print)
+    lam = tpu_sequencer.TpuSequencerLambda(Ctx(), emit=print, nack=print,
+                                           device="cpu")
+    assert lam.tstate.next_seq.device.type == "cpu"
+    assert lam.merge.device.type == lam.lww.device.type == "cpu"
+    with pytest.raises(ValueError, match="merge_store lives on"):
+        tpu_sequencer.TpuSequencerLambda(
+            Ctx(), emit=print, nack=print, device="meta",
+            merge_store=tpu_sequencer.MergeLaneStore(device="cpu"))

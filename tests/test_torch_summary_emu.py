@@ -1,8 +1,7 @@
 """The CUDA source of the summary length (fluidframework_tpu_torch/kernels/
 csrc/summary_len.cu) run on the CPU against the JAX package's Pallas
-kernel in interpret mode, bit for bit: both designs (summary_len_kernel,
-with its 16-byte and scalar loops, and the yardstick summary_len_v1_kernel)
-at C = 1, 3, 4, 33 and 256, on 16-byte-aligned rows and on rows one int32
+kernel in interpret mode, bit for bit: summary_len_kernel, with its
+16-byte and scalar loops, at C = 1, 3, 4, 33 and 256, on 16-byte-aligned rows and on rows one int32
 off (the scalar loop), with more documents than the emulated card's
 persistent grid has warps (each warp walks several documents).
 
@@ -36,7 +35,7 @@ SOURCE = Path(__file__).resolve().parents[1] / "fluidframework_tpu_torch" / \
     "kernels" / "csrc" / "summary_len.cu"
 EMU_DIR = Path(__file__).resolve().parent / "simt"
 PLANES = ("length", "ins_seq", "rem_seq", "count", "seq")
-ENTRIES = ("fluid_summary_len", "fluid_summary_len_v1")
+ENTRIES = ("fluid_summary_len",)
 
 
 def summary_emu_source(text: str) -> str:
@@ -48,7 +47,7 @@ def summary_emu_source(text: str) -> str:
         return f"emu_launch({m[1]}, {grid}, {threads}, {smem}, {m[3]});"
     text, n = re.subn(r"(\w+)<<<(.*?)>>>\((\w+)\);", launch, text,
                       flags=re.S)
-    assert n == 2, n
+    assert n == 1, n
     return text
 
 
@@ -127,11 +126,11 @@ def test_emulated_kernels_after_apply_match_jax(emu_lib):
 
 def test_cpu_tensors_take_the_plain_version():
     """summary_lengths on CPU tensors runs the plain version and counts
-    no launch; the yardstick and the launch path refuse CPU tensors."""
+    no launch; the launch path refuses CPU tensors."""
     st = interop.doc_state_from_numpy(random_state(5, 9, 33), "cpu")
     pallas_ops.summary_lengths.launches = 0
     got = pallas_ops.summary_lengths(st)
     assert torch.equal(got, pallas_ops.summary_lengths_plain(st))
     assert pallas_ops.summary_lengths.launches == 0
     with pytest.raises(ValueError, match="CUDA"):
-        pallas_ops.summary_lengths_v1(st)
+        pallas_ops._launch(st, "fluid_summary_len", "summary_lengths")

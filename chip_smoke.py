@@ -98,6 +98,16 @@ dispatches per window; and the mixed-family stream of 1,024 documents
 through handler and handler_raw with a restart from the checkpoint, its
 summaries and catch-up artifacts held to the JAX golden (the LWW apply
 timed per call).
+Phase 17 drives the local server (server/local_server.TpuLocalServer over
+the sequencer lambda, with the scriptorium, scribe, broadcaster and
+copier, 2 ingest partitions and 2 broadcaster shards) through
+testing/server_runs.py on the card, bucketed and paged: connect, submit,
+pump, summaries acked by the scribe, a restart of the ingest tier,
+refresh_catchup / get_catchup and write_materialized_snapshots; timed
+(ops/s, pump p50 and p99, the wall split by lambda, the device's busy
+share, the tail) and held to the JAX golden and to the port's CPU twin in
+a child process, with no admission nack; each kernel it launched is held
+against its plain version at the inputs of its largest launch.
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -206,6 +216,9 @@ LANE_CPU_TIMEOUT = 600
 # waves (after testing/ingest.warm_waves; traced by the profiler for the
 # device's busy share), the extra wave after them, and the CPU twins.
 LAMBDA_MEASURED, LAMBDA_EXTRA = 3, 1
+# Phase 17: the CPU twin's threads and time limit per layout.
+SERVER_CPU_THREADS = 2
+SERVER_CPU_TIMEOUT = 900
 LAMBDA_CPU_THREADS = 3
 LAMBDA_CPU_TIMEOUT = 900
 # An L2 flush: a buffer larger than the H100's 50 MB L2, written before
@@ -1071,6 +1084,7 @@ def main(north_star_only: bool = False) -> int:
         del hot
         rows += lane_store_phase(dev, card)
         lambda_phase(dev, card)
+        rows += server_phase(dev, card)
 
     require(not spilled, f"kernels use stack or spill: {spilled}")
     out = []
@@ -3265,14 +3279,28 @@ def lambda_phase(dev, card: str) -> None:
         per_window = storm["mega"]["dispatches_per_window"]
         require(per_window is not None and per_window < 0.25,
                 f"phase 16 (b): {per_window} dispatches per served window")
-        require(storm == g["storm"], f"phase 16 (b): the storm fleet "
-                f"differs from the JAX golden: {storm} vs {g['storm']}")
+        # The JAX megakernel, which made the golden, loses the storm
+        # document's text (its chunks dispatch back to back on stale page
+        # scalars); the port drains between chunks, so its megakernel
+        # texts are held to the sync texts, which JAX has right.
+        require(storm["sync"] == g["storm"]["sync"], f"phase 16 (b): the "
+                f"sync run differs from the JAX golden: {storm['sync']} vs "
+                f"{g['storm']['sync']}")
+        for key in ("messages", "stream", "rings", "served_windows"):
+            require(storm["mega"][key] == g["storm"]["mega"][key],
+                    f"phase 16 (b): the megakernel run's {key} differs "
+                    f"from the JAX golden: {storm['mega'][key]} vs "
+                    f"{g['storm']['mega'][key]}")
+        require(storm["mega"]["texts"] == storm["sync"]["texts"],
+                "phase 16 (b): the megakernel texts differ from the "
+                "per-window texts")
         print(f"phase 16 (b): the storm fleet's megakernel stream "
               f"({storm['mega']['messages']} messages) is order-identical "
               f"to the per-window stream, {per_window:.4f} dispatches per "
               f"served window ({storm['mega']['rings']} rings, "
-              f"{storm['mega']['served_windows']} windows); both equal the "
-              f"JAX golden; card {card}", flush=True)
+              f"{storm['mega']['served_windows']} windows), its texts equal "
+              f"the per-window texts; the streams equal the JAX golden; "
+              f"card {card}", flush=True)
 
         # -- (c) the mixed-family stream, the LWW apply timed --------------
         apply_lww = lww_kernel.apply_lww_batched
@@ -3359,6 +3387,374 @@ def lambda_phase(dev, card: str) -> None:
                 proc.kill()
                 proc.wait()
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def server_cpu_main(layout: str) -> int:
+    """Phase 17's CPU twin of one layout ("bucketed" or "paged") in a
+    process of its own: testing/server_runs.py at golden.SERVER_CARD
+    through the port's TpuLocalServer(device="cpu"); prints the scenario's
+    digests as one JSON line."""
+    from fluidframework_tpu_torch.testing import golden, server_runs
+    torch.set_num_threads(SERVER_CPU_THREADS)
+    t0 = time.perf_counter()
+    res = server_runs.run(server_runs.port_package("cpu"),
+                          server_runs.Spec(**golden.SERVER_CARD),
+                          **server_runs.VARIANTS[layout])
+    res["seconds"] = time.perf_counter() - t0
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def _clone(x):
+    """A deep copy of a launch's arguments (tensors cloned)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_clone(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+def capture_largest_launches():
+    """Wrap the launch paths of the ticket scan, the fused apply and the
+    scan apply so that, per (kernel, variant), the launch with the most
+    work (documents x steps, x capacity for an apply) keeps a copy of its
+    inputs. Returns (captured, restore)."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.server import ticket_kernel as tk
+    captured, sizes = {}, {}
+    saved = (tk._launch, pa._launch, kernel._launch)
+
+    def keep(key, size, args):
+        if size > sizes.get(key, -1):
+            sizes[key] = size
+            captured[key] = _clone(args)
+
+    def ticket(state, ops, require_join):
+        keep(("ticket_scan", "kind_require_join" if require_join
+              else "plain"), ops.client.numel(), (state, ops, require_join))
+        return saved[0](state, ops, require_join)
+
+    def fused(state, ops, runs, extract, geo):
+        keep(("fused_apply", pa.variant_name(runs, extract)),
+             state.length.numel() * ops.steps, (state, ops, runs, extract))
+        return saved[1](state, ops, runs, extract, geo)
+
+    def scan(state, ops, runs, geo):
+        keep(("scan_apply", "runs" if runs is not None else "plain"),
+             state.length.numel() * ops.steps, (state, ops, runs))
+        return saved[2](state, ops, runs, geo)
+
+    tk._launch, pa._launch, kernel._launch = ticket, fused, scan
+
+    def restore():
+        tk._launch, pa._launch, kernel._launch = saved
+    return captured, restore
+
+
+SERVER_STAGES = (("sequencer", "server.tpu_sequencer", "TpuSequencerLambda",
+                  ("handler", "flush")),
+                 ("scriptorium", "server.lambdas.scriptorium",
+                  "ScriptoriumLambda", ("handler",)),
+                 ("scribe", "server.lambdas.scribe", "ScribeLambda",
+                  ("handler",)),
+                 ("broadcaster", "server.lambdas.broadcaster",
+                  "BroadcasterLambda", ("handler",)),
+                 ("copier", "server.lambdas.copier", "CopierLambda",
+                  ("handler",)))
+
+
+def time_stages(stage_s: dict):
+    """Time each lambda's handler (and the sequencer's flush) by the host
+    clock into stage_s[stage] (seconds, summed). Returns restore."""
+    import importlib
+    saved = []
+    for stage, mod, cls_name, methods in SERVER_STAGES:
+        cls = getattr(importlib.import_module(
+            f"fluidframework_tpu_torch.{mod}"), cls_name)
+        for m in methods:
+            orig = cls.__dict__[m]
+
+            def timed(self, *a, _orig=orig, _stage=stage, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(self, *a, **k)
+                finally:
+                    stage_s[_stage] += time.perf_counter() - t0
+            setattr(cls, m, timed)
+            saved.append((cls, m, orig))
+
+    def restore():
+        for cls, m, orig in saved:
+            setattr(cls, m, orig)
+    return restore
+
+
+def server_layout(dev, card: str, layout: str, want: dict) -> dict:
+    """Phase 17, one layout: the scenario on TpuLocalServer(device=dev).
+    The measured waves are timed per wave (submit, pump, the broadcaster's
+    drain) and in all (synced), split by lambda, and traced by the
+    profiler for the device's busy share; the tail (refresh_catchup,
+    get_catchup, the full and the incremental materialized write) is
+    timed call by call. Every digest must equal the JAX golden's."""
+    from collections import defaultdict
+
+    from fluidframework_tpu_torch.testing import golden, server_runs
+    facts = {}
+
+    def measured(server, run_waves):
+        waves = []
+        stage_s = defaultdict(float)
+        restore = time_stages(stage_s)
+
+        def timed():
+            t0 = time.perf_counter()
+            facts["ops"] = run_waves(lambda *w: waves.append(w))
+            torch.cuda.synchronize()
+            facts["wall_s"] = time.perf_counter() - t0
+
+        try:
+            facts["busy_ms"] = device_busy_ms(timed)
+        finally:
+            restore()
+        facts["waves"] = waves
+        facts["stage_s"] = dict(stage_s)
+        return facts["ops"]
+
+    tails = {}
+
+    def tail(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        tails[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    t0 = time.perf_counter()
+    res = server_runs.run(server_runs.port_package(dev),
+                          server_runs.Spec(**golden.SERVER_CARD),
+                          hooks={"measured": measured, "tail": tail},
+                          **server_runs.VARIANTS[layout])
+    total_s = time.perf_counter() - t0
+    for key in want:
+        require(res[key] == want[key], f"phase 17 {layout}: {key} "
+                f"{res[key]} differs from the JAX golden {want[key]}")
+    require(res["admission_nacks"] == 0 and res["shed"] == 0,
+            f"phase 17 {layout}: {res['admission_nacks']} admission nacks, "
+            f"{res['shed']} fan-outs shed")
+    pumps = sorted(w[3] * 1e3 for w in facts["waves"])
+    wall_ms = facts["wall_s"] * 1e3
+    split = {k: round(v * 1e3, 1) for k, v in facts["stage_s"].items()}
+    split["drain"] = round(sum(w[4] for w in facts["waves"]) * 1e3, 1)
+    split["submit"] = round(sum(w[2] for w in facts["waves"]) * 1e3, 1)
+    busy = facts["busy_ms"]
+    share = "not measured" if busy is None else f"{busy / wall_ms:.2%}"
+    print(f"phase 17 {layout}: {res['docs']} documents, "
+          f"{len(facts['waves'])} measured waves of "
+          f"{facts['ops'] // len(facts['waves'])} ops: "
+          f"{facts['ops'] / facts['wall_s']:.0f} ops/s (host clock, the "
+          f"first submit to the last pump and drain, synced); pump ms "
+          f"{[round(p, 1) for p in pumps]} (p50 "
+          f"{float(np.percentile(pumps, 50)):.1f}, p99 "
+          f"{float(np.percentile(pumps, 99)):.1f}); wall split ms {split} "
+          f"of {wall_ms:.1f}; device busy {fmt_ms(busy)} ({share} of the "
+          f"measured waves, profiler); tail ms "
+          f"{ {k: round(v, 1) for k, v in tails.items()} }; "
+          f"{res['reader_messages']} messages to {res['readers']} readers, "
+          f"{res['summaries_acked']} summaries acked, "
+          f"{res['catchup_docs']} catch-up artifacts, "
+          f"{res['materialized_docs']} materialized documents, "
+          f"{res['promoted']} lanes promoted, no admission nack and no "
+          f"fan-out shed; every "
+          f"digest equals the JAX golden; {total_s:.1f} s in all; card "
+          f"{card}", flush=True)
+    return res
+
+
+def server_rows(captured: dict, counts: dict, card: str) -> list:
+    """The kernel rows of phase 17: each kernel it launched, held against
+    its plain version at the inputs of its largest launch in the phase,
+    with the phase's launches of that kernel and variant."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.server import ticket_kernel as tk
+    rows = []
+    for (name, variant), args in sorted(captured.items()):
+        if name == "ticket_scan":
+            state, ops, join = args
+            b, k = state.client_ids.shape
+            t = ops.client.shape[-1]
+
+            def run(state=state, ops=ops, join=join):
+                return tk.scan_tickets(state, ops, require_join=join)
+
+            def plain(state=state, ops=ops, join=join):
+                return tk.scan_tickets_plain(state, ops, join)
+
+            want = plain()
+            got = run()
+            r = dict(name=name, variant=variant, launches=counts.get(
+                "ticket_scan", 0), err=max_abs_err(got[0] + got[1],
+                                                   want[0] + want[1]),
+                source="fluidframework_tpu_torch/kernels/csrc/"
+                       "ticket_scan.cu",
+                replaces="fluidframework_tpu/server/ticket_kernel.py:192",
+                shape=f"{b} x T {t} x K {k}",
+                bytes=ticket_scan_bytes(b, t, k, ops.kind is not None),
+                ops=ticket_scan_ops(ops, want[1], want[0].overflow, k),
+                device_ms=one_kernel_ms(run, 20, "ticket_scan_kernel"))
+        elif name == "fused_apply":
+            state, ops, runs, extract = args
+            b, c = state.length.shape
+            k, a = state.overlap_slots, state.anno_slots
+
+            def run(state=state, ops=ops, runs=runs, extract=extract):
+                return pa.apply_ops_fused(state, ops, runs=runs,
+                                          extract=extract)
+
+            def plain(state=state, ops=ops, runs=runs, extract=extract):
+                return pa.apply_ops_fused_plain(state, ops, runs, extract)
+
+            got, want = run(), plain()
+            if not extract:
+                got, want = (got, ()), (want, ())
+            r = dict(name=f"fused_apply_{variant}" if variant != "plain"
+                     else name, variant=variant,
+                     launches=counts.get(f"fused_apply[{variant}]", 0),
+                     err=max_abs_err(got[0] + tuple(got[1]),
+                                     want[0] + tuple(want[1])),
+                     source="fluidframework_tpu_torch/kernels/csrc/"
+                            "fused_apply.cu",
+                     replaces="fluidframework_tpu/mergetree/"
+                              "pallas_apply.py:462",
+                     shape=f"{b} x C={c} x T {ops.steps}",
+                     path=pa.launch_geometry(b, c, k, a).path,
+                     bytes=fused_apply_bytes(b, c, ops.steps, k, a,
+                                             runs is not None, extract),
+                     ops=fused_apply_lane_ops(
+                         ops.kind.cpu().numpy(),
+                         live_slots(state, ops, runs), k, a),
+                     device_ms=one_kernel_ms(run, 20, "fused_apply_kernel"))
+        else:
+            state, ops, runs = args
+            b, c = state.length.shape
+            k, a = state.overlap_slots, state.anno_slots
+
+            def run(state=state, ops=ops, runs=runs):
+                return kernel.scan_apply(state, ops, runs)
+
+            def plain(state=state, ops=ops, runs=runs):
+                return kernel.scan_ops_plain(state, ops, True, runs)
+
+            geo = kernel.scan_geometry(b, c, k, a)
+            r = dict(name=name, variant=variant,
+                     launches=counts.get(f"scan_apply:{geo.path}[{variant}]",
+                                         0),
+                     err=max_abs_err(run(), plain()),
+                     source="fluidframework_tpu_torch/kernels/csrc/"
+                            "scan_apply.cu",
+                     replaces="fluidframework_tpu/mergetree/kernel.py:396",
+                     shape=f"{b} x C={c} x T {ops.steps}",
+                     path=scan_label(geo),
+                     bytes=fused_apply_bytes(b, c, ops.steps, k, a,
+                                             runs is not None, False),
+                     ops=fused_apply_lane_ops(
+                         ops.kind.cpu().numpy(),
+                         live_slots(state, ops, runs), k, a),
+                     device_ms=long_kernel_ms(run, PATH_REPS)[0])
+        r.update(on_main_path=True, ms=ms_of(run, 20),
+                 plain_ms=once_ms(plain), library_ms=None)
+        require(r["err"] == 0, f"phase 17: {name}[{variant}] at "
+                f"{r['shape']}: the kernel differs from its plain version")
+        bound = max(r["bytes"] / PEAK_BYTES_PER_S,
+                    r["ops"] / PEAK_OPS_PER_S) * 1e3
+        print(f"phase 17 kernel: {name}[{variant}] at its largest launch's "
+              f"inputs [{r['shape']}]{' ' + r['path'] if 'path' in r else ''}"
+              f": {fmt_ms(r['device_ms'])} device, {r['ms']:.4f} ms back "
+              f"to back, plain {r['plain_ms']:.3f} ms, bound {bound:.5f} "
+              f"ms; {r['launches']} launches in the phase; max_abs_err "
+              f"{r['err']}; card {card}", flush=True)
+        rows.append(r)
+    return rows
+
+
+def server_phase(dev, card: str) -> list:
+    """Phase 17, the local server (server/local_server.TpuLocalServer) on
+    the card through testing/server_runs.py at golden.SERVER_CARD (512
+    documents x 32 inserts a wave in boxcars of 8, map and counter
+    traffic, a storm document, readers, summaries, a restart of the
+    ingest tier, catch-up and materialized snapshots; 2 partitions, 2
+    broadcaster shards), bucketed and paged. The kernel counts are set to
+    0 at the start; the server must launch the ticket scan and the scan
+    apply, each layout's launches are printed and must add up to the
+    phase's; both layouts are held to the JAX golden and to the port's
+    CPU twin (a child process per layout, started first)."""
+    from fluidframework_tpu_torch.testing import golden
+
+    t_phase = time.perf_counter()
+    g = golden.load_server()["card"]
+    twins = {layout: subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+         "server_cpu_main(sys.argv[1]))", layout],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+        for layout in ("bucketed", "paged")}
+    captured, restore = capture_largest_launches()
+    try:
+        reset_lambda_counts()
+        parts, card_res = {}, {}
+        try:
+            for layout in ("bucketed", "paged"):
+                launched = lambda_counts()
+                card_res[layout] = server_layout(dev, card, layout,
+                                                 g[layout])
+                parts[layout] = counts_since(launched)
+        finally:
+            restore()
+        counts = lambda_counts()
+        # The server's log carries decoded boxcars, so the lambda takes
+        # its object path (handler), whose windows apply through the lane
+        # stores' scan apply; the fused apply serves only the raw-wire
+        # path (handler_raw, phase 16).
+        require(counts["ticket_scan"] > 0 and counts["scan_apply"] > 0,
+                f"phase 17: the local server did not launch the ticket "
+                f"scan and the scan apply: {counts}")
+        summed = {k: sum(p.get(k, 0) for p in parts.values())
+                  for k in counts}
+        require(summed == counts, f"phase 17: the layouts' launches "
+                f"{parts} do not add up to the phase's {counts}")
+        for layout, part in parts.items():
+            print(f"phase 17 {layout}: kernel launches {part} (ticket_scan "
+                  f"{part.get('ticket_scan', 0)}, scan_apply "
+                  f"{part.get('scan_apply', 0)}, fused_apply "
+                  f"{part.get('fused_apply', 0)})", flush=True)
+        print(f"phase 17: the local server's kernel launches, both layouts "
+              f"(counts from 0 at the phase's start) {counts}", flush=True)
+        rows = server_rows(captured, counts, card)
+
+        t0 = time.perf_counter()
+        for layout, proc in twins.items():
+            text, _ = proc.communicate(timeout=SERVER_CPU_TIMEOUT)
+            require(proc.returncode == 0, f"phase 17: the {layout} CPU twin "
+                    f"exited {proc.returncode}")
+            twin = json.loads(text.strip().splitlines()[-1])
+            for key in card_res[layout]:
+                require(twin[key] == card_res[layout][key],
+                        f"phase 17 {layout}: {key} differs between the card "
+                        f"and the CPU twin")
+            print(f"phase 17 {layout}: the card equals the CPU twin "
+                  f"({twin['seconds']:.1f} s in its process; waited "
+                  f"{time.perf_counter() - t0:.1f} s after the card)",
+                  flush=True)
+    finally:
+        for proc in twins.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
 
 if __name__ == "__main__":
     try:

@@ -1,9 +1,9 @@
-"""Wire protocol: message types (a port of fluidframework_tpu's protocol
-package; summary trees, quorum and the protocol state machine are not
-ported yet).
+"""Wire protocol: message types, summary trees, quorum, protocol state
+machine (a port of fluidframework_tpu's protocol package).
 
-Capability parity with the reference's `protocol-definitions` package
-(reference: server/routerlicious/packages/protocol-definitions/src/protocol.ts).
+Capability parity with the reference's `protocol-definitions` + `protocol-base`
+packages (reference: server/routerlicious/packages/protocol-definitions/src/protocol.ts,
+protocol-base/src/{quorum,protocol}.ts).
 """
 
 from .messages import (
@@ -18,3 +18,14 @@ from .messages import (
     NACK_BAD_REF_SEQ,
     NACK_DUPLICATE,
 )
+from .summary import (
+    SummaryType,
+    SummaryTree,
+    SummaryBlob,
+    SummaryHandle,
+    SummaryAttachment,
+    summary_tree_to_dict,
+    summary_tree_from_dict,
+)
+from .quorum import Quorum, QuorumProposal, SequencedClient
+from .protocol_handler import ProtocolOpHandler, ProtocolState, ProtocolError

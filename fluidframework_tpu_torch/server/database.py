@@ -1,8 +1,8 @@
-"""In-memory database collections (reference services-core ICollection
-over MongoDB).
+"""In-memory database collections (reference services-core ICollection /
+IDatabaseManager over MongoDB).
 
-Counterpart of fluidframework_tpu's server/database.py `Collection`: the
-sequencer's checkpoints and the scriptorium's delta store live here.
+Counterpart of fluidframework_tpu's server/database.py: the sequencer's
+and scribe's checkpoints and the scriptorium's delta store live here.
 Inserts are idempotent on a unique key, the way the reference relies on
 duplicate-key errors being ignored on replay (scriptorium/lambda.ts:92-99).
 """
@@ -57,3 +57,19 @@ class Collection:
     def __len__(self) -> int:
         with self._lock:
             return len(self._docs)
+
+
+class DatabaseManager:
+    """Named collections per (tenant, document) style keys."""
+
+    def __init__(self):
+        self._collections: Dict[str, Collection] = {}
+        self._lock = threading.Lock()
+
+    def collection(self, name: str,
+                   unique_key: Optional[Callable[[dict], Any]] = None
+                   ) -> Collection:
+        with self._lock:
+            if name not in self._collections:
+                self._collections[name] = Collection(unique_key)
+            return self._collections[name]

@@ -1,6 +1,13 @@
-"""Partition lambdas (reference routerlicious lambdas, SURVEY.md §2.5): the
-lambda SPI (`IPartitionLambda`, `LambdaContext`) and the delta store's
-range query (`scriptorium.query_deltas`); the lambdas themselves, apart
-from the sequencer's (server/tpu_sequencer.py), are not ported yet."""
+"""Partition lambdas (reference routerlicious lambdas, SURVEY.md §2.5):
+Deli (sequencer), Scriptorium (delta persistence), Scribe (server-side
+summaries + ack/nack), Broadcaster (fan-out), Copier (raw-op capture),
+Foreman (task distribution); the device sequencer's lambda is
+server/tpu_sequencer.py."""
 
 from .base import IPartitionLambda, LambdaContext
+from .deli import DeliLambda
+from .scriptorium import ScriptoriumLambda
+from .scribe import ScribeLambda
+from .broadcaster import BroadcasterLambda
+from .copier import CopierLambda
+from .foreman import ForemanLambda

@@ -1,16 +1,50 @@
-"""The delta store's read side (reference scriptorium/lambda.ts and
-alfred's delta REST route).
+"""Scriptorium: persists sequenced deltas (reference scriptorium/lambda.ts:
+16-103 — batched Mongo insertMany, idempotent on duplicate keys, traces
+stripped before persisting), and the delta store's range query (alfred's
+delta REST route).
 
-Counterpart of fluidframework_tpu's server/lambdas/scriptorium.py, the
-range query only: the sequencer replays a document's persisted deltas
-through it on a crash restart. The scriptorium lambda itself is not here.
+A copy of fluidframework_tpu's server/lambdas/scriptorium.py, host code
+that the port keeps as its own.
 """
 
 from __future__ import annotations
 
+from dataclasses import asdict
 from typing import List
 
+from ...protocol.messages import SequencedDocumentMessage
 from ..database import Collection
+from ..log import QueuedMessage
+from .base import IPartitionLambda, LambdaContext
+
+
+class ScriptoriumLambda(IPartitionLambda):
+    def __init__(self, context: LambdaContext, deltas: Collection):
+        self.context = context
+        self.deltas = deltas
+
+    def handler(self, message: QueuedMessage) -> None:
+        value = message.value
+        if hasattr(value, "messages"):
+            # A SequencedWindow (the device sequencer's fast path): ONE log
+            # record per flush; persist every admitted message it carries —
+            # the reference's insertMany batch, naturally window-sized.
+            for doc_id, sequenced in value.messages():
+                self._persist(doc_id, sequenced)
+            self.context.checkpoint(message.offset)
+            return
+        doc_id, sequenced = value
+        self._persist(doc_id, sequenced)
+        self.context.checkpoint(message.offset)
+
+    def _persist(self, doc_id: str,
+                 sequenced: SequencedDocumentMessage) -> None:
+        record = asdict(sequenced)
+        record["traces"] = []  # strip latency traces before persisting
+        record["documentId"] = doc_id
+        # The in-memory collection makes the reference's batched async
+        # insertMany a synchronous insert; duplicates (replay) are ignored.
+        self.deltas.insert_one(record)
 
 
 def delta_key(doc: dict):

@@ -4208,9 +4208,18 @@ class TpuSequencerLambda(IPartitionLambda):
         """Dispatch EVERY staged window, oldest first, as serving
         megakernels: consecutive windows sharing a ticket depth T chunk
         into ring lengths from the fixed burst grid. Always empties the
-        staged queue — same contract as _dispatch_staged_burst."""
+        staged queue — same contract as _dispatch_staged_burst.
+
+        Each chunk after the first waits for the ring to drain: a chunk
+        stages its groups' page scalars from the host at dispatch, and
+        the host holds them only once the chunk before it has finished
+        (its drain adopts the scalars it wrote). Dispatched back to back,
+        chunk k+1 would build its views from chunk k's stale counts and
+        scatter them over chunk k's rows."""
         staged, self._staged = self._staged, []
-        for chunk in self._burst_chunks(staged):
+        for i, chunk in enumerate(self._burst_chunks(staged)):
+            if i:
+                self.drain()
             self._dispatch_megakernel_chunk(chunk)
 
     def _dispatch_megakernel_chunk(self, wins: List[dict]) -> None:

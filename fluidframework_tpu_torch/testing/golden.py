@@ -57,10 +57,18 @@ scenarios of testing/lambda_runs.py, as their digests:
   storm/<sync|mega>              storm_run of the ragged storm fleet;
   mixed, mixed_small            mixed_run at LAMBDA_MIXED and at
                                  LAMBDA_MIXED_SMALL.
+golden/server_golden.json (SERVER_GOLDEN_PATH) holds the JAX package's
+local server (server/local_server.TpuLocalServer) through
+testing/server_runs.run, as its digests:
+  card/<bucketed|paged>          at SERVER_CARD (512 documents);
+  small/<bucketed|paged|overlapped|scalar>
+                                 at SERVER_SMALL (the last through
+                                 LocalServer, the scalar deli).
 tests/test_torch_golden.py regenerates the files from the JAX package and
 requires equality, so the values cannot drift (the lambda golden through
-tests/test_torch_lambda_golden.py); chip_smoke.py holds the CUDA kernels
-and the lambda against them on a machine without JAX.
+tests/test_torch_lambda_golden.py, the server golden through
+tests/test_torch_server_golden.py); chip_smoke.py holds the CUDA kernels,
+the lambda and the local server against them on a machine without JAX.
 """
 
 from __future__ import annotations
@@ -95,6 +103,18 @@ LAMBDA_SERVING = (4_096, 32)
 LAMBDA_SERVING_SMALL = (512, 16)
 LAMBDA_MIXED = (1_024, 6)          # documents, waves
 LAMBDA_MIXED_SMALL = (160, 6)
+SERVER_GOLDEN_PATH = GOLDEN_PATH.with_name("server_golden.json")
+# testing/server_runs.Spec fields. The card's fleet keeps the serving-
+# ingest traffic's widths (bench.py:112: 32 ops a document a wave in
+# boxcars of 8) at 512 documents and 2 warm waves: the local server's
+# object path costs tenths of a millisecond a message on the host, and the
+# reference's scribe checkpoint and restart delta replay scan whole
+# collections (PERF.md §4). The small fleet runs the same traffic in the
+# CPU tests (16 documents, 3 waves).
+SERVER_CARD = {"docs": 512, "warm": 2}
+SERVER_SMALL = {"docs": 16, "warm": 1, "measured": 1, "extra": 1,
+                "lww_every": 4, "storm_every": 8, "reader_every": 4,
+                "summary_every": 4, "catchup_every": 4, "touch_every": 8}
 LANES_GOLDEN_PATH = GOLDEN_PATH.with_name("lane_store_golden.npz")
 LANES_JSON_PATH = GOLDEN_PATH.with_name("lane_store_golden.json")
 # The fields of a packed extraction (kernel.extract_visible_batched).
@@ -258,6 +278,17 @@ def load_lambda(path: Path = LAMBDA_GOLDEN_PATH) -> dict:
 
 
 def save_lambda(doc: dict, path: Path = LAMBDA_GOLDEN_PATH) -> None:
+    with open(path, "w") as f:
+        json.dump(doc, f, sort_keys=True, indent=1)
+        f.write("\n")
+
+
+def load_server(path: Path = SERVER_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def save_server(doc: dict, path: Path = SERVER_GOLDEN_PATH) -> None:
     with open(path, "w") as f:
         json.dump(doc, f, sort_keys=True, indent=1)
         f.write("\n")

@@ -28,14 +28,18 @@ PAIRS = ((tds, tcounters), (jds, jcounters))
 
 @pytest.fixture(autouse=True)
 def _fresh_counters():
+    # Both packages' ledgers are process-wide: a JAX test that ran earlier
+    # on the same worker leaves its symbols in the JAX ledger.
     for _ds, c in PAIRS:
         c.reset()
     tledger.ledger.reset()
+    jledger.ledger.reset()
     yield
     for ds, c in PAIRS:
         c.reset()
         ds.set_enabled(True)
     tledger.ledger.reset()
+    jledger.ledger.reset()
 
 
 def both(fn):

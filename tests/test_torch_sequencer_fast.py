@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 
 from fluidframework_tpu_torch.server import serve_step as tserve
-from fluidframework_tpu_torch.testing import ingest
+from fluidframework_tpu_torch.testing import ingest, lambda_runs
 
 from test_torch_sequencer_lambda import (Pair, Side, assert_same,
                                          doc_names, drive, feed, outcome)
@@ -78,6 +78,11 @@ def _keystroke_waves(n_waves, docs=4, ops=3, bad_flush=None, bad_pos=0):
 
 def _ordered(side: Side):
     return list(side.emits)
+
+
+def _without_gen(catchup: dict) -> dict:
+    return {d: {k: v for k, v in body.items() if k != "gen"}
+            for d, body in catchup.items()}
 
 
 def _lane_planes(lam, key):
@@ -235,10 +240,15 @@ class TestServingModes:
     def test_megakernel_order_identical_to_per_window(self):
         """The ragged storm fleet on paged lanes: the megakernel stream
         equals the per-window (sync) stream in order, with fewer than a
-        quarter of a dispatch per served window, and equals JAX."""
+        quarter of a dispatch per served window. The sync run equals JAX
+        in everything; the megakernel run equals JAX's stream, and its
+        views, summaries and catch-up artifacts equal the sync run's (the
+        JAX megakernel loses the storm document's text: its chunks
+        dispatch back to back on stale page scalars)."""
         waves = ingest.storm_waves(4, docs=32, storm_ops=128)
         docs = doc_names(waves)
         streams = {}
+        sync_out = None
         for mode in ("sync", "burst"):
             pair = _run_mode(waves, mode, paged_lanes=True)
             # The window depth follows the per-document depth spread
@@ -251,15 +261,40 @@ class TestServingModes:
                     s.lam.flush()
             for s in pair.sides():
                 s.lam.drain()
-            assert_same(pair, docs)
+            if mode == "sync":
+                assert_same(pair, docs)
+                sync_out = outcome(pair.torch, docs)
+            else:
+                got = outcome(pair.torch, docs)
+                assert got["streams"] == outcome(pair.jax, docs)["streams"]
+                for key in ("streams", "nacks", "views", "seqs", "summary"):
+                    assert got[key] == sync_out[key], key
+                # The artifacts' change generation counts applies, which
+                # differ between the modes; the artifacts' content may not.
+                assert _without_gen(got["catchup"]) == \
+                    _without_gen(sync_out["catchup"])
             streams[mode] = _ordered(pair.torch)
             if mode == "burst":
+                assert streams["burst"] == _ordered(pair.jax)
                 c = pair.torch.counter_deltas()
                 per_window = c["serving.burst_dispatch_total"] \
                     / max(1.0, c["serving.burst_windows"])
                 assert c["serving.megakernel_rings"] > 0
                 assert 0 < per_window < 0.25, per_window
         assert streams["sync"] == streams["burst"]
+
+    @pytest.mark.parametrize("waves", [1, 2])
+    def test_megakernel_texts_equal_sync_texts(self, waves):
+        """The storm fleet's first waves, where the megakernel splits one
+        flush into chunks of 2 and 1 windows: every document's text, the
+        storm document's included (191 characters after one wave, not
+        2), equals the per-window run's."""
+        pkg = lambda_runs.port_package("cpu")
+        sync = lambda_runs.storm_run(pkg, "sync", waves=waves)
+        mega = lambda_runs.storm_run(pkg, "mega", waves=waves)
+        assert mega["rings"] > 1
+        assert mega["texts"] == sync["texts"]
+        assert mega["stream"] == sync["stream"]
 
 
 class TestRecovery:

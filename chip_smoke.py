@@ -108,6 +108,20 @@ refresh_catchup / get_catchup and write_materialized_snapshots; timed
 share, the tail) and held to the JAX golden and to the port's CPU twin in
 a child process, with no admission nack; each kernel it launched is held
 against its plain version at the inputs of its largest launch.
+Phase 18 drives the operator's surface on the card: (a) the conformance
+tool (tools/gpu_conformance.py --heavy: the fused apply against the scan
+apply, bit for bit, at the JAX tool's shapes), (b) the microbench
+(tools/microbench.run_all), (c) the serving decay probe
+(server/decay_probe.py) at its default size, held to the JAX golden and to
+a CPU twin by one lane digest, and at the serving fleet's widths, timed;
+(d) the op bridge's transport-free core (server/bridge.OpBridge) at the
+north-star shape, two sessions of three chained batches, every reply
+byte-equal to the direct step's and the golden step's reply to the JAX
+outputs, each stage timed; (e) phase 17's bucketed scenario over the C++
+message log with a ServiceMonitor and a FleetObservatory on it, scraped
+over HTTP every 100 ms during the measured waves with one /profile
+capture, held to phase 17's golden and to a CPU twin, every scrape 200
+and its exposition conformant. Each part must launch its path's kernels.
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -121,6 +135,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -189,7 +204,7 @@ RING_SCAN_STAGES = RING_STAGES + ("apply_scan_plain", "apply_scan_runs")
 # seconds (a stated prefix of the trace); blocks of this many ops are the
 # points of the scalar fit; the device catch-up is timed on these
 # prefixes of the same trace (and on the whole trace) for the device fit.
-SCALAR_BUDGET_S = 60.0
+SCALAR_BUDGET_S = 30.0
 SCALAR_BLOCK = 2_500
 DEVICE_PREFIXES = (64, 256, 512, 2_048, 8_192, 32_768)
 CROSSOVER_SEGMENTS = (20, 100, 300, 1_000, 3_000)
@@ -1084,7 +1099,15 @@ def main(north_star_only: bool = False) -> int:
         del hot
         rows += lane_store_phase(dev, card)
         lambda_phase(dev, card)
-        rows += server_phase(dev, card)
+        decay_twin = start_operator_twin("decay")
+        try:
+            server_rows, fig17 = server_phase(dev, card)
+            rows += server_rows
+        except BaseException:
+            decay_twin.kill()
+            decay_twin.wait()
+            raise
+        rows += operator_phase(dev, card, decay_twin, fig17["bucketed"])
 
     require(not spilled, f"kernels use stack or spill: {spilled}")
     out = []
@@ -1942,40 +1965,66 @@ def scan_full_step_phase(dev, card: str) -> list:
         f"{b} x C=1024 x T {t}", card, main_path=False)
 
 
-def device_busy_ms(fn):
-    """Device busy milliseconds of one call of fn: torch.profiler's device
-    time of every kernel it traced, except the scan-apply kernels, whose
-    launches through ctypes the trace often misses: those are timed with
-    a CUDA event pair around each launch (kernel._launch) in the same
-    call. None when the profiler recorded nothing."""
-    from torch.profiler import ProfilerActivity, profile
+class BusyWindow:
+    """The device's busy milliseconds between start() and stop():
+    torch.profiler's device time of every kernel, copy and memset it
+    traced, read from the exported Chrome trace (key_averages() builds a
+    Python event tree that takes minutes over a long window), except the
+    scan-apply kernels, whose launches through ctypes the trace has
+    missed: those are timed with a CUDA event pair around each launch
+    (kernel._launch) in the window. stop() returns None when the
+    profiler recorded nothing."""
 
-    from fluidframework_tpu_torch.mergetree import kernel
-    launch, pairs = kernel._launch, []
+    def start(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
 
-    def timed(*args, **kwargs):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = launch(*args, **kwargs)
-        e1.record()
-        pairs.append((e0, e1))
-        return out
+        from fluidframework_tpu_torch.mergetree import kernel
+        self._kernel, self._launch, self._pairs = kernel, kernel._launch, []
+        launch, pairs = self._launch, self._pairs
 
-    torch.cuda.synchronize()
-    kernel._launch = timed
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+        def timed(*args, **kwargs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = launch(*args, **kwargs)
+            e1.record()
+            pairs.append((e0, e1))
+            return out
+
+        torch.cuda.synchronize()
+        kernel._launch = timed
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.start()
+
+    def stop(self):
+        import tempfile
+        try:
             torch.cuda.synchronize()
+            self._prof.stop()
+        finally:
+            self._kernel._launch = self._launch
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            self._prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        other = [e["dur"] / 1e3 for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and "scan_apply_kernel" not in e.get("name", "")]
+        if not other and not self._pairs:
+            return None
+        return sum(other) + sum(a.elapsed_time(b) for a, b in self._pairs)
+
+
+def device_busy_ms(fn):
+    """Device busy milliseconds of one call of fn (BusyWindow)."""
+    window = BusyWindow()
+    window.start()
+    try:
+        fn()
     finally:
-        kernel._launch = launch
-    other = [ev.self_device_time_total / 1e3 for ev in prof.key_averages()
-             if ev.self_device_time_total > 0
-             and "scan_apply_kernel" not in ev.key]
-    if not other and not pairs:
-        return None
-    return sum(other) + sum(a.elapsed_time(b) for a, b in pairs)
+        busy = window.stop()
+    return busy
 
 
 def clone_state(st):
@@ -3417,15 +3466,17 @@ def _clone(x):
 
 
 def capture_largest_launches():
-    """Wrap the launch paths of the ticket scan, the fused apply and the
-    scan apply so that, per (kernel, variant), the launch with the most
-    work (documents x steps, x capacity for an apply) keeps a copy of its
-    inputs. Returns (captured, restore)."""
+    """Wrap the launch paths of the ticket scan, the fused apply, the
+    scan apply and the summary length so that, per (kernel, variant), the
+    launch with the most work (documents x steps, x capacity for an
+    apply, documents x capacity for the summary length) keeps a copy of
+    its inputs. Returns (captured, restore)."""
     from fluidframework_tpu_torch.mergetree import kernel
     from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.mergetree import pallas_ops
     from fluidframework_tpu_torch.server import ticket_kernel as tk
     captured, sizes = {}, {}
-    saved = (tk._launch, pa._launch, kernel._launch)
+    saved = (tk._launch, pa._launch, kernel._launch, pallas_ops._launch)
 
     def keep(key, size, args):
         if size > sizes.get(key, -1):
@@ -3447,10 +3498,15 @@ def capture_largest_launches():
              state.length.numel() * ops.steps, (state, ops, runs))
         return saved[2](state, ops, runs, geo)
 
-    tk._launch, pa._launch, kernel._launch = ticket, fused, scan
+    def summary(state, entry, what):
+        keep(("summary_len", None), state.length.numel(), (state,))
+        return saved[3](state, entry, what)
+
+    tk._launch, pa._launch, kernel._launch, pallas_ops._launch = \
+        ticket, fused, scan, summary
 
     def restore():
-        tk._launch, pa._launch, kernel._launch = saved
+        tk._launch, pa._launch, kernel._launch, pallas_ops._launch = saved
     return captured, restore
 
 
@@ -3492,13 +3548,18 @@ def time_stages(stage_s: dict):
     return restore
 
 
-def server_layout(dev, card: str, layout: str, want: dict) -> dict:
+def server_layout(dev, card: str, layout: str, want: dict,
+                  native_log: bool = False, watch=None,
+                  phase: str = "phase 17"):
     """Phase 17, one layout: the scenario on TpuLocalServer(device=dev).
     The measured waves are timed per wave (submit, pump, the broadcaster's
     drain) and in all (synced), split by lambda, and traced by the
     profiler for the device's busy share; the tail (refresh_catchup,
     get_catchup, the full and the incremental materialized write) is
-    timed call by call. Every digest must equal the JAX golden's."""
+    timed call by call. Every digest must equal the JAX golden's. Phase
+    18 (e) runs it over the C++ message log (native_log) with `watch`
+    (start(server) before the measured waves, on_wave(i) after each,
+    stop() after them) scraping the server. Returns (digests, figures)."""
     from collections import defaultdict
 
     from fluidframework_tpu_torch.testing import golden, server_runs
@@ -3509,16 +3570,28 @@ def server_layout(dev, card: str, layout: str, want: dict) -> dict:
         stage_s = defaultdict(float)
         restore = time_stages(stage_s)
 
+        def on_wave(*w):
+            waves.append(w)
+            if watch is not None:
+                watch.on_wave(w[0])
+
         def timed():
             t0 = time.perf_counter()
-            facts["ops"] = run_waves(lambda *w: waves.append(w))
+            facts["ops"] = run_waves(on_wave)
             torch.cuda.synchronize()
             facts["wall_s"] = time.perf_counter() - t0
 
+        if watch is not None:
+            watch.start(server)
         try:
-            facts["busy_ms"] = device_busy_ms(timed)
+            # The profiler is process-wide: with a watch, the monitor's
+            # /profile takes it, so the busy share is not measured here.
+            facts["busy_ms"] = device_busy_ms(timed) if watch is None \
+                else timed()
         finally:
             restore()
+            if watch is not None:
+                watch.stop()
         facts["waves"] = waves
         facts["stage_s"] = dict(stage_s)
         return facts["ops"]
@@ -3535,14 +3608,15 @@ def server_layout(dev, card: str, layout: str, want: dict) -> dict:
     t0 = time.perf_counter()
     res = server_runs.run(server_runs.port_package(dev),
                           server_runs.Spec(**golden.SERVER_CARD),
+                          native_log=native_log,
                           hooks={"measured": measured, "tail": tail},
                           **server_runs.VARIANTS[layout])
     total_s = time.perf_counter() - t0
     for key in want:
-        require(res[key] == want[key], f"phase 17 {layout}: {key} "
+        require(res[key] == want[key], f"{phase} {layout}: {key} "
                 f"{res[key]} differs from the JAX golden {want[key]}")
     require(res["admission_nacks"] == 0 and res["shed"] == 0,
-            f"phase 17 {layout}: {res['admission_nacks']} admission nacks, "
+            f"{phase} {layout}: {res['admission_nacks']} admission nacks, "
             f"{res['shed']} fan-outs shed")
     pumps = sorted(w[3] * 1e3 for w in facts["waves"])
     wall_ms = facts["wall_s"] * 1e3
@@ -3551,7 +3625,8 @@ def server_layout(dev, card: str, layout: str, want: dict) -> dict:
     split["submit"] = round(sum(w[2] for w in facts["waves"]) * 1e3, 1)
     busy = facts["busy_ms"]
     share = "not measured" if busy is None else f"{busy / wall_ms:.2%}"
-    print(f"phase 17 {layout}: {res['docs']} documents, "
+    print(f"{phase} {layout}{' (C++ log)' if native_log else ''}: "
+          f"{res['docs']} documents, "
           f"{len(facts['waves'])} measured waves of "
           f"{facts['ops'] // len(facts['waves'])} ops: "
           f"{facts['ops'] / facts['wall_s']:.0f} ops/s (host clock, the "
@@ -3570,19 +3645,46 @@ def server_layout(dev, card: str, layout: str, want: dict) -> dict:
           f"fan-out shed; every "
           f"digest equals the JAX golden; {total_s:.1f} s in all; card "
           f"{card}", flush=True)
-    return res
+    figures = {"ops_s": facts["ops"] / facts["wall_s"],
+               "pump_p50": float(np.percentile(pumps, 50)),
+               "pump_p99": float(np.percentile(pumps, 99)),
+               "busy_share": None if busy is None else busy / wall_ms}
+    return res, figures
 
 
-def server_rows(captured: dict, counts: dict, card: str) -> list:
-    """The kernel rows of phase 17: each kernel it launched, held against
-    its plain version at the inputs of its largest launch in the phase,
-    with the phase's launches of that kernel and variant."""
+def kernel_rows(captured: dict, counts: dict, card: str,
+                phase: str) -> list:
+    """The kernel rows of phase 17 or 18: each kernel the phase launched,
+    held against its plain version at the inputs of its largest launch in
+    the phase, with the phase's launches of that kernel and variant."""
     from fluidframework_tpu_torch.mergetree import kernel
     from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.mergetree import pallas_ops
     from fluidframework_tpu_torch.server import ticket_kernel as tk
     rows = []
-    for (name, variant), args in sorted(captured.items()):
-        if name == "ticket_scan":
+    for (name, variant), args in sorted(captured.items(),
+                                        key=lambda kv: str(kv[0])):
+        if name == "summary_len":
+            (state,) = args
+            b, c = state.length.shape
+
+            def run(state=state):
+                return pallas_ops.summary_lengths(state)
+
+            def plain(state=state):
+                return pallas_ops.summary_lengths_plain(state)
+
+            r = dict(name=name, variant=variant,
+                     launches=counts.get("summary_len", 0),
+                     err=max_abs_err([run()], [plain()]),
+                     source="fluidframework_tpu_torch/kernels/csrc/"
+                            "summary_len.cu",
+                     replaces="fluidframework_tpu/mergetree/"
+                              "pallas_ops.py:58",
+                     shape=f"{b} x C={c}", bytes=b * (3 * c * 4 + 3 * 4),
+                     ops=b * c * 6,
+                     device_ms=one_kernel_ms(run, 20, "summary_len_kernel"))
+        elif name == "ticket_scan":
             state, ops, join = args
             b, k = state.client_ids.shape
             t = ops.client.shape[-1]
@@ -3666,11 +3768,11 @@ def server_rows(captured: dict, counts: dict, card: str) -> list:
                      device_ms=long_kernel_ms(run, PATH_REPS)[0])
         r.update(on_main_path=True, ms=ms_of(run, 20),
                  plain_ms=once_ms(plain), library_ms=None)
-        require(r["err"] == 0, f"phase 17: {name}[{variant}] at "
+        require(r["err"] == 0, f"{phase}: {name}[{variant}] at "
                 f"{r['shape']}: the kernel differs from its plain version")
         bound = max(r["bytes"] / PEAK_BYTES_PER_S,
                     r["ops"] / PEAK_OPS_PER_S) * 1e3
-        print(f"phase 17 kernel: {name}[{variant}] at its largest launch's "
+        print(f"{phase} kernel: {name}[{variant}] at its largest launch's "
               f"inputs [{r['shape']}]{' ' + r['path'] if 'path' in r else ''}"
               f": {fmt_ms(r['device_ms'])} device, {r['ms']:.4f} ms back "
               f"to back, plain {r['plain_ms']:.3f} ms, bound {bound:.5f} "
@@ -3704,12 +3806,12 @@ def server_phase(dev, card: str) -> list:
     captured, restore = capture_largest_launches()
     try:
         reset_lambda_counts()
-        parts, card_res = {}, {}
+        parts, card_res, figures = {}, {}, {}
         try:
             for layout in ("bucketed", "paged"):
                 launched = lambda_counts()
-                card_res[layout] = server_layout(dev, card, layout,
-                                                 g[layout])
+                card_res[layout], figures[layout] = server_layout(
+                    dev, card, layout, g[layout])
                 parts[layout] = counts_since(launched)
         finally:
             restore()
@@ -3732,7 +3834,7 @@ def server_phase(dev, card: str) -> list:
                   f"{part.get('fused_apply', 0)})", flush=True)
         print(f"phase 17: the local server's kernel launches, both layouts "
               f"(counts from 0 at the phase's start) {counts}", flush=True)
-        rows = server_rows(captured, counts, card)
+        rows = kernel_rows(captured, counts, card, "phase 17")
 
         t0 = time.perf_counter()
         for layout, proc in twins.items():
@@ -3754,7 +3856,565 @@ def server_phase(dev, card: str) -> list:
                 proc.kill()
                 proc.wait()
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows, figures
+
+
+# -- phase 18: the operator's surface ----------------------------------------
+
+# (documents, ops a document a wave, waves) of the decay probe's second run:
+# the serving-ingest fleet's widths (bench.py:112, as phase 16 a) over the
+# tool's 40 waves.
+DECAY_FLEET = (4_096, 32, 40)
+DECAY_BUSY_WAVES = 10      # the fleet run's waves under the profiler
+# The op bridge at the north-star shape (bench.py:1056-1058): two sessions,
+# three chained partition batches each.
+BRIDGE_DOCS, BRIDGE_OPS, BRIDGE_CAPACITY = 10_000, 100, 256
+BRIDGE_SESSIONS, BRIDGE_BATCHES = 2, 3
+SCRAPE_ROUTES = ("/health", "/metrics.prom", "/trace")
+SCRAPE_EVERY_S = 0.1
+# /profile windows, one in each of the first two measured waves after the
+# first: a short 500 ms window, then the monitor's cap, which spans most of a
+# pump and so the sequencer's launches.
+PROFILE_MS = (500, 5000)
+OPERATOR_CPU_THREADS = 2
+OPERATOR_CPU_TIMEOUT = 900
+PORT_KERNELS = ("ticket_scan_kernel", "fused_apply_kernel",
+                "scan_apply_kernel", "summary_len_kernel")
+
+# The exposition's grammar, as tests/test_prom_conformance.py parses it.
+_PROM_VALUE = r'"(?:[^"\\\n]|\\\\|\\"|\\n)*"'
+_PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
+    r'(\{[a-zA-Z_][a-zA-Z0-9_]*=' + _PROM_VALUE +
+    r'(?:,[a-zA-Z_][a-zA-Z0-9_]*=' + _PROM_VALUE + r')*\})?'
+    r' (-?(?:[0-9.e+-]+|\+Inf|NaN))'
+    r'( # \{trace_id=' + _PROM_VALUE + r'\} -?[0-9.e+-]+)?$')
+
+
+def prom_conformant(text: str) -> int:
+    """Check an exposition by tests/test_prom_conformance.py's rules (every
+    line parses, HELP and TYPE precede each family's first sample, one
+    final EOF and newline, each histogram's buckets cumulative up to +Inf
+    == _count); returns the number of samples. One reading differs: a
+    sample whose own name carries HELP and TYPE is its own family (the
+    gauge fluid_kernel_retrace_count), where the test's parser strips
+    every _count suffix and then finds no metadata."""
+    lines = text.splitlines()
+    require(bool(lines) and lines[-1] == "# EOF" and text.endswith("\n"),
+            "exposition: no final '# EOF' line")
+    meta, seen, buckets, counts, n = {}, set(), {}, {}, 0
+    for line in lines[:-1]:
+        require(bool(line) and line != "# EOF",
+                "exposition: blank or interior EOF line")
+        if line.startswith("#"):
+            parts = line.split(None, 3)
+            require(len(parts) >= 3 and parts[1] in ("HELP", "TYPE"),
+                    f"exposition: bad metadata {line!r}")
+            require(parts[2] not in seen,
+                    f"exposition: metadata for {parts[2]} after a sample")
+            meta.setdefault(parts[2], set()).add(parts[1])
+            continue
+        m = _PROM_SAMPLE.match(line)
+        require(m is not None, f"exposition: unparseable {line!r}")
+        metric, labels = m.group(1), m.group(2) or ""
+        family = metric if metric in meta else \
+            re.sub(r"_(bucket|sum|count)$", "", metric)
+        seen.update((metric, family))
+        require(meta.get(family) == {"HELP", "TYPE"},
+                f"exposition: {family} without HELP and TYPE")
+        value = float("inf") if m.group(3) == "+Inf" else float(m.group(3))
+        series = (family, re.sub(r',?le="[^"]*"', "", labels))
+        if family != metric and metric.endswith("_bucket"):
+            buckets.setdefault(series, []).append(value)
+        elif family != metric and metric.endswith("_count"):
+            counts[series] = value
+        n += 1
+    for stage, vals in buckets.items():
+        require(vals == sorted(vals) and vals[-1] == counts.get(stage),
+                f"exposition: buckets of {stage} not cumulative to _count")
+    return n
+
+
+def operator_cpu_main(part: str) -> int:
+    """Phase 18's CPU twins, each in a process of its own: "decay", the
+    decay probe at golden.DECAY_CARD (prints its lane digest), or
+    "server", phase 17's bucketed scenario over the C++ message log
+    (prints its digests); one JSON line."""
+    from fluidframework_tpu_torch.server import decay_probe
+    from fluidframework_tpu_torch.testing import golden, server_runs
+    torch.set_num_threads(OPERATOR_CPU_THREADS)
+    t0 = time.perf_counter()
+    if part == "decay":
+        _res, lam, _rates = decay_probe.probe(*golden.DECAY_CARD,
+                                              device="cpu")
+        out = decay_probe.lane_digest(lam, golden.DECAY_CARD[0])
+    else:
+        out = server_runs.run(server_runs.port_package("cpu"),
+                              server_runs.Spec(**golden.SERVER_CARD),
+                              native_log=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def start_operator_twin(part: str) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+         "operator_cpu_main(sys.argv[1]))", part],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+
+
+def twin_result(proc: subprocess.Popen, what: str) -> dict:
+    text, _ = proc.communicate(timeout=OPERATOR_CPU_TIMEOUT)
+    require(proc.returncode == 0,
+            f"phase 18: the {what} CPU twin exited {proc.returncode}")
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def operator_counts() -> dict:
+    """lambda_counts() and the summary length's launches."""
+    from fluidframework_tpu_torch.mergetree import pallas_ops
+    got = lambda_counts()
+    got["summary_len"] = pallas_ops.summary_lengths.launches
+    return got
+
+
+def operator_counts_since(before: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in operator_counts().items()
+            if n != before.get(k, 0)}
+
+
+def p50(values) -> float:
+    return float(np.percentile(values, 50))
+
+
+def decay_part(dev, card: str, decay_twin) -> None:
+    """Phase 18 (c): the decay probe at the tool's default (held to the
+    JAX golden and the CPU twin by one lane digest) and at the serving
+    fleet's widths (timed, the device's busy share by the profiler); the
+    tool's own verdict, decayed == False, at both."""
+    from fluidframework_tpu_torch.server import decay_probe
+    from fluidframework_tpu_torch.testing import golden
+
+    want = golden.load_decay()["card"]
+    docs, ops, waves = golden.DECAY_CARD
+    res, lam, _rates = decay_probe.probe(docs, ops, waves, device=dev)
+    got = decay_probe.lane_digest(lam, docs)
+    del lam
+    require(got == want["lanes"], f"phase 18 (c): the decay probe's lanes "
+            f"{got} differ from the JAX golden {want['lanes']}")
+    require(not res["decayed"], f"phase 18 (c): decayed at {docs} x {ops} "
+            f"x {waves}: {res}")
+    print(f"phase 18 (c): decay probe {docs} x {ops} x {waves}: lanes equal "
+          f"the JAX golden ({got['folds']} folds, {got['chars']} "
+          f"characters); {res['sustained_ops_per_sec']} ops/s sustained, "
+          f"decayed {res['decayed']}; card {card}", flush=True)
+    # The profiler runs over the last DECAY_BUSY_WAVES waves only: from
+    # the first message of the first of them to the probe's end.
+    from fluidframework_tpu_torch.server.tpu_sequencer import \
+        TpuSequencerLambda
+    docs, ops, waves = DECAY_FLEET
+    window, seen = BusyWindow(), [0]
+    handler = TpuSequencerLambda.handler_raw
+
+    def counted(self, qm):
+        if seen[0] == (waves - DECAY_BUSY_WAVES) * docs:
+            window.start()
+        seen[0] += 1
+        return handler(self, qm)
+
+    TpuSequencerLambda.handler_raw = counted
+    try:
+        res, lam, rates = decay_probe.probe(*DECAY_FLEET, device=dev)
+    finally:
+        TpuSequencerLambda.handler_raw = handler
+        started = seen[0] > (waves - DECAY_BUSY_WAVES) * docs
+        t0 = time.perf_counter()
+        busy = window.stop() if started else None
+        trace_ms = (time.perf_counter() - t0) * 1e3
+    lanes = decay_probe.lane_digest(lam, docs)
+    del lam
+    require(not res["decayed"], f"phase 18 (c): decayed at {DECAY_FLEET}: "
+            f"{res}")
+    wave_ms = [docs * ops / r * 1e3 for r in rates]
+    tail = rates[waves // 4:]
+    med = sorted(tail)[len(tail) // 2]
+    maint = [round(docs * ops / r * 1e3, 1) for r in tail if r < med / 3]
+    waves_ms = sum(wave_ms[-DECAY_BUSY_WAVES:])
+    share = "not measured" if busy is None else f"{busy / waves_ms:.2%}"
+    print(f"phase 18 (c): decay probe at the serving fleet's widths {docs} "
+          f"x {ops} x {waves}: {res['sustained_ops_per_sec']} ops/s "
+          f"sustained (host clock, each wave synced); fast-wave median "
+          f"{res['fast_wave_median_ops_per_sec']} ops/s, first-quartile "
+          f"median {res['fast_wave_first_quartile_median']}, last-quartile "
+          f"median {res['fast_wave_last_quartile_median']}; "
+          f"{res['maintenance_waves']} maintenance waves, ms {maint}; wave "
+          f"ms p50 {p50(wave_ms):.1f}; folds {res['folds']}, payload "
+          f"compactions {res['payload_compactions']}, blocks aged "
+          f"{res['blocks_aged']}, overflow drops {res['overflow_drops']} "
+          f"({lanes['chars']} characters); device busy {fmt_ms(busy)} "
+          f"over the last {DECAY_BUSY_WAVES} waves ({share} of their "
+          f"{waves_ms:.1f} ms, profiler; its trace read in "
+          f"{trace_ms:.0f} ms); decayed {res['decayed']}; card {card}",
+          flush=True)
+    twin = twin_result(decay_twin, "decay probe")
+    seconds = twin.pop("seconds")
+    require(twin == got, f"phase 18 (c): the card's lanes {got} differ from "
+            f"the CPU twin's {twin}")
+    print(f"phase 18 (c): the card equals the CPU twin ({seconds:.1f} s in "
+          f"its process)", flush=True)
+
+
+def bridge_batches(session: int) -> list:
+    """Three chained north-star batches of one session (each continues the
+    last's client and reference sequence numbers)."""
+    from fluidframework_tpu_torch.testing.traces import gen_traces
+    out = []
+    for i in range(BRIDGE_BATCHES):
+        cols = gen_traces(BRIDGE_DOCS, BRIDGE_OPS, seed=10 * session + i)
+        cols["seq"] = cols["seq"] + i * BRIDGE_OPS
+        cols["ref_seq"] = cols["ref_seq"] + i * BRIDGE_OPS
+        out.append(cols)
+    return out
+
+
+def bridge_part(dev, card: str) -> None:
+    """Phase 18 (d): the op bridge's transport-free core at the north-star
+    shape. Two sessions, three chained batches each, interleaved: on one
+    bridge each stage timed on its own (decode, the copy to the card, the
+    step, the copy back and encode; synced between), on a second the
+    whole submit(); every reply byte-equal to encode_reply of the port's
+    full_step chained directly on the card (timed by CUDA events). One
+    more frame carries the golden north-star step's inputs; its reply
+    must equal the JAX outputs."""
+    from fluidframework_tpu_torch.mergetree.state import make_state
+    from fluidframework_tpu_torch.server import bridge as br
+    from fluidframework_tpu_torch.server import pipeline
+    from fluidframework_tpu_torch.server import ticket_kernel as tk
+    from fluidframework_tpu_torch.testing import golden
+
+    staged = br.OpBridge(capacity=BRIDGE_CAPACITY, device=dev)
+    whole = br.OpBridge(capacity=BRIDGE_CAPACITY, device=dev)
+    direct = {s: (tk.make_ticket_state(8, batch=BRIDGE_DOCS, device=dev),
+                  make_state(BRIDGE_CAPACITY, 1, batch=BRIDGE_DOCS,
+                             device=dev))
+              for s in range(BRIDGE_SESSIONS)}
+    frames = {s: [br.encode_ops(c) for c in bridge_batches(s)]
+              for s in range(BRIDGE_SESSIONS)}
+    ms = {k: [] for k in ("decode", "to_card", "step", "reply", "batch",
+                          "direct")}
+    for i in range(BRIDGE_BATCHES):
+        for s in range(BRIDGE_SESSIONS):
+            frame, sid = frames[s][i], f"s{s}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _b, _t, cols = br.decode_ops(frame)
+            t1 = time.perf_counter()
+            raw, ops = staged.to_device(cols)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ticketed, total = staged.step(sid, raw, ops)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            reply = staged.reply(ticketed, total)
+            t4 = time.perf_counter()
+            for k, a, b in (("decode", t0, t1), ("to_card", t1, t2),
+                            ("step", t2, t3), ("reply", t3, t4)):
+                ms[k].append((b - a) * 1e3)
+            t0 = time.perf_counter()
+            reply_whole = whole.submit(sid, frame)
+            ms["batch"].append((time.perf_counter() - t0) * 1e3)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            tstate, mstate, d_tk, d_total = pipeline.full_step(
+                *direct[s], raw, ops)
+            e1.record()
+            torch.cuda.synchronize()
+            ms["direct"].append(e0.elapsed_time(e1))
+            direct[s] = (tstate, mstate)
+            want = br.encode_reply(d_tk.seq.cpu().numpy(),
+                                   d_tk.min_seq.cpu().numpy(),
+                                   d_tk.nacked.cpu().numpy().astype(
+                                       np.int32), d_total.cpu().numpy())
+            require(reply == want and reply_whole == want,
+                    f"phase 18 (d): session {s} batch {i}: the bridge's "
+                    f"reply differs from the direct step's")
+    require(sorted(staged.sessions) == sorted(whole.sessions) == sorted(
+        (f"s{s}", BRIDGE_DOCS) for s in range(BRIDGE_SESSIONS)),
+        f"phase 18 (d): sessions {sorted(staged.sessions)}")
+    g = golden.load()
+    cols = dict(g["step_op"])
+    cols["seq"] = g["step_raw"]["client_seq"]
+    got = br.decode_reply(br.OpBridge(
+        capacity=g["step_min"]["length"].shape[1], device=dev).submit(
+        "golden", br.encode_ops(cols)))
+    t = g["step_ticketed"]
+    require(bool((got["seq"] == t["seq"]).all()
+                 and (got["minSeq"] == t["min_seq"]).all()
+                 and (got["nack"] == t["nacked"]).all()
+                 and (got["totalLen"] == g["step_total"]["total_len"]).all()),
+            "phase 18 (d): the golden step's reply differs from the JAX "
+            "outputs")
+    n = BRIDGE_DOCS * BRIDGE_OPS
+    print(f"phase 18 (d): op bridge {BRIDGE_SESSIONS} sessions x "
+          f"{BRIDGE_BATCHES} batches of {BRIDGE_DOCS} x {BRIDGE_OPS} at C = "
+          f"{BRIDGE_CAPACITY} ({len(frames[0][0]) / 1e6:.1f} MB a request, "
+          f"{len(reply) / 1e6:.1f} MB a reply): every reply equals the "
+          f"direct chained step's, byte for byte, the golden step's reply "
+          f"equals the JAX outputs; p50 ms (host clock, synced): decode "
+          f"{p50(ms['decode']):.3f}, copy to the card "
+          f"{p50(ms['to_card']):.3f}, step {p50(ms['step']):.3f}, copy "
+          f"back + encode {p50(ms['reply']):.3f}, whole submit "
+          f"{p50(ms['batch']):.3f} ({n / p50(ms['batch']) * 1e3:.0f} ops/s); "
+          f"the direct step {p50(ms['direct']):.3f} ms by events "
+          f"({n / p50(ms['direct']) * 1e3:.0f} ops/s); card {card}",
+          flush=True)
+
+
+class ServerWatch:
+    """Phase 18 (e): a ServiceMonitor over the local server (local
+    server, partitions, read path, admission, each sequencer's merge
+    store), a FleetObservatory scraping it, a thread fetching every route
+    of SCRAPE_ROUTES each SCRAPE_EVERY_S over HTTP during the measured
+    waves, and a /profile of each PROFILE_MS window, the first during
+    the second measured wave, the next during the third."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.lat = {r: [] for r in SCRAPE_ROUTES}
+        self.errors, self.samples = [], []
+        self.profiles = []
+        self._stop = threading.Event()
+        self._threads = []
+
+    def start(self, server) -> None:
+        from fluidframework_tpu_torch.server.monitor import ServiceMonitor
+        from fluidframework_tpu_torch.server.observatory import \
+            FleetObservatory
+        self.mon = ServiceMonitor(device=self.dev)
+        self.mon.watch_local_server("server", server)
+        self.mon.watch_partitions("ingest", server)
+        self.mon.watch_readpath("readpath", server)
+        if server.admission is not None:
+            self.mon.watch_admission("admission", server.admission)
+        for i, lam in enumerate(server.ingest.sequencers()):
+            self.mon.watch_summaries(f"summaries.p{i}", lam.merge)
+        self.mon.start()
+        self.obs = FleetObservatory([{"name": "server", "url":
+                                      self.mon.url}], interval_s=1.0)
+        self.obs.start()
+        self._threads = [threading.Thread(target=self._scrape,
+                                          daemon=True)]
+        self._threads[0].start()
+
+    def _get(self, path: str):
+        import urllib.error
+        import urllib.request
+        try:
+            with urllib.request.urlopen(self.mon.url + path,
+                                        timeout=30) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as err:
+            return err.code, err.read()
+
+    def _scrape(self) -> None:
+        while not self._stop.is_set():
+            for route in SCRAPE_ROUTES:
+                t0 = time.perf_counter()
+                try:
+                    status, body = self._get(route)
+                except Exception as exc:  # noqa: BLE001 — reported after
+                    self.errors.append((route, repr(exc)))
+                    continue
+                self.lat[route].append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    self.errors.append((route, status, body[:300]))
+                elif route == "/metrics.prom":
+                    try:
+                        self.samples.append(prom_conformant(body.decode()))
+                    except SmokeFailure as exc:
+                        self.errors.append((route, str(exc)))
+                elif route == "/health" and not json.loads(body)["ok"]:
+                    self.errors.append((route, "not ok", body[:300]))
+            self._stop.wait(SCRAPE_EVERY_S)
+
+    def _take_profile(self, ms: int) -> None:
+        before = operator_counts()
+        status, body = self._get(f"/profile?ms={ms}")
+        self.profiles.append({"ms": ms, "status": status,
+                              "body": json.loads(body),
+                              "launches": operator_counts_since(before)})
+
+    def on_wave(self, i: int) -> None:
+        if i < len(PROFILE_MS):
+            for t in self._threads[1:]:     # one capture at a time
+                t.join(timeout=60)
+            t = threading.Thread(target=self._take_profile,
+                                 args=(PROFILE_MS[i],), daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def stop(self) -> None:
+        for t in self._threads[1:]:          # the /profile request
+            t.join(timeout=60)
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=60)
+            require(not t.is_alive(), "phase 18 (e): a scrape thread hung")
+        self.obs.scrape_once()
+        self.fleet_health = self.obs.fleet_health()
+        self.fleet_samples = prom_conformant(self.obs.fleet_prom())
+        self.health = self.mon.health()
+        self.obs.stop()
+        self.mon.stop()
+
+
+def profile_kernel_events(profile: dict) -> dict:
+    """Kernel events of each port kernel in the /profile capture's Chrome
+    trace."""
+    body = profile["body"]
+    require(profile["status"] == 200 and body.get("ok") and body["files"],
+            f"phase 18 (e): /profile failed: {profile}")
+    with open(os.path.join(body["dir"], "trace.json")) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    out = {k: sum(1 for e in kernels if k in e.get("name", ""))
+           for k in PORT_KERNELS}
+    out["all_kernels"] = len(kernels)
+    return out
+
+
+def server_part(dev, card: str, server_twin, fig17: dict) -> None:
+    """Phase 18 (e): phase 17's bucketed scenario over the C++ message log
+    with the monitor, the observatory and the scraper on it: every digest
+    equal to phase 17's bucketed golden and to a CPU twin, every scrape
+    200 and conformant, /health ok, the profile's files listed."""
+    from fluidframework_tpu_torch.telemetry import counters
+    from fluidframework_tpu_torch.testing import golden
+
+    counters.reset_histograms()
+    watch = ServerWatch(dev)
+    res, fig = server_layout(dev, card, "bucketed",
+                             golden.load_server()["card"]["bucketed"],
+                             native_log=True, watch=watch,
+                             phase="phase 18 (e)")
+    require(not watch.errors, f"phase 18 (e): scrapes failed: "
+            f"{watch.errors[:3]}")
+    require(all(watch.lat[r] for r in SCRAPE_ROUTES) and watch.samples,
+            f"phase 18 (e): no scrape of some route: "
+            f"{ {r: len(v) for r, v in watch.lat.items()} }")
+    require(watch.health["ok"], f"phase 18 (e): /health not ok: "
+            f"{ {k: v for k, v in watch.health.items() if k in ('checks', 'slo')} }")
+    require(watch.fleet_health["workers"]["server"]["ok"],
+            f"phase 18 (e): the observatory saw the server unhealthy: "
+            f"{watch.fleet_health['workers']}")
+    require(len(watch.profiles) == len(PROFILE_MS),
+            f"phase 18 (e): {len(watch.profiles)} profiles taken")
+    events = [(p["ms"], profile_kernel_events(p), p["launches"])
+              for p in watch.profiles]
+    lat = {r: (p50(v), float(np.percentile(v, 99)), len(v))
+           for r, v in watch.lat.items()}
+    print(f"phase 18 (e): C++ log, watched and scraped, {fig['ops_s']:.0f} "
+          f"ops/s, pump p50 {fig['pump_p50']:.1f} p99 {fig['pump_p99']:.1f} "
+          f"ms, against phase 17's Python log (this run, unwatched) "
+          f"{fig17['ops_s']:.0f} ops/s, p50 {fig17['pump_p50']:.1f} p99 "
+          f"{fig17['pump_p99']:.1f} ms; "
+          f"scrape ms p50 / p99 (scrapes) "
+          f"{ {r: (round(a, 2), round(b, 2), n) for r, (a, b, n) in lat.items()} }"
+          f"; every scrape 200, {len(watch.samples)} expositions conformant "
+          f"(last {watch.samples[-1]} samples; the observatory's merge "
+          f"{watch.fleet_samples}), /health ok; /profile wrote "
+          f"{watch.profiles[0]['body']['files']}; by window (ms, the "
+          f"trace's kernel events, the launch counters over the whole "
+          f"request, its export included) {events}; card {card}",
+          flush=True)
+    twin = twin_result(server_twin, "C++-log server")
+    seconds = twin.pop("seconds")
+    for key in res:
+        require(twin[key] == res[key], f"phase 18 (e): {key} differs "
+                f"between the card and the CPU twin")
+    print(f"phase 18 (e): the card equals the CPU twin ({seconds:.1f} s in "
+          f"its process)", flush=True)
+
+
+def operator_phase(dev, card: str, decay_twin, fig17: dict) -> list:
+    """Phase 18, the operator's surface on the card: (a) the conformance
+    tool's --heavy run, (b) the microbench, (c) the decay probe, (d) the
+    op bridge at the north-star shape, (e) the monitored local server over
+    the C++ message log. The kernel counts are set to 0 at the start and
+    read after each part; the parts' launches must add up to the phase's,
+    and each part must launch the kernels of its path. The CPU twins:
+    the decay probe's was started before phase 17, the server's at the
+    start of this phase."""
+    from fluidframework_tpu_torch.mergetree import pallas_ops
+    from fluidframework_tpu_torch.tools import gpu_conformance, microbench
+
+    t_phase = time.perf_counter()
+    server_twin = start_operator_twin("server")
+    captured, restore = capture_largest_launches()
+    parts, secs = {}, {}
+    try:
+        reset_lambda_counts()
+        pallas_ops.summary_lengths.launches = 0
+        try:
+            def part(name, fn):
+                before = operator_counts()
+                t0 = time.perf_counter()
+                fn()
+                secs[name] = round(time.perf_counter() - t0, 1)
+                parts[name] = operator_counts_since(before)
+
+            def conformance():
+                rc = gpu_conformance.main(["--heavy"])
+                require(rc == 0, f"phase 18 (a): the conformance tool "
+                        f"exited {rc}")
+                print(f"phase 18 (a): gpu_conformance --heavy: 0; card "
+                      f"{card}", flush=True)
+
+            def bench():
+                for row in microbench.run_all(2000, with_kernel=True):
+                    print(f"phase 18 (b): microbench {row['probe']:24} "
+                          f"{row['ops']:>8} ops {row['total_ms']:>10.2f} ms "
+                          f"{row['us_per_op']:>10.3f} us/op (host clock, the "
+                          f"kernel row synced); card {card}", flush=True)
+
+            part("a", conformance)
+            part("b", bench)
+            part("c", lambda: decay_part(dev, card, decay_twin))
+            part("d", lambda: bridge_part(dev, card))
+            part("e", lambda: server_part(dev, card, server_twin, fig17))
+        finally:
+            restore()
+        counts = operator_counts()
+        for name, need in (("a", ("fused_apply", "scan_apply")),
+                           ("b", ("scan_apply",)),
+                           ("c", ("ticket_scan", "fused_apply[runs]")),
+                           ("d", ("ticket_scan", "fused_apply",
+                                  "summary_len")),
+                           ("e", ("ticket_scan", "scan_apply"))):
+            require(all(parts[name].get(k, 0) > 0 for k in need),
+                    f"phase 18 ({name}): launched {parts[name]}, not all "
+                    f"of {need}")
+            print(f"phase 18 ({name}): kernel launches {parts[name]}",
+                  flush=True)
+        summed = {k: sum(p.get(k, 0) for p in parts.values())
+                  for k in counts}
+        require(summed == counts, f"phase 18: the parts' launches {parts} "
+                f"do not add up to the phase's {counts}")
+        print(f"phase 18: kernel launches (counts from 0 at the phase's "
+              f"start) {counts}", flush=True)
+        rows = kernel_rows(captured, counts, card, "phase 18")
+    finally:
+        for proc in (server_twin, decay_twin):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s (seconds by "
+          f"part {secs})", flush=True)
     return rows
+
 
 if __name__ == "__main__":
     try:

@@ -241,9 +241,8 @@ class LocalServer:
                  config=None, overlapped: bool = False,
                  admission: Optional[AdmissionController] = None):
         """native_log: False = pure-Python broker (default, the LocalKafka
-        role); None = auto, which here is the pure-Python broker with the
-        fallback counted; True = the C++ engine, which the port does not
-        have yet: it raises NotImplementedError (ROADMAP Queue 1 item 2).
+        role); True or None = the C++ engine (native/oplog.py), built at
+        first use; a failed build raises.
 
         admission: an overload controller to share (alfred passes ONE
         across every tenant core so credits fair-share between tenants);
@@ -258,10 +257,6 @@ class LocalServer:
         overlapped: pump the lambda stages concurrently (OverlappedLambda
         Runner — sequencing batch N+1 while batch N's persistence flushes);
         the serial runner stays the deterministic default."""
-        if native_log:
-            raise NotImplementedError(
-                "LocalServer(native_log=True): the native message log is "
-                "not ported (ROADMAP Queue 1 item 2)")
         self.tenant_id = tenant_id
         self.auto_pump = auto_pump
         self.overlapped = overlapped

@@ -8,10 +8,9 @@ by document; documents hash to partitions; consumers poll per partition and
 commit offsets, so a crashed lambda replays from its last checkpoint
 idempotently (kafka-service/README design).
 
-This module is the pure-Python engine. The JAX package also has a C++
-shared-memory engine (its native/oplog) that `make_message_log` selects
-when it builds; the port has none yet, so `make_message_log` returns
-`MessageLog` (and raises for native=True).
+This module is the pure-Python engine. The C++ engine
+(native/oplog.py over native/src/oplog.cpp) has the same surface;
+`make_message_log` chooses between them.
 """
 
 from __future__ import annotations
@@ -19,8 +18,6 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
-
-from ..telemetry.counters import record_swallow
 
 
 @dataclass
@@ -176,14 +173,12 @@ class MessageLog:
 
 def make_message_log(default_partitions: int = 1,
                      native: Optional[bool] = None):
-    """Broker factory. The port has no native engine yet: native=True
-    raises (as the JAX package does when its engine does not build);
-    native=None falls back to the pure-Python engine and counts the
-    fallback (swallowed.log.native_fallback, as the JAX package does when
-    its engine is unavailable); native=False pins the pure-Python engine."""
+    """Broker factory. native=True and native=None (the default, as in the
+    JAX package where its engine builds) build the C++ engine and use it;
+    a failed build or load raises (NativeBuildError, OSError,
+    AttributeError), and nothing falls back. native=False pins the
+    pure-Python engine."""
     if native is False:
         return MessageLog(default_partitions)
-    if native:
-        raise RuntimeError("the native message log is not ported")
-    record_swallow("log.native_fallback")
-    return MessageLog(default_partitions)
+    from ..native.oplog import NativeMessageLog
+    return NativeMessageLog(default_partitions)

@@ -64,10 +64,16 @@ testing/server_runs.run, as its digests:
   small/<bucketed|paged|overlapped|scalar>
                                  at SERVER_SMALL (the last through
                                  LocalServer, the scalar deli).
+golden/decay_golden.json (DECAY_GOLDEN_PATH) holds the JAX package's
+serving decay probe (server/decay_probe.run) as decay_probe.lane_digest
+of the lambda it drove (the lane-health counters and every lane's text):
+  card                           at DECAY_CARD (the tool's default);
+  small                          at DECAY_SMALL (the JAX test's shape).
 tests/test_torch_golden.py regenerates the files from the JAX package and
 requires equality, so the values cannot drift (the lambda golden through
 tests/test_torch_lambda_golden.py, the server golden through
-tests/test_torch_server_golden.py); chip_smoke.py holds the CUDA kernels,
+tests/test_torch_server_golden.py, the decay golden through
+tests/test_torch_tools.py); chip_smoke.py holds the CUDA kernels,
 the lambda and the local server against them on a machine without JAX.
 """
 
@@ -115,6 +121,11 @@ SERVER_CARD = {"docs": 512, "warm": 2}
 SERVER_SMALL = {"docs": 16, "warm": 1, "measured": 1, "extra": 1,
                 "lww_every": 4, "storm_every": 8, "reader_every": 4,
                 "summary_every": 4, "catchup_every": 4, "touch_every": 8}
+DECAY_GOLDEN_PATH = GOLDEN_PATH.with_name("decay_golden.json")
+# (documents, ops a document a wave, waves) of the decay probe's runs: the
+# tool's documented default (decay_probe.py main) and the JAX test's.
+DECAY_CARD = (256, 16, 40)
+DECAY_SMALL = (32, 8, 16)
 LANES_GOLDEN_PATH = GOLDEN_PATH.with_name("lane_store_golden.npz")
 LANES_JSON_PATH = GOLDEN_PATH.with_name("lane_store_golden.json")
 # The fields of a packed extraction (kernel.extract_visible_batched).
@@ -289,6 +300,17 @@ def load_server(path: Path = SERVER_GOLDEN_PATH) -> dict:
 
 
 def save_server(doc: dict, path: Path = SERVER_GOLDEN_PATH) -> None:
+    with open(path, "w") as f:
+        json.dump(doc, f, sort_keys=True, indent=1)
+        f.write("\n")
+
+
+def load_decay(path: Path = DECAY_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def save_decay(doc: dict, path: Path = DECAY_GOLDEN_PATH) -> None:
     with open(path, "w") as f:
         json.dump(doc, f, sort_keys=True, indent=1)
         f.write("\n")

@@ -298,9 +298,11 @@ def _promoted(server) -> int:
 
 def run(pkg: ServerPackage, spec: Spec, tpu: bool = True,
         paged: bool = False, overlapped: bool = False,
+        native_log: bool = False,
         hooks: Optional[Dict[str, Callable]] = None) -> dict:
     """The scenario on one package's server (TpuLocalServer when `tpu`,
-    else LocalServer). hooks["measured"](server, run_waves) runs the
+    else LocalServer), over the C++ message log when `native_log` (the
+    pure-Python log otherwise). hooks["measured"](server, run_waves) runs the
     measured waves (run_waves(on_wave) submits and settles them, calling
     on_wave(i, n_ops, submit_s, pump_s, drain_s) after each), so a
     caller can time, trace and count them."""
@@ -309,15 +311,16 @@ def run(pkg: ServerPackage, spec: Spec, tpu: bool = True,
     pkg.local_server.uuid = _SeededUuid(spec.seed)
     pkg.storage.time = _CommitClock()
     try:
-        return _run(pkg, spec, tpu, paged, overlapped, hooks)
+        return _run(pkg, spec, tpu, paged, overlapped, native_log, hooks)
     finally:
         pkg.local_server.uuid, pkg.storage.time = saved
 
 
-def _run(pkg, spec, tpu, paged, overlapped, hooks) -> dict:
+def _run(pkg, spec, tpu, paged, overlapped, native_log, hooks) -> dict:
     L = pkg.local_server
     kw = dict(auto_pump=False, partitions=spec.partitions,
-              overlapped=overlapped, config=_Cfg(config(spec)))
+              overlapped=overlapped, native_log=native_log,
+              config=_Cfg(config(spec)))
     if tpu:
         server = L.TpuLocalServer(paged_lanes=paged, **kw, **pkg.kwargs)
     else:

@@ -234,7 +234,8 @@ def test_slice_eleven_local_server_is_covered_and_defaults_to_the_card(
     """The local server's modules are walked by the checks above.
     TpuLocalServer defaults to the card and raises without CUDA; what the
     port does not have yet (a device mesh, the native message log) is
-    refused, naming the ROADMAP item that owes it."""
+    refused, naming the ROADMAP item that owes it; the native message log
+    is built and used."""
     assert set(SLICE_ELEVEN_MODULES) <= set(_port_modules())
     from fluidframework_tpu_torch.server import local_server
 
@@ -246,7 +247,71 @@ def test_slice_eleven_local_server_is_covered_and_defaults_to_the_card(
         ["cpu", "cpu"]
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         local_server.TpuLocalServer(device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        local_server.LocalServer(native_log=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        local_server.TpuLocalServer(device="cpu", native_log=True)
+    from fluidframework_tpu_torch.native.oplog import NativeMessageLog
+    assert isinstance(local_server.LocalServer(native_log=True).log,
+                      NativeMessageLog)
+    assert isinstance(local_server.TpuLocalServer(
+        device="cpu", native_log=True).log, NativeMessageLog)
+
+
+SLICE_TWELVE_MODULES = (
+    "fluidframework_tpu_torch.telemetry.slo",
+    "fluidframework_tpu_torch.server.monitor",
+    "fluidframework_tpu_torch.server.observatory",
+    "fluidframework_tpu_torch.native.oplog",
+    "fluidframework_tpu_torch.server.decay_probe",
+    "fluidframework_tpu_torch.tools",
+    "fluidframework_tpu_torch.tools.microbench",
+    "fluidframework_tpu_torch.tools.gpu_conformance",
+    "fluidframework_tpu_torch.server.bridge",
+)
+
+
+def _top_level_imports(path: Path):
+    """Roots imported at module level (not inside a function or class)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_slice_twelve_is_covered_and_grpc_is_lazy():
+    """The operator's surface is walked by the checks above (no jax, no
+    JAX package); grpc is imported only inside the bridge's transport,
+    where the JAX module imports it, never when a module loads."""
+    assert set(SLICE_TWELVE_MODULES) <= set(_port_modules())
+    lazy = []
+    for path in _port_files():
+        roots = set(_imported_roots(path))
+        assert "grpc" not in set(_top_level_imports(path)), path
+        if "grpc" in roots:
+            lazy.append(str(path.relative_to(REPO)))
+    assert lazy == ["fluidframework_tpu_torch/server/bridge.py"]
+
+
+def test_slice_twelve_entry_points_raise_without_cuda(monkeypatch):
+    """The monitor (its /profile device), the bridge, the decay probe, the
+    microbench's kernel probe and the conformance tool take the card by
+    default and raise (or, for the tool's main, exit 2) without CUDA;
+    device="cpu" builds each."""
+    from fluidframework_tpu_torch.server import bridge, decay_probe, monitor
+    from fluidframework_tpu_torch.tools import gpu_conformance, microbench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (monitor.ServiceMonitor, bridge.OpBridge,
+                 lambda: decay_probe.run(2, 1, 4),
+                 lambda: microbench.probe_kernel_throughput(2, 2),
+                 lambda: gpu_conformance.check(2, 2, 16, 0)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert gpu_conformance.main([]) == 2
+    mon = monitor.ServiceMonitor(device="cpu")
+    try:
+        assert mon.device.type == "cpu"
+    finally:
+        mon._httpd.server_close()
+    assert bridge.OpBridge(device="cpu").device.type == "cpu"

@@ -131,13 +131,17 @@ def test_message_log_matches_jax():
 
 
 def test_make_message_log():
+    """native=None (the default) and native=True build the C++ engine and
+    use it, as the JAX factory does where its engine builds, and count no
+    fallback; native=False pins the pure-Python engine."""
+    from fluidframework_tpu_torch.native.oplog import NativeMessageLog
     before = counters.get("swallowed.log.native_fallback")
-    assert isinstance(tlog.make_message_log(2), tlog.MessageLog)
-    assert counters.get("swallowed.log.native_fallback") == before + 1
+    log = tlog.make_message_log(2)
+    assert isinstance(log, NativeMessageLog)
+    assert len(log.topic("raw").partitions) == 2
+    assert isinstance(tlog.make_message_log(native=True), NativeMessageLog)
     assert type(tlog.make_message_log(native=False)) is tlog.MessageLog
-    assert counters.get("swallowed.log.native_fallback") == before + 1
-    with pytest.raises(RuntimeError, match="not ported"):
-        tlog.make_message_log(native=True)
+    assert counters.get("swallowed.log.native_fallback") == before
 
 
 class _Batcher:

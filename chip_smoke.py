@@ -122,6 +122,24 @@ message log with a ServiceMonitor and a FleetObservatory on it, scraped
 over HTTP every 100 ms during the measured waves with one /profile
 capture, held to phase 17's golden and to a CPU twin, every scrape 200
 and its exposition conformant. Each part must launch its path's kernels.
+Phase 19 drives the client stack (loader/container.Loader, its local
+driver, the container and data-store runtimes, the DDSes) on the card:
+(a) testing/client_runs.py at golden.CLIENT_CARD on TpuLocalServer, with
+late joiners of four kinds (a tail holding the sequences' attach ops, a
+lazy resolve from a summary, a read-only resolve adopting the read
+tier's artifact, a reconnect after a missed gap), held to the JAX golden
+and to a CPU twin in a child process; the scan apply must launch under
+MergeTreeClient.apply_bulk for the first and the last kind, the server
+must launch the ticket scan. (b) BASELINE config #2 through the loader: a
+reader follows the first READER_LIVE_OPS ops of phase 11's trace live,
+disconnects, and reconnects after the rest, on a LocalServer; the cost
+model must route its gap to the card, the scan apply must launch, the
+text must equal the catch-up golden, and the bulk apply must finish on
+the card (no scalar replay); the reconnect's wall is split and printed
+beside phase 11's and beside the same device_apply_tail timed again after
+(b), with no CPU twin running. Phase 15's CPU twins start right after
+phase 5 and run beside phases 6-14; phase 19 (a)'s starts with phase 18
+and runs beside it.
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -223,8 +241,9 @@ LANE_SEED = 15
 LANE_BACKLOG = 700
 LANE_DIRTY_STRIDE = 100
 LANE_ROW_SHAPES = 4
-# The CPU composition of phase 15 runs in a process per store beside the
-# card's run (CPU threads each may use; seconds each may take).
+# The CPU composition of phase 15 runs in a process per store, started
+# after phase 5 (CPU threads each may use; seconds each may take once
+# phase 15 reads it).
 LANE_CPU_THREADS = 3
 LANE_CPU_TIMEOUT = 600
 # Phase 16, the sequencer lambda: the serving-ingest fleet's measured
@@ -1086,28 +1105,50 @@ def main(north_star_only: bool = False) -> int:
     del admitted, p_plain
 
     if not north_star_only:
-        rows += serving_phases(dev, card)
-        fuzz_phase(dev)
-        scan_fuzz_phase(dev)
-        rows += scan_full_step_phase(dev, card)
-        catchup_rows, catchup_entries = catchup_phases(dev, card)
-        rows += catchup_rows
-        paged_rows, hot = paged_phase(dev, card)
-        rows += paged_rows
-        scalar_phase(dev, card, catchup_entries)
-        summarize_phase(dev, card, hot, catchup_entries)
-        del hot
-        rows += lane_store_phase(dev, card)
+        lane_twins = start_lane_twins()
+        twins_from = time.perf_counter()
+        try:
+            rows += serving_phases(dev, card)
+            fuzz_phase(dev)
+            scan_fuzz_phase(dev)
+            rows += scan_full_step_phase(dev, card)
+            catchup_rows, catchup_entries, catchup_ms = catchup_phases(
+                dev, card)
+            rows += catchup_rows
+            paged_rows, hot = paged_phase(dev, card)
+            rows += paged_rows
+            scalar_phase(dev, card, catchup_entries)
+            summarize_phase(dev, card, hot, catchup_entries)
+            del hot
+        except BaseException:
+            stop_twins(lane_twins.values())
+            raise
+        print(f"phases 6-14 ({time.perf_counter() - twins_from:.1f} s) ran "
+              f"beside phase 15's CPU twins (two processes of "
+              f"{LANE_CPU_THREADS} threads): their host-clock figures (the "
+              f"rings' stages, the catch-up's wall and host ms, the scalar "
+              f"replay, the summarize passes) shared the host with them",
+              flush=True)
+        rows += lane_store_phase(dev, card, lane_twins)
         lambda_phase(dev, card)
         decay_twin = start_operator_twin("decay")
         try:
             server_rows, fig17 = server_phase(dev, card)
             rows += server_rows
         except BaseException:
-            decay_twin.kill()
-            decay_twin.wait()
+            stop_twins([decay_twin])
             raise
-        rows += operator_phase(dev, card, decay_twin, fig17["bucketed"])
+        client_twin = start_client_twin()
+        try:
+            rows += operator_phase(dev, card, decay_twin, fig17["bucketed"])
+        except BaseException:
+            stop_twins([client_twin])
+            raise
+        print("phase 18 ran beside its decay and server CPU twins and "
+              "phase 19 (a)'s CPU twin (a process of "
+              f"{CLIENT_CPU_THREADS} threads): its host-clock figures "
+              "shared the host with them", flush=True)
+        rows += client_phase(dev, card, catchup_ms, client_twin)
 
     require(not spilled, f"kernels use stack or spill: {spilled}")
     out = []
@@ -1785,7 +1826,7 @@ def catchup_phases(dev, card: str):
     through the plain composition, entry by entry; every path timed at
     the first chunk of each capacity; a timed and a profiled run, then the
     same with every chunk forced onto global_chunked. Returns the scan
-    kernel's rows and the catch-up's entries."""
+    kernel's rows, the catch-up's entries and its timed wall (ms)."""
     from fluidframework_tpu_torch.mergetree import catchup, kernel
     from fluidframework_tpu_torch.mergetree import pallas_apply as pa
     from fluidframework_tpu_torch.testing import golden
@@ -1902,7 +1943,7 @@ def catchup_phases(dev, card: str):
         kernel.scan_geometry = rule
     require(old["entries"] == entries,
             "catch-up on global_chunked differs from the rule's paths")
-    return rows, entries
+    return rows, entries, new["wall_ms"]
 
 
 def scan_full_step_phase(dev, card: str) -> list:
@@ -2867,7 +2908,29 @@ def lane_cpu_main(args: str, store: str) -> int:
     return 0
 
 
-def lane_store_phase(dev, card: str) -> list:
+def start_lane_twins() -> dict:
+    """Phase 15's CPU composition, a child process per store, started
+    right after phase 5 so that it runs beside phases 6-14 and is done,
+    or nearly, when phase 15 reads it."""
+    from fluidframework_tpu_torch.testing import serving
+    spec = getattr(serving, LANE_SPEC)
+    return {store: subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+         "lane_cpu_main(sys.argv[1], sys.argv[2]))",
+         json.dumps([spec, LANE_SEED, LANE_BACKLOG, LANE_DIRTY_STRIDE]),
+         store], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+        for store in ("bucketed", "paged")}
+
+
+def stop_twins(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def lane_store_phase(dev, card: str, cpu_procs: dict) -> list:
     """Phase 15, the sequencer's lane stores (server/tpu_sequencer.py).
     (a) testing/lanes.golden_run on the card against the committed JAX
     golden (states, results, extracts). (b) The partition: LANE_SPEC's
@@ -2880,7 +2943,8 @@ def lane_store_phase(dev, card: str) -> list:
     the counts at 0, each scan-apply launch event-timed and checked to
     take the rule's geometry, each store call timed by the host clock
     around a synced call. (c) The same stores on the CPU over the same
-    schedules, in a child process started before (b): equal results (placements, texts, entries, recovery
+    schedules, in the child processes `cpu_procs` (start_lane_twins,
+    started after phase 5): equal results (placements, texts, entries, recovery
     counts, extracts, LWW snapshots). (d) The bucketed and the paged
     store agree (testing/lanes.cross_store_mismatches); promotions, folds,
     rescues, page compactions and the paged burst happened; every launch
@@ -2912,15 +2976,8 @@ def lane_store_phase(dev, card: str) -> list:
           f"{doc['paged']['merge']['counts']} paged)", flush=True)
     split["golden"] = time.perf_counter() - t_phase
 
-    # -- (b) the partition on the card, the CPU composition beside it -------
+    # -- (b) the partition on the card --------------------------------------
     spec = getattr(serving, LANE_SPEC)
-    cpu_procs = {store: subprocess.Popen(
-        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
-         "lane_cpu_main(sys.argv[1], sys.argv[2]))",
-         json.dumps([spec, LANE_SEED, LANE_BACKLOG, LANE_DIRTY_STRIDE]),
-         store], cwd=os.path.dirname(os.path.abspath(__file__)),
-        stdout=subprocess.PIPE, text=True)
-        for store in ("bucketed", "paged")}
     t0 = time.perf_counter()
     steps = lanes.scenario(spec, LANE_SEED, LANE_BACKLOG, LANE_DIRTY_STRIDE)
     gen_s = time.perf_counter() - t0
@@ -2977,9 +3034,7 @@ def lane_store_phase(dev, card: str) -> list:
         card_res = run_lane_stores(steps, dev, timer, after)
         torch.cuda.synchronize()
     except BaseException:
-        for proc in cpu_procs.values():
-            proc.kill()
-            proc.wait()
+        stop_twins(cpu_procs.values())
         raise
     finally:
         kernel._launch = launch
@@ -3004,10 +3059,7 @@ def lane_store_phase(dev, card: str) -> list:
             cpu_dig.update(got["digests"])
             cpu_secs[store] = round(got["seconds"], 1)
     finally:
-        for proc in cpu_procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_twins(cpu_procs.values())
     waited_s = split["cpu_wait"] = time.perf_counter() - t0
 
     # -- prints ----------------------------------------------------------------
@@ -3021,8 +3073,9 @@ def lane_store_phase(dev, card: str) -> list:
         shapes[key] = shapes.get(key, 0) + 1
     print(f"phase 15 (b): {LANE_SPEC} ({spec.docs} documents) scenario "
           f"generated in {gen_s:.2f} s; the card's run {card_s:.1f} s, the "
-          f"CPU's {cpu_secs} s in a process per store (waited "
-          f"{waited_s:.1f} s after the card's); scan launches {launches}; by path (count, "
+          f"CPU's {cpu_secs} s in a process per store, started after phase "
+          f"5 (waited {waited_s:.1f} s after the card's); scan launches "
+          f"{launches}; by path (count, "
           f"event ms) {path_ms}; shapes (B, C, T, variant): launches "
           f"{dict(sorted(shapes.items()))}; serve.paged_burst calls "
           f"{n_bursts}; card {card}", flush=True)
@@ -3431,10 +3484,7 @@ def lambda_phase(dev, card: str) -> None:
                   f"{time.perf_counter() - t0:.1f} s after the card)",
                   flush=True)
     finally:
-        for proc in twins.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_twins(twins.values())
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
@@ -3851,10 +3901,7 @@ def server_phase(dev, card: str) -> list:
                   f"{time.perf_counter() - t0:.1f} s after the card)",
                   flush=True)
     finally:
-        for proc in twins.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_twins(twins.values())
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows, figures
 
@@ -4407,14 +4454,371 @@ def operator_phase(dev, card: str, decay_twin, fig17: dict) -> list:
               f"start) {counts}", flush=True)
         rows = kernel_rows(captured, counts, card, "phase 18")
     finally:
-        for proc in (server_twin, decay_twin):
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_twins((server_twin, decay_twin))
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s (seconds by "
           f"part {secs})", flush=True)
     return rows
 
+
+# -- phase 19: the client stack ----------------------------------------------
+
+# The CPU twin of (a): its threads and time limit.
+CLIENT_CPU_THREADS = 2
+CLIENT_CPU_TIMEOUT = 300
+# (b): the reader follows the first READER_LIVE_OPS ops of the trace live,
+# then misses the rest. The first multiple of 5,000 at which the cost model
+# routes the reader's gap to the card (about 217 live segments there; a
+# few dozen suffice by costmodel.py's constants). The writer submits the
+# trace's ops in boxcars of TRACE_BOXCAR, pumping every TRACE_PUMP_EVERY.
+READER_LIVE_OPS = 5_000
+TRACE_BOXCAR = 64
+TRACE_PUMP_EVERY = 8
+
+
+def client_cpu_main() -> int:
+    """Phase 19 (a)'s CPU twin in a process of its own: testing/
+    client_runs at golden.CLIENT_CARD on the CPU; one JSON line."""
+    from fluidframework_tpu_torch.testing import client_runs, golden
+    torch.set_num_threads(CLIENT_CPU_THREADS)
+    t0 = time.perf_counter()
+    out = client_runs.run(client_runs.port_package("cpu"),
+                          client_runs.Spec(**golden.CLIENT_CARD))
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def client_scenario_part(dev, card: str) -> dict:
+    """Phase 19 (a): testing/client_runs at golden.CLIENT_CARD on the
+    card (TpuLocalServer and Loader on `dev`; the scenario pins
+    FLUID_TPU_FORCE_BULK=1 for its run and restores it), held to the JAX
+    golden. Scan-apply launches are counted under MergeTreeClient.
+    apply_bulk for each late joiner's catch-up; kinds 1 and 4 must
+    launch, the server must launch the ticket scan, the kind-3 readers
+    must adopt, and the read tier must swallow nothing."""
+    from fluidframework_tpu_torch.testing import client_runs, golden
+
+    want = golden.load_client()["card"]
+    before = lambda_counts()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    got, under = client_runs.run_counted(
+        client_runs.port_package(dev), client_runs.Spec(**golden.CLIENT_CARD))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - h0
+    part = counts_since(before)
+    require(os.environ.get("FLUID_TPU_FORCE_BULK") is None,
+            "phase 19 (a): the scenario left FLUID_TPU_FORCE_BULK set")
+    for key in want:
+        require(got[key] == want[key], f"phase 19 (a): {key} differs from "
+                f"the JAX golden: {got[key]} vs {want[key]}")
+    require(under[1] > 0 and under[4] > 0, f"phase 19 (a): scan-apply "
+            f"launches under apply_bulk by late-joiner kind {under}: kinds "
+            "1 and 4 must launch")
+    require(part.get("ticket_scan", 0) > 0, f"phase 19 (a): no ticket-scan "
+            f"launch: {part}")
+    require(got["adopted"] > 0 and got["swallowed"] == 0,
+            f"phase 19 (a): adopted {got['adopted']}, read-tier swallows "
+            f"{got['swallowed']}")
+    print(f"phase 19 (a): the client stack at {golden.CLIENT_CARD} on the "
+          f"card equals the JAX golden ({got['ops']} sequenced messages, "
+          f"{got['waves']} waves; apply_bulk calls by kind "
+          f"{got['bulk_applies']}, scan-apply launches under them "
+          f"{under}; adopted {got['adopted']:.0f}, swallowed "
+          f"{got['swallowed']:.0f}; diverged {got['diverged']}, as in the "
+          f"JAX golden); {wall_s:.1f} s; kernel launches {part}; card "
+          f"{card}", flush=True)
+    return {"result": got, "launches": part, "under_bulk": under,
+            "wall_s": wall_s}
+
+
+def reader_catchup_part(dev, card: str, catchup_ms: float) -> dict:
+    """Phase 19 (b), BASELINE config #2 through the loader: the phase 11
+    trace (keystroke_trace(100,000, seed=12), one client) submitted as
+    channel ops over one Connection in boxcars on a LocalServer (no read
+    tier: the reconnect takes the tail path). A reader container
+    (Loader on `dev`) follows the first READER_LIVE_OPS ops live, reads
+    its text (materializing its body), disconnects, misses the rest and
+    reconnects: DeltaManager's catch-up hands the gap to Container.
+    _process_bulk, and SharedString.process_bulk_core routes it by the
+    cost model (no force) with the reader's own live segments. The route
+    must pick the card, apply_bulk must launch the scan apply, and the
+    text must equal catchup_golden.json's digest. Prints the reconnect's
+    wall split (delta fetch, _process_bulk, apply_bulk, the scan kernel's
+    event ms) beside phase 11's device_apply_tail wall, then apply_bulk's
+    host stages (catchup's stats) and the garbage collector's pauses in
+    the reconnect."""
+    import gc
+    import hashlib
+
+    from fluidframework_tpu_torch.dds.sequence import SharedString
+    from fluidframework_tpu_torch.loader.container import Loader
+    from fluidframework_tpu_torch.loader.drivers import local as driver
+    from fluidframework_tpu_torch.mergetree import catchup, costmodel, kernel
+    from fluidframework_tpu_torch.mergetree.catchup import CHUNK_T
+    from fluidframework_tpu_torch.mergetree.client import MergeTreeClient
+    from fluidframework_tpu_torch.protocol.messages import (DocumentMessage,
+                                                            MessageType)
+    from fluidframework_tpu_torch.server.local_server import LocalServer
+    from fluidframework_tpu_torch.testing import client_runs, golden
+    from fluidframework_tpu_torch.testing.server_runs import _Cfg
+    from fluidframework_tpu_torch.testing.traces import keystroke_trace
+
+    force = os.environ.pop("FLUID_TPU_FORCE_BULK", None)
+    g = golden.load_catchup()["full"]
+    n_ops, seed, n_clients = g["trace"]
+    require(n_clients == 1, "phase 19 (b): the trace must have one client")
+    ops = [op for op, *_ in keystroke_trace(n_ops, seed=seed,
+                                            n_clients=n_clients)]
+    server = LocalServer(auto_pump=False, config=_Cfg(client_runs.config()))
+    loader = Loader(driver.LocalDocumentServiceFactory(server), device=dev)
+    creator = loader.create_detached("config2")
+    creator.runtime.create_datastore("default").create_channel(
+        "text", SharedString.TYPE)
+    creator.attach()
+    server.pump()
+    creator.close()  # a live replica would replay every op scalar
+    writer = server.connect("config2")
+    seen, nacks, csn = [0], [], [0]
+    writer.on("op", lambda m: seen.__setitem__(
+        0, max(seen[0], m.sequence_number)))
+    writer.on("nack", nacks.append)
+    server.pump()
+    reader = loader.resolve("config2")
+    server.pump()
+    text = reader.runtime.get_datastore("default").get_channel("text")
+
+    def feed(batch) -> float:
+        t0 = time.perf_counter()
+        for i in range(0, len(batch), TRACE_BOXCAR):
+            msgs = []
+            for op in batch[i:i + TRACE_BOXCAR]:
+                csn[0] += 1
+                msgs.append(DocumentMessage(
+                    client_sequence_number=csn[0],
+                    reference_sequence_number=seen[0],
+                    type=MessageType.OPERATION,
+                    contents={"address": "default", "contents": {
+                        "address": "text", "contents": op}}))
+            writer.submit(msgs)
+            if (i // TRACE_BOXCAR) % TRACE_PUMP_EVERY == \
+                    TRACE_PUMP_EVERY - 1:
+                server.pump()
+        server.pump()
+        return time.perf_counter() - t0
+
+    live_s = feed(ops[:READER_LIVE_OPS])
+    t0 = time.perf_counter()
+    text.get_text()  # materializes the body: the deferred ops replay
+    materialize_s = time.perf_counter() - t0
+    segs = len(text.client.tree.segments)
+    rest = n_ops - READER_LIVE_OPS
+    scalar_s = rest * (costmodel.SCALAR_BASE_S
+                       + costmodel.SCALAR_PER_SEG_S * segs)
+    device_s = (-(-rest // CHUNK_T) * costmodel.DEVICE_CHUNK_S
+                + rest * costmodel.DEVICE_PER_OP_S)
+    wins = costmodel.device_bulk_wins(rest, segs, backend=text.device.type)
+    print(f"phase 19 (b): the reader followed the first {READER_LIVE_OPS} "
+          f"ops live ({live_s:.1f} s of submit and pump; its body "
+          f"materialized in {materialize_s:.2f} s) with {segs} live "
+          f"segments; the cost model for its {rest}-op gap: scalar "
+          f"{scalar_s:.3f} s against device {device_s:.3f} s x "
+          f"{costmodel.HYSTERESIS} -> "
+          f"{'device' if wins else 'scalar'}", flush=True)
+    require(wins, "phase 19 (b): the cost model routes the reader's gap "
+            "scalar")
+    reader.delta_manager.disconnect()
+    server.pump()
+    gap_s = feed(ops[READER_LIVE_OPS:])
+    bulk_before = text.bulk_catchup_count
+    require(not nacks, f"phase 19 (b): the writer was nacked: {nacks[:3]}")
+
+    times = {"fetch": 0.0, "process_bulk": 0.0, "apply_bulk": 0.0}
+    calls = {"apply_bulk": 0, "finished": 0, "launches": 0}
+    events, stats, pauses, gc_t0 = [], {}, [], [0.0]
+    get, apply_bulk, launch, apply_tail = (
+        driver.LocalDeltaStorageService.get, MergeTreeClient.apply_bulk,
+        kernel._launch, catchup.device_apply_tail)
+    dm = reader.delta_manager
+    handler = dm._bulk_handler
+
+    def timed(key, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                times[key] += time.perf_counter() - t0
+        return wrapped
+
+    def counted_apply(self, tail, *args):
+        n0 = kernel.scan_apply.launches
+        calls["apply_bulk"] += 1
+        try:
+            out = apply_bulk(self, tail, *args)
+            calls["finished"] += 1
+            return out
+        finally:
+            calls["launches"] += kernel.scan_apply.launches - n0
+
+    def with_stats(*args, **kwargs):
+        return apply_tail(*args, stats=stats, **kwargs)
+
+    def gc_timed(phase, info):
+        # The collector's pauses inside the reconnect: the host holds
+        # every sequenced message of the document as Python objects.
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            pauses.append((info["generation"], time.perf_counter() - gc_t0[0]))
+
+    def evented(state, ops_, runs, geo):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = launch(state, ops_, runs, geo)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    driver.LocalDeltaStorageService.get = timed("fetch", get)
+    MergeTreeClient.apply_bulk = timed("apply_bulk", counted_apply)
+    kernel._launch = evented
+    catchup.device_apply_tail = with_stats
+    dm._bulk_handler = timed("process_bulk", handler)
+    gc.callbacks.append(gc_timed)
+    try:
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        reader.reconnect()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - h0) * 1e3
+    finally:
+        gc.callbacks.remove(gc_timed)
+        (driver.LocalDeltaStorageService.get, MergeTreeClient.apply_bulk,
+         kernel._launch, catchup.device_apply_tail) = (
+            get, apply_bulk, launch, apply_tail)
+        dm._bulk_handler = handler
+        if force is not None:
+            os.environ["FLUID_TPU_FORCE_BULK"] = force
+    server.pump()
+    kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
+    got = text.get_text()
+    sha = hashlib.sha256(got.encode()).hexdigest()
+    require(len(got) == g["digest"]["visible_length"]
+            and sha == g["digest"]["text_sha256"],
+            f"phase 19 (b): the reader's text (length {len(got)}, sha256 "
+            f"{sha}) differs from the catch-up golden")
+    require(calls["apply_bulk"] > 0 and calls["launches"] > 0,
+            f"phase 19 (b): the gap did not reach the kernel: {calls}")
+    # A bulk apply that raised after launching would have left the run to
+    # the scalar replay: the channel counts only a bulk apply that finished.
+    require(text.bulk_catchup_count > bulk_before
+            and calls["finished"] == calls["apply_bulk"],
+            f"phase 19 (b): the gap was replayed scalar (bulk catch-ups "
+            f"{bulk_before} -> {text.bulk_catchup_count}, apply_bulk "
+            f"{calls})")
+    split = {k: round(v * 1e3, 3) for k, v in times.items()}
+    print(f"phase 19 (b): the reconnect caught up {rest} ops in "
+          f"{wall_ms:.3f} ms ({rest / (wall_ms / 1e3):.0f} ops/s; host "
+          f"clock from connect to the channel at the head, synced): delta "
+          f"fetch {split['fetch']} ms, _process_bulk "
+          f"{split['process_bulk']} ms, of it apply_bulk "
+          f"{split['apply_bulk']} ms ({calls['apply_bulk']} call(s)), of "
+          f"it the scan kernel {kernel_ms:.3f} ms by events over "
+          f"{calls['launches']} launches; phase 11's device_apply_tail "
+          f"of all {n_ops} ops {catchup_ms:.3f} ms in this run; the text "
+          f"equals the golden (length {len(got)}); the gap's ops were "
+          f"submitted and pumped in {gap_s:.1f} s; card {card}", flush=True)
+    host = {k[:-2]: round(v * 1e3, 3) for k, v in stats.items()
+            if k.endswith("_s")}
+    old = [s for g_, s in pauses if g_ == 2]
+    print(f"phase 19 (b): apply_bulk's catch-up by stage, host ms {host}; "
+          f"chunks {stats.get('chunks')}, folds {stats.get('folds', 0)}, "
+          f"retries {stats.get('retries', 0)}; the garbage collector "
+          f"paused {len(pauses)} times for "
+          f"{sum(s for _, s in pauses) * 1e3:.3f} ms in the reconnect, "
+          f"{len(old)} full collections for {sum(old) * 1e3:.3f} ms; card "
+          f"{card}", flush=True)
+    return {"wall_ms": wall_ms, "split_ms": split, "kernel_ms": kernel_ms,
+            "calls": calls, "segments": segs}
+
+
+def start_client_twin() -> subprocess.Popen:
+    """Phase 19 (a)'s CPU twin (client_cpu_main), started with phase 18 so
+    that it is done when phase 19 reads it, before (b)'s timed reconnect."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+         "client_cpu_main())"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+
+
+def retime_catchup(dev, card: str, catchup_ms: float) -> float:
+    """Phase 11's device_apply_tail of the whole trace, timed once more
+    here, with no CPU twin running: the quiet-host figure that (b)'s
+    reconnect is compared with. Outside the counted window."""
+    from fluidframework_tpu_torch.mergetree import catchup
+    from fluidframework_tpu_torch.testing import golden
+    from fluidframework_tpu_torch.testing.traces import keystroke_trace
+
+    n_ops, seed, n_clients = golden.load_catchup()["full"]["trace"]
+    tail = keystroke_trace(n_ops, seed=seed, n_clients=n_clients)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    catchup.device_apply_tail([], tail, 0, 0, device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - h0) * 1e3
+    print(f"phase 19: device_apply_tail of all {n_ops} ops again, no CPU "
+          f"twin running: {ms:.3f} ms (phase 11's, beside phase 15's "
+          f"twins: {catchup_ms:.3f} ms); card {card}", flush=True)
+    return ms
+
+
+def client_phase(dev, card: str, catchup_ms: float,
+                 twin: subprocess.Popen) -> list:
+    """Phase 19, the client stack on the card: (a) client_scenario_part,
+    held also to its CPU twin (started with phase 18) and collected
+    before (b), so that (b) runs on a quiet host; then (b)
+    reader_catchup_part and retime_catchup. The kernel counts are set to
+    0 at the start; the kernel rows are the largest launch of each kernel
+    in (a) and in (b) (the catch-up's chunk shape), with each part's
+    launches."""
+    t_phase = time.perf_counter()
+    rows = []
+    try:
+        reset_lambda_counts()
+        captured, restore = capture_largest_launches()
+        try:
+            a = client_scenario_part(dev, card)
+        finally:
+            restore()
+        rows += kernel_rows(captured, a["launches"], card, "phase 19 (a)")
+        t0 = time.perf_counter()
+        text, _ = twin.communicate(timeout=CLIENT_CPU_TIMEOUT)
+        require(twin.returncode == 0,
+                f"phase 19: the CPU twin exited {twin.returncode}")
+        got = json.loads(text.strip().splitlines()[-1])
+        for key, value in a["result"].items():
+            require(got[key] == value, f"phase 19 (a): {key} differs "
+                    f"between the card and the CPU twin")
+        print(f"phase 19 (a): the card equals the CPU twin "
+              f"({got['seconds']:.1f} s in its process; waited "
+              f"{time.perf_counter() - t0:.1f} s after (a))", flush=True)
+    finally:
+        stop_twins([twin])
+    captured, restore = capture_largest_launches()
+    before = lambda_counts()
+    try:
+        reader_catchup_part(dev, card, catchup_ms)
+    finally:
+        restore()
+    part_b = counts_since(before)
+    print(f"phase 19 (b): kernel launches {part_b}", flush=True)
+    rows += kernel_rows(captured, part_b, card, "phase 19 (b)")
+    retime_catchup(dev, card, catchup_ms)
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
 
 if __name__ == "__main__":
     try:

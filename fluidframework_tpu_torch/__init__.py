@@ -56,6 +56,13 @@ is easy to find:
   telemetry/compile_ledger.py  per-symbol compile attribution (new
                           signatures, the CUDA library build)
   telemetry/tracing.py    op-lifecycle tracing and the flight recorder
+  dds/                    the DDSes (SharedString and the other sequences,
+                          SharedMatrix, SharedMap, SharedDirectory, the
+                          counter, cell, consensus and small DDSes)
+  runtime/                ContainerRuntime, DataStoreRuntime (the device
+                          hand-off to channels), pending state, summarizer
+  loader/                 Loader, Container, DeltaManager and the local
+                          driver onto server/local_server.py
   kernels/                nvcc build of csrc/*.cu and the ctypes bindings
   interop.py              numpy <-> tensor converters for the conformance tests
   testing/                seeded traces (incl. keystroke_trace), serving

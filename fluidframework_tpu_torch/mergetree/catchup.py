@@ -73,6 +73,15 @@ class Unmodelable(BulkApplyUnsupported):
     path."""
 
 
+class EscalationExhausted(Unmodelable):
+    """A chunk still overflowed after every capacity and ring escalation:
+    an op the seeded state cannot hold (a lane restored without its
+    content) or a kernel fault. An Unmodelable, so the server's lanes
+    degrade on it as the JAX package's do; MergeTreeClient.apply_bulk
+    raises it as a RuntimeError, since a client's own tail fits its state
+    and a scalar replay would hide the kernel."""
+
+
 def wire_to_host_ops(builder: OpBuilder, op: dict, seq: int, ref_seq: int,
                      client: int, msn: int,
                      allow_items: bool = False,
@@ -548,7 +557,9 @@ def apply_host_ops(entries: Sequence[dict], host_ops: Sequence[HostOp],
     rescue. device defaults to "cuda". Each chunk runs kernel.apply_ops_keep
     (the scan-apply kernel for a state on the card); plain=True runs the
     plain PyTorch scan on any device instead, the reference the kernel
-    run is held to.
+    run is held to. Raises CapacityExceeded when the rows outgrow the
+    largest capacity bucket, and EscalationExhausted when a chunk still
+    overflows after escalation.
 
     stats, when given, receives: "chunks" {"CxT": applies}, "compacts"
     {C: calls}, "folds" (row-space folds before a chunk), "retries"
@@ -564,8 +575,8 @@ def apply_host_ops(entries: Sequence[dict], host_ops: Sequence[HostOp],
         for c in CAPACITY_BUCKETS:
             if need <= c:
                 return c
-        raise Unmodelable(f"{rows} live segments exceed the largest "
-                          f"catch-up capacity {CAPACITY_BUCKETS[-1]}")
+        raise CapacityExceeded(f"{rows} live segments exceed the largest "
+                               f"catch-up capacity {CAPACITY_BUCKETS[-1]}")
 
     from .oppack import RUN_K, RunSlot, pack_run_slots, pack_slots
     from .state import DEFAULT_ANNO_SLOTS
@@ -663,8 +674,8 @@ def apply_host_ops(entries: Sequence[dict], host_ops: Sequence[HostOp],
             # can push.
             tries += 1
             if tries > 4 or (tries > 1 and anno_slots >= t):
-                raise Unmodelable("catch-up chunk overflowed after "
-                                  "escalation — invariant violation")
+                raise EscalationExhausted("catch-up chunk overflowed after "
+                                          "escalation — invariant violation")
             _count(stats, "retries")
             if tries > 1:
                 anno_slots = min(2 * anno_slots, t)

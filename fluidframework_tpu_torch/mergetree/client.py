@@ -12,8 +12,8 @@ The interactive path runs on the scalar oracle (single-op latency); bulk
 catch-up (`apply_bulk`) runs the op tail through mergetree/catchup.py's
 device_apply_tail, whose chunks launch the scan-apply kernel on the card
 (kernels/csrc/scan_apply.cu) and run the plain PyTorch scan on the CPU.
-The client takes `device=`, which only `apply_bulk` uses: None means
-"cuda", and the tests pass "cpu". Everything else is the JAX client's code
+The client takes `device=`, which only `apply_bulk` uses (unless its
+caller names another): None means "cuda", and the tests pass "cpu". Everything else is the JAX client's code
 unchanged.
 
 Wire op shape mirrors reference ops.ts (IMergeTreeInsertMsg/RemoveMsg/
@@ -212,21 +212,27 @@ class MergeTreeClient(TypedEventEmitter):
             self.tree.ack(seq)
 
     # -- device bulk catch-up ---------------------------------------------
-    def apply_bulk(self, tail: List[tuple]) -> None:
+    def apply_bulk(self, tail: List[tuple], device=None) -> None:
         """Apply a large sequenced-op tail through the device kernel and
         adopt the result (the bulk half of reference deltaManager.ts:1380
         catch-up; engine in mergetree/catchup.py).
 
         tail: [(wire_op_dict, seq, ref_seq, client_ordinal, msn)], strictly
-        ordered, all remote; the chunks run on the client's device. Raises
+        ordered, all remote; the chunks run on `device`, None meaning the
+        client's own (a channel passes its data store's). Raises
         catchup.Unmodelable (caller falls back to per-op apply_msg) when
-        the tail or current state contains content
-        the kernel cannot represent. Pending local inserts/removes ride
+        the tail or current state contains content the kernel cannot
+        represent, and core.errors.CapacityExceeded when the table
+        outgrows the largest capacity; the kernel's refusal and a chunk
+        that overflows after escalation are RuntimeErrors. State is
+        untouched on any raise. Pending local inserts/removes ride
         along (the kernel models DEV_UNASSIGNED segments; remote
         perspectives never see them), and pending ANNOTATES ride as
         DEV_UNASSIGNED ring entries (collab_segments pendingAnnotates) —
         all pending groups rebuild from the round-tripped localSeq tags."""
-        from .catchup import Unmodelable, device_apply_tail
+        from ..core.errors import CapacityExceeded
+        from .catchup import (EscalationExhausted, Unmodelable,
+                              device_apply_tail)
 
         pending = self.tree.pending_groups
         if not tail:
@@ -237,9 +243,24 @@ class MergeTreeClient(TypedEventEmitter):
             raise Unmodelable("own sequenced ops in tail need ack pairing")
         entries = (self.tree.collab_segments() if pending
                    else self.tree.snapshot_segments())
-        new_entries = device_apply_tail(
-            entries, tail, min_seq=self.tree.min_seq,
-            current_seq=self.tree.current_seq, device=self.device)
+        try:
+            new_entries = device_apply_tail(
+                entries, tail, min_seq=self.tree.min_seq,
+                current_seq=self.tree.current_seq,
+                device=self.device if device is None else device)
+        except CapacityExceeded:
+            raise  # the capacity ceiling: callers finish the tail per-op
+        except EscalationExhausted as err:
+            # The scan kept reporting overflow on a tail that fits this
+            # client's state: a kernel fault, not a scalar fallback.
+            raise RuntimeError(
+                f"bulk catch-up failed on the kernel: {err}") from err
+        except ValueError as err:
+            # The scan-apply wrapper refuses a shape, a dtype or a tensor
+            # off the card with a ValueError. It must not look like the
+            # capacity ceiling to a caller's scalar fallback.
+            raise RuntimeError(
+                f"bulk catch-up refused by the kernel: {err}") from err
         last_seq = tail[-1][1]
         last_msn = tail[-1][4]
         tree = MergeTreeOracle.load_segments(

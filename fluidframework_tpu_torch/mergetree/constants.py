@@ -30,3 +30,6 @@ DEFAULT_T_BUCKETS = (1, 4, 16, 64, 256)
 # segments coalesce up to this many characters (reference mergeTree.ts
 # TextSegmentGranularity).
 TEXT_SEGMENT_GRANULARITY = 256
+
+# Summary body chunk size in characters (reference snapshotV1.ts:40).
+SNAPSHOT_CHUNK_SIZE = 10000

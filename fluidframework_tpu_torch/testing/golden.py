@@ -64,6 +64,11 @@ testing/server_runs.run, as its digests:
   small/<bucketed|paged|overlapped|scalar>
                                  at SERVER_SMALL (the last through
                                  LocalServer, the scalar deli).
+golden/client_golden.json (CLIENT_GOLDEN_PATH) holds the JAX package's
+client stack (Loader, local driver, runtime and DDSes) on its
+TpuLocalServer through testing/client_runs.run, as its digests:
+  card                           at CLIENT_CARD;
+  small                          at CLIENT_SMALL.
 golden/decay_golden.json (DECAY_GOLDEN_PATH) holds the JAX package's
 serving decay probe (server/decay_probe.run) as decay_probe.lane_digest
 of the lambda it drove (the lane-health counters and every lane's text):
@@ -121,6 +126,12 @@ SERVER_CARD = {"docs": 512, "warm": 2}
 SERVER_SMALL = {"docs": 16, "warm": 1, "measured": 1, "extra": 1,
                 "lww_every": 4, "storm_every": 8, "reader_every": 4,
                 "summary_every": 4, "catchup_every": 4, "touch_every": 8}
+CLIENT_GOLDEN_PATH = GOLDEN_PATH.with_name("client_golden.json")
+# testing/client_runs.Spec fields. The small fleet has one document of
+# each late-joiner kind; the card's has two of each, three rounds and 32
+# edits a sequence a writer a wave.
+CLIENT_CARD = {"docs": 8, "rounds": 3, "ops": 32}
+CLIENT_SMALL = {"docs": 4, "rounds": 2, "ops": 24}
 DECAY_GOLDEN_PATH = GOLDEN_PATH.with_name("decay_golden.json")
 # (documents, ops a document a wave, waves) of the decay probe's runs: the
 # tool's documented default (decay_probe.py main) and the JAX test's.
@@ -300,6 +311,17 @@ def load_server(path: Path = SERVER_GOLDEN_PATH) -> dict:
 
 
 def save_server(doc: dict, path: Path = SERVER_GOLDEN_PATH) -> None:
+    with open(path, "w") as f:
+        json.dump(doc, f, sort_keys=True, indent=1)
+        f.write("\n")
+
+
+def load_client(path: Path = CLIENT_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def save_client(doc: dict, path: Path = CLIENT_GOLDEN_PATH) -> None:
     with open(path, "w") as f:
         json.dump(doc, f, sort_keys=True, indent=1)
         f.write("\n")

@@ -1,7 +1,8 @@
 """Synthetic editing traces.
 
 `gen_traces` is a copy of the repository's `bench.py gen_traces`, and
-`keystroke_trace` of fluidframework_tpu's testing/traces.py: the same
+`keystroke_trace`, `matrix_storm` and `directory_merge_script` of
+fluidframework_tpu's testing/traces.py: the same
 generators with the same seed behaviour, so the port and the JAX package
 replay identical ops. The rest are the port's own generators for holding
 its kernels against their plain versions.
@@ -357,6 +358,86 @@ def keystroke_trace(n_ops: int, seed: int = 0, n_clients: int = 1,
         lag = 0 if n_clients == 1 else rng.randrange(0, 4)
         out.append((op, seq, max(0, seq - 1 - lag), 1 + c,
                     max(0, seq - window)))
+    return out
+
+
+def matrix_storm(rows: int, cols: int, n_ops: int, seed: int = 0):
+    """Spreadsheet op storm for a rows×cols SharedMatrix (BASELINE config
+    #3): 6% row inserts, 4% col inserts, 2% row/col removes, 88% cell
+    sets with row/col locality (edits cluster around a moving active
+    cell, the way spreadsheet sessions behave).
+
+    Yields ("insert_rows"|"insert_cols"|"remove_rows"|"remove_cols"|
+    "set", args...) host commands for a driver loop; the dimensions are
+    tracked so every command is valid at emission time."""
+    rng = random.Random(seed)
+    r, c = rows, cols
+    active_r, active_c = 0, 0
+    out = []
+    for i in range(n_ops):
+        roll = rng.random()
+        if roll < 0.06:
+            at = rng.randrange(r + 1)
+            out.append(("insert_rows", at, 1))
+            r += 1
+        elif roll < 0.10:
+            at = rng.randrange(c + 1)
+            out.append(("insert_cols", at, 1))
+            c += 1
+        elif roll < 0.11 and r > 8:
+            at = rng.randrange(r - 1)
+            out.append(("remove_rows", at, 1))
+            r -= 1
+        elif roll < 0.12 and c > 8:
+            at = rng.randrange(c - 1)
+            out.append(("remove_cols", at, 1))
+            c -= 1
+        else:
+            if rng.random() < 0.8:  # locality: stay near the active cell
+                active_r = min(max(active_r + rng.randrange(-2, 3), 0),
+                               r - 1)
+                active_c = min(max(active_c + rng.randrange(-2, 3), 0),
+                               c - 1)
+            else:  # jump
+                active_r, active_c = rng.randrange(r), rng.randrange(c)
+            out.append(("set", active_r, active_c, i))
+    return out
+
+
+def directory_merge_script(n_ops: int, n_clients: int = 4, depth: int = 3,
+                           fanout: int = 5, seed: int = 0):
+    """Nested-subtree merge workload for SharedDirectory (BASELINE config
+    #4): concurrent editors write keys into a tree of subdirectories
+    (depth×fanout), with per-client working-directory locality, subtree
+    creation, key deletes, and occasional whole-subtree clears.
+
+    Returns [(client, path_tuple, command, *args)]."""
+    rng = random.Random(seed)
+    paths = [()]
+    last = [()]
+    for _ in range(depth):
+        last = [p + (f"d{i}",) for p in last for i in range(fanout)]
+        paths += last
+    homes = [rng.choice(paths) for _ in range(n_clients)]
+    out = []
+    for i in range(n_ops):
+        c = rng.randrange(n_clients)
+        if rng.random() < 0.85:  # work near home
+            path = homes[c]
+        else:
+            path = rng.choice(paths)
+            homes[c] = path
+        roll = rng.random()
+        if roll < 0.80:
+            out.append((c, path, "set", f"k{rng.randrange(32)}", i))
+        elif roll < 0.90:
+            out.append((c, path, "delete", f"k{rng.randrange(32)}"))
+        elif roll < 0.97:
+            sub = f"s{rng.randrange(8)}"
+            out.append((c, path, "set_subdir_key", sub,
+                        f"k{rng.randrange(8)}", i))
+        else:
+            out.append((c, path, "clear"))
     return out
 
 

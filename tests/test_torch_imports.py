@@ -315,3 +315,70 @@ def test_slice_twelve_entry_points_raise_without_cuda(monkeypatch):
     finally:
         mon._httpd.server_close()
     assert bridge.OpBridge(device="cpu").device.type == "cpu"
+
+
+SLICE_THIRTEEN_MODULES = (
+    "fluidframework_tpu_torch.telemetry.logger",
+    "fluidframework_tpu_torch.telemetry.mock",
+    "fluidframework_tpu_torch.dds.shared_object",
+    "fluidframework_tpu_torch.dds.map",
+    "fluidframework_tpu_torch.dds.directory",
+    "fluidframework_tpu_torch.dds.sequence",
+    "fluidframework_tpu_torch.dds.matrix",
+    "fluidframework_tpu_torch.dds.counter",
+    "fluidframework_tpu_torch.dds.cell",
+    "fluidframework_tpu_torch.dds.register_collection",
+    "fluidframework_tpu_torch.dds.ordered_collection",
+    "fluidframework_tpu_torch.dds.ink",
+    "fluidframework_tpu_torch.dds.summary_block",
+    "fluidframework_tpu_torch.dds.sparse_matrix",
+    "fluidframework_tpu_torch.runtime.pending_state",
+    "fluidframework_tpu_torch.runtime.blob_manager",
+    "fluidframework_tpu_torch.runtime.summarizer",
+    "fluidframework_tpu_torch.runtime.datastore_runtime",
+    "fluidframework_tpu_torch.runtime.container_runtime",
+    "fluidframework_tpu_torch.loader.drivers.base",
+    "fluidframework_tpu_torch.loader.delta_scheduler",
+    "fluidframework_tpu_torch.loader.delta_manager",
+    "fluidframework_tpu_torch.loader.container",
+    "fluidframework_tpu_torch.loader.drivers.local",
+    "fluidframework_tpu_torch.testing.mocks",
+    "fluidframework_tpu_torch.testing.client_runs",
+    "fluidframework_tpu_torch.core.config",
+)
+
+
+def test_slice_thirteen_client_stack_is_covered_and_defaults_to_the_card(
+        monkeypatch):
+    """The client stack's modules are walked by the checks above (no jax,
+    no JAX package). The Loader, a Container, a ContainerRuntime and the
+    mock environment take the card by default and raise without CUDA;
+    device="cpu" reaches every channel, and the route of a CPU channel
+    never picks the device."""
+    assert set(SLICE_THIRTEEN_MODULES) <= set(_port_modules())
+    from fluidframework_tpu_torch.dds.sequence import SharedString
+    from fluidframework_tpu_torch.loader.container import Loader
+    from fluidframework_tpu_torch.loader.drivers.local import \
+        LocalDocumentServiceFactory
+    from fluidframework_tpu_torch.runtime.container_runtime import \
+        ContainerRuntime
+    from fluidframework_tpu_torch.server.local_server import LocalServer
+    from fluidframework_tpu_torch.testing.mocks import \
+        MockSequencedEnvironment
+
+    factory = LocalDocumentServiceFactory(LocalServer())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: Loader(factory), ContainerRuntime,
+                 MockSequencedEnvironment):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    loader = Loader(factory, device="cpu")
+    container = loader.create_detached("doc")
+    text = container.runtime.create_datastore("default").create_channel(
+        "text", SharedString.TYPE)
+    assert loader.device.type == container.runtime.device.type == \
+        text.device.type == "cpu"
+    # An unbound channel takes the port's default device: the card, which
+    # is not there.
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SharedString("unbound").device

@@ -1,17 +1,22 @@
-"""The port's local server on the serving path, driven by the JAX
-package's client stack: a mirror of tests/test_tpu_serving.py.
+"""The port's local server on the serving path, driven by either client
+stack: a mirror of tests/test_tpu_serving.py.
 
-The JAX Loader, its local driver and its DDSes (SharedString, SharedMap,
-SharedCounter, SharedCell) drive fluidframework_tpu_torch's
+Each test that drives a client runs twice (the `client_stack` fixture):
+with the port's own Loader, local driver and DDSes (SharedString,
+SharedMap, SharedCounter, SharedCell) on the CPU, and with the JAX
+package's, the interop check. Both drive fluidframework_tpu_torch's
 TpuLocalServer(device="cpu") and LocalServer, and every assertion of the
-JAX file is made again. The client stack only duck-types the server
+JAX file is made again. The JAX client stack only duck-types the server
 (loader/drivers/local.py) and the messages and Nacks that cross; the one
 place that does not is the git store's tree writer, which recognises
-summary trees by class, so `server.storage(doc)` is wrapped here: a summary
-the JAX container uploads is re-encoded through summary_tree_to_dict /
-summary_tree_from_dict into the port's classes. Reads go the other way
-unchanged: the JAX loader reads the port's SummaryTree and LazySummaryBlob
-objects by duck typing.
+summary trees by class, so for it `server.storage(doc)` is wrapped here: a
+summary the JAX container uploads is re-encoded through
+summary_tree_to_dict / summary_tree_from_dict into the port's classes.
+Reads go the other way unchanged: the JAX loader reads the port's
+SummaryTree and LazySummaryBlob objects by duck typing. The port's stack
+needs no wrapper. The keystroke stress tests drive either loader through
+the JAX package's testing/load_test.LoadRunner (not ported), which names
+its channels by type.
 
 Where a JAX test reaches into the server (its sequencer's lane stores,
 the extraction helpers), the port's counterparts stand in, on the CPU.
@@ -24,12 +29,20 @@ import random
 import numpy as np
 import pytest
 
-from fluidframework_tpu.dds.counter import SharedCounter
-from fluidframework_tpu.dds.map import SharedMap
-from fluidframework_tpu.dds.sequence import SharedString
-from fluidframework_tpu.loader.container import Loader
-from fluidframework_tpu.loader.drivers.local import LocalDocumentServiceFactory
+from fluidframework_tpu.dds import cell as jax_cell
+from fluidframework_tpu.dds import counter as jax_counter
+from fluidframework_tpu.dds import map as jax_map
+from fluidframework_tpu.dds import sequence as jax_sequence
+from fluidframework_tpu.loader import container as jax_container
+from fluidframework_tpu.loader.drivers import local as jax_local
 from fluidframework_tpu.protocol import summary as jax_summary
+
+from fluidframework_tpu_torch.dds import cell as port_cell
+from fluidframework_tpu_torch.dds import counter as port_counter
+from fluidframework_tpu_torch.dds import map as port_map
+from fluidframework_tpu_torch.dds import sequence as port_sequence
+from fluidframework_tpu_torch.loader import container as port_container
+from fluidframework_tpu_torch.loader.drivers import local as port_local_driver
 
 from fluidframework_tpu_torch.protocol import summary as port_summary
 from fluidframework_tpu_torch.protocol.messages import (
@@ -79,13 +92,62 @@ def with_foreign_storage(server):
     return server
 
 
-def TpuLocalServer(*args, **kwargs):
+def jax_tpu_server(*args, **kwargs):
     return with_foreign_storage(
         port_local.TpuLocalServer(*args, device="cpu", **kwargs))
 
 
-def LocalServer(*args, **kwargs):
+def jax_scalar_server(*args, **kwargs):
     return with_foreign_storage(port_local.LocalServer(*args, **kwargs))
+
+
+def port_tpu_server(*args, **kwargs):
+    return port_local.TpuLocalServer(*args, device="cpu", **kwargs)
+
+
+# Tests key results by the server constructor's name.
+jax_tpu_server.__name__ = port_tpu_server.__name__ = "TpuLocalServer"
+jax_scalar_server.__name__ = "LocalServer"
+
+
+def port_loader(*args, **kwargs):
+    return port_container.Loader(*args, device="cpu", **kwargs)
+
+
+CLIENT_STACKS = {
+    "jax": dict(SharedCell=jax_cell.SharedCell,
+                SharedCounter=jax_counter.SharedCounter,
+                SharedMap=jax_map.SharedMap,
+                SharedString=jax_sequence.SharedString,
+                Loader=jax_container.Loader,
+                LocalDocumentServiceFactory=(
+                    jax_local.LocalDocumentServiceFactory),
+                TpuLocalServer=jax_tpu_server,
+                LocalServer=jax_scalar_server),
+    "port": dict(SharedCell=port_cell.SharedCell,
+                 SharedCounter=port_counter.SharedCounter,
+                 SharedMap=port_map.SharedMap,
+                 SharedString=port_sequence.SharedString,
+                 Loader=port_loader,
+                 LocalDocumentServiceFactory=(
+                     port_local_driver.LocalDocumentServiceFactory),
+                 TpuLocalServer=port_tpu_server,
+                 LocalServer=port_local.LocalServer),
+}
+# Outside the fixture the module's names are the JAX stack's: other files
+# (test_torch_local_server_batched.py, _modules.py) import its servers
+# for the interop check.
+globals().update(CLIENT_STACKS["jax"])
+
+
+@pytest.fixture(params=sorted(CLIENT_STACKS))
+def client_stack(request, monkeypatch):
+    """The client stack the test drives the port's server with: its
+    classes and the server constructors that go with it become this
+    module's names for the test."""
+    for name, value in CLIENT_STACKS[request.param].items():
+        monkeypatch.setitem(globals(), name, value)
+    return request.param
 
 
 def TpuSequencerLambda(*args, **kwargs):
@@ -107,6 +169,7 @@ def make_doc(server, doc_id="doc"):
     return loader, container, ds
 
 
+@pytest.mark.usefixtures("client_stack")
 class TestTpuServingE2E:
     def test_sharedstring_multi_client_convergence(self):
         server = TpuLocalServer()
@@ -383,6 +446,7 @@ class TestDeviceTicketingVsScalarDeli:
         assert [e[0] for e in device] == ["seq", "seq"]  # dup silently drops
 
 
+@pytest.mark.usefixtures("client_stack")
 class TestBatchedSummarization:
     def _server_with_text(self, n_docs=3, ops_per_doc=30):
         server = TpuLocalServer()
@@ -466,6 +530,7 @@ class TestBatchedSummarization:
         assert t.get_text() != frozen
 
 
+@pytest.mark.usefixtures("client_stack")
 class TestHostFold:
     """The serving zamboni pack (MergeLaneStore._fold_crowded): acked
     adjacent rows coalesce host-side so long-lived documents stay in the
@@ -800,6 +865,7 @@ class TestHostFold:
         assert server.sequencer().channel_text(*key) == text.get_text()
 
 
+@pytest.mark.usefixtures("client_stack")
 class TestOverflowRecovery:
     def test_lane_promotes_through_buckets(self):
         """A document that outgrows its capacity bucket mid-batch recovers
@@ -880,13 +946,13 @@ class TestOverflowRecovery:
         assert text.get_text() == ""
 
 
+@pytest.mark.usefixtures("client_stack")
 class TestLwwMaterialization:
     """Map/cell/counter channels materialize on device via the batched LWW
     kernel (server/lww_kernel.py) — every common channel type has a
     server-side device representation."""
 
     def test_map_counter_cell_materialize(self):
-        from fluidframework_tpu.dds.cell import SharedCell
 
         server = TpuLocalServer()
         loader, c1, ds1 = make_doc(server)
@@ -1018,6 +1084,7 @@ class TestLwwMaterialization:
         assert snap["counter"] == 5
 
 
+@pytest.mark.usefixtures("client_stack")
 class TestMarkersOnServingPath:
     def test_markers_and_annotates_materialize(self):
         """Markers (length-1 non-text segments) + annotates flow through
@@ -1046,6 +1113,7 @@ class TestMarkersOnServingPath:
         assert markers and markers[0].get("props", {}).get("kind") == "pg"
 
 
+@pytest.mark.usefixtures("client_stack")
 class TestSnapshotSeededLanes:
     """Documents whose base content ships in the attach/client summary
     (not ops): merge lanes bootstrap from the stored summary instead of
@@ -1124,9 +1192,6 @@ class TestSnapshotSeededLanes:
     def test_lww_channels_seed_from_attach_summary(self):
         """Map/cell/counter base state that shipped in the attach summary
         materializes server-side, with live ops layered LWW on top."""
-        from fluidframework_tpu.dds.cell import SharedCell
-        from fluidframework_tpu.dds.counter import SharedCounter
-        from fluidframework_tpu.dds.map import SharedMap
         server = TpuLocalServer()
         loader, c1, ds1 = make_doc(server, "lww-snap")
         m = ds1.create_channel("map", SharedMap.TYPE)
@@ -1159,7 +1224,6 @@ class TestSnapshotSeededLanes:
     def test_lww_restart_rebuild_does_not_double_count(self):
         """Counter rebuild: seeded base + tail replay past the summary seq
         — pre-summary increments must not re-apply."""
-        from fluidframework_tpu.dds.counter import SharedCounter
         server = TpuLocalServer()
         loader, c1, ds1 = make_doc(server, "lww-restart")
         k = ds1.create_channel("clicks", SharedCounter.TYPE)
@@ -1177,7 +1241,6 @@ class TestSnapshotSeededLanes:
         """A map summary with more keys than the largest LWW bucket loses
         materialization for that channel only — no pump crash, no restart
         crash loop."""
-        from fluidframework_tpu.dds.map import SharedMap
         server = TpuLocalServer()
         # Shrink the LWW buckets so exhaustion is cheap.
         server.sequencer().lww = LwwLaneStore(capacities=(4, 8))
@@ -1200,7 +1263,6 @@ class TestSnapshotSeededLanes:
         """A counter whose summary base exceeds int32 must NOT materialize
         live deltas over an empty base (silently wrong totals) — the
         channel degrades to opaque instead."""
-        from fluidframework_tpu.dds.counter import SharedCounter
         server = TpuLocalServer()
         loader, c1, ds1 = make_doc(server, "big-counter")
         k = ds1.create_channel("clicks", SharedCounter.TYPE)
@@ -1240,6 +1302,7 @@ class TestSnapshotSeededLanes:
             assert sq.merge.capacities[b] > 64  # promoted out of bucket 0
 
 
+@pytest.mark.usefixtures("client_stack")
 class TestKeystrokeTraceStress:
     def test_trace_load_converges_and_server_materializes(self):
         """Service-load stress with the keystroke editing model (the
@@ -1280,6 +1343,7 @@ class TestKeystrokeTraceStress:
         assert result.converged, result.divergences
 
 
+@pytest.mark.usefixtures("client_stack")
 class TestAnnotateRingRescue:
     def test_annotate_accumulation_survives_via_host_fold(self):
         """>anno_slots annotates accumulating on one span across flushes

@@ -137,9 +137,28 @@ model must route its gap to the card, the scan apply must launch, the
 text must equal the catch-up golden, and the bulk apply must finish on
 the card (no scalar replay); the reconnect's wall is split and printed
 beside phase 11's and beside the same device_apply_tail timed again after
-(b), with no CPU twin running. Phase 15's CPU twins start right after
-phase 5 and run beside phases 6-14; phase 19 (a)'s starts with phase 18
-and runs beside it.
+(b), with no CPU twin running.
+Phase 20 drives the application layer and the offline document path on
+the card: (a) the four recorded corpora (testing/corpus.replay_digest)
+against tests/corpus/pins.json, the keystroke corpus through
+MergeTreeClient.apply_bulk against its scalar replay (the scan apply
+must launch), and the snapshot corpus's digests against
+tests/snapshots/pinned.json; (b) testing/app_runs (a BaseHost over the
+code loader and the framework's default data store on TpuLocalServer, a
+client_api Document, fetch, the file driver, the replay tool) held to
+the JAX golden and to a CPU twin, with scan-apply launches under the
+file driver's reload and the replay tool; (c) BASELINE config #2 as a
+document: phase 11's trace written by one writer into a string a
+framework data object created after the attach summary, captured by
+fetch_document, reopened through a BaseHost over the file driver on the
+card by the cost model's route, replayed by ReplayTool.from_capture with
+two snapshot points (deterministic, no mismatch, every straight load
+launching), and its first 5,000 ops through MergeTreeReplayer; the texts
+held to the catch-up golden; each step's wall, the file load's split and
+the storage checks' lazy replay per deferred op printed; the phase within
+PHASE20_BUDGET_S. Phase 15's CPU twins start right after phase 5 and run
+beside phases 6-14; the twins of phase 19 (a) and phase 20 (b) start with
+phase 18 and run beside it.
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -1139,16 +1158,22 @@ def main(north_star_only: bool = False) -> int:
             stop_twins([decay_twin])
             raise
         client_twin = start_client_twin()
+        app_twin = start_app_twin()
         try:
             rows += operator_phase(dev, card, decay_twin, fig17["bucketed"])
         except BaseException:
-            stop_twins([client_twin])
+            stop_twins([client_twin, app_twin])
             raise
         print("phase 18 ran beside its decay and server CPU twins and "
-              "phase 19 (a)'s CPU twin (a process of "
-              f"{CLIENT_CPU_THREADS} threads): its host-clock figures "
-              "shared the host with them", flush=True)
-        rows += client_phase(dev, card, catchup_ms, client_twin)
+              "the CPU twins of phase 19 (a) and phase 20 (b) (processes "
+              f"of {CLIENT_CPU_THREADS} and {APP_CPU_THREADS} threads): its "
+              "host-clock figures shared the host with them", flush=True)
+        try:
+            rows += client_phase(dev, card, catchup_ms, client_twin)
+        except BaseException:
+            stop_twins([app_twin])
+            raise
+        rows += offline_phase(dev, card, app_twin)
 
     require(not spilled, f"kernels use stack or spill: {spilled}")
     out = []
@@ -4819,6 +4844,542 @@ def client_phase(dev, card: str, catchup_ms: float,
     retime_catchup(dev, card, catchup_ms)
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
+
+
+# -- phase 20: the application layer and the offline document path ----------
+
+# (b)'s CPU twin: its threads and time limit.
+APP_CPU_THREADS = 2
+APP_CPU_TIMEOUT = 300
+# (c): the document's name; the trace op before which a reviewer's comment
+# comes and goes (testing/app_runs.comment: it ends a reload's lazy
+# absorption of the tail; 5,000 ops leave the body ~480 live segments, so
+# the cost model routes the rest of the tail to the card, phase 19 b); the
+# replay's start, REPLAY_BACK sequence numbers before the capture's last,
+# and its snapshot frequency (two snapshot points past the start); the ops
+# the merge-tree client replay takes.
+OFFLINE_DOC = "config2"
+OFFLINE_COMMENT_AT = 5_000
+REPLAY_BACK = 8_000
+REPLAY_SNAP = 5_000
+MERGETREE_REPLAY_OPS = 5_000
+PHASE20_BUDGET_S = 90.0
+
+
+def app_cpu_main() -> int:
+    """Phase 20 (b)'s CPU twin in a process of its own: testing/app_runs on
+    the CPU; one JSON line."""
+    from fluidframework_tpu_torch.testing import app_runs
+    torch.set_num_threads(APP_CPU_THREADS)
+    t0 = time.perf_counter()
+    out = app_runs.run(app_runs.port_package("cpu"))
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def start_app_twin() -> subprocess.Popen:
+    """Phase 20 (b)'s CPU twin (app_cpu_main), started with phase 18 beside
+    phase 19 (a)'s, so that it is done before phase 19 (b)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+         "app_cpu_main())"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+
+
+def corpora_part(dev, card: str) -> dict:
+    """Phase 20 (a): the four recorded corpora under tests/corpus/ replayed
+    by testing/corpus.replay_digest on `dev` against tests/corpus/pins.json;
+    the keystroke corpus through MergeTreeClient.apply_bulk on `dev`
+    (counted scan-apply launches) against its scalar replay; the snapshot
+    corpus's digests on `dev` against tests/snapshots/pinned.json."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.mergetree.client import MergeTreeClient
+    from fluidframework_tpu_torch.testing import corpus, snapshot_corpus
+
+    t0 = time.perf_counter()
+    pins = corpus.load_pins()
+    for name, pin in sorted(pins.items()):
+        got = corpus.replay_digest(os.path.join(corpus.CORPUS_DIR,
+                                                pin["file"]), device=dev)
+        require(got == pin["digest"], f"phase 20 (a): the {name} corpus "
+                f"replays to {got}, pinned {pin['digest']}")
+    header, rows = corpus.read_corpus(os.path.join(
+        corpus.CORPUS_DIR, pins["keystroke"]["file"]))
+    scalar = corpus.replay(header, rows, device=dev).get_text()
+    tail = [(contents, seq, ref, ordinal, msn or 0)
+            for contents, seq, ref, ordinal, msn
+            in corpus.channel_ops(header, rows)]
+    bulk = MergeTreeClient(client_id=999, device=dev)
+    n0 = kernel.scan_apply.launches
+    bulk.apply_bulk(tail)
+    torch.cuda.synchronize()
+    launched = kernel.scan_apply.launches - n0
+    require(launched > 0, "phase 20 (a): the keystroke corpus's apply_bulk "
+            "launched no scan apply")
+    require(bulk.get_text() == scalar, "phase 20 (a): the keystroke corpus "
+            "through apply_bulk differs from its scalar replay")
+    with open(snapshot_corpus.PINS_PATH) as f:
+        pinned = json.load(f)
+    digests = snapshot_corpus.corpus_digests(device=dev)
+    require(digests == pinned, f"phase 20 (a): the snapshot corpus's "
+            f"digests {digests} differ from tests/snapshots/pinned.json")
+    wall_s = time.perf_counter() - t0
+    print(f"phase 20 (a): the {len(pins)} corpora equal tests/corpus/"
+          f"pins.json on the card ({', '.join(sorted(pins))}); the keystroke "
+          f"corpus ({len(tail)} ops) through apply_bulk equals its scalar "
+          f"replay, {launched} scan-apply launches; the {len(digests)} "
+          f"snapshot digests equal tests/snapshots/pinned.json; {wall_s:.1f} "
+          f"s; card {card}", flush=True)
+    return {"launches": launched, "wall_s": wall_s}
+
+
+def app_part(dev, card: str, twin: subprocess.Popen) -> dict:
+    """Phase 20 (b): testing/app_runs on the card (TpuLocalServer, BaseHost,
+    CodeLoader, the framework, client_api, fetch, the file driver, the
+    replay tool), held to app_golden.json and to its CPU twin; scan-apply
+    launches under apply_bulk counted for the file driver's reload and the
+    replay tool, each above 0."""
+    from fluidframework_tpu_torch.testing import app_runs, golden
+
+    want = golden.load_app()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, under = app_runs.run_counted(app_runs.port_package(dev))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    require(os.environ.get("FLUID_TPU_FORCE_BULK") is None,
+            "phase 20 (b): the scenario left FLUID_TPU_FORCE_BULK set")
+    for key in want:
+        require(got[key] == want[key], f"phase 20 (b): {key} differs from "
+                f"the JAX golden: {got[key]} vs {want[key]}")
+    require(under["file_load"] > 0 and under["replay"] > 0,
+            f"phase 20 (b): scan-apply launches under apply_bulk {under}: "
+            "the file driver's reload and the replay tool must launch")
+    t1 = time.perf_counter()
+    try:
+        text, _ = twin.communicate(timeout=APP_CPU_TIMEOUT)
+    finally:
+        stop_twins([twin])
+    require(twin.returncode == 0,
+            f"phase 20 (b): the CPU twin exited {twin.returncode}")
+    cpu = json.loads(text.strip().splitlines()[-1])
+    for key, value in got.items():
+        require(cpu[key] == value, f"phase 20 (b): {key} differs between "
+                "the card and the CPU twin")
+    print(f"phase 20 (b): the application scenario on the card equals the "
+          f"JAX golden and its CPU twin ({got['ops']} sequenced messages, "
+          f"{len(got['snapshots'])} snapshot points, mismatches "
+          f"{got['mismatches']}; apply_bulk calls {got['bulk_applies']}, "
+          f"scan-apply launches under them {under}); {wall_s:.1f} s (the "
+          f"twin {cpu['seconds']:.1f} s in its process, waited "
+          f"{time.perf_counter() - t1:.1f} s); card {card}", flush=True)
+    return {"under_bulk": under, "wall_s": wall_s}
+
+
+def offline_part(dev, card: str) -> dict:
+    """Phase 20 (c), BASELINE config #2 through the offline document path.
+
+    The document: a BaseHost over the CodeLoader of testing/app_runs
+    (ContainerRuntimeFactoryWithDefaultDataStore of its Notes DataObject)
+    creates it on a LocalServer; after the attach summary the Notes object
+    creates its SharedString live and keeps the handle in its root; one
+    writer submits the phase 11 trace (keystroke_trace(100,000, seed=12))
+    to it in boxcars of TRACE_BOXCAR over a raw connection, and before op
+    OFFLINE_COMMENT_AT a reviewer's container adds a comment and deletes
+    it. Then: fetch_document into a temporary directory; a BaseHost over
+    FileDocumentServiceFactory reopens the capture on the card (the cost
+    model routes, FLUID_TPU_FORCE_BULK unset): its text must equal the
+    catch-up golden's digest and the scan apply must launch under
+    apply_bulk; ReplayTool.from_capture(..., device).run() from
+    REPLAY_BACK before the end with REPLAY_SNAP must be deterministic with
+    no mismatch, every straight load (_open) must launch, and the text of
+    the last must equal the digest; MergeTreeReplayer over the first
+    MERGETREE_REPLAY_OPS text ops of the capture must converge to their
+    scalar replay. Prints each step's wall, the file load's split (the
+    delta fetch, _process_bulk, apply_bulk, the scan kernel's event ms)
+    and the storage checks' lazy materialization per deferred op."""
+    import gc
+    import hashlib
+    import shutil
+    import tempfile
+
+    from fluidframework_tpu_torch import framework
+    from fluidframework_tpu_torch.dds.sequence import (SharedSegmentSequence,
+                                                       SharedString)
+    from fluidframework_tpu_torch.hosts import BaseHost
+    from fluidframework_tpu_torch.loader.code_loader import CodeLoader
+    from fluidframework_tpu_torch.loader.container import Container
+    from fluidframework_tpu_torch.loader.drivers import file as file_driver
+    from fluidframework_tpu_torch.loader.drivers import local as driver
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.mergetree.client import MergeTreeClient
+    from fluidframework_tpu_torch.protocol.messages import (DocumentMessage,
+                                                            MessageType)
+    from fluidframework_tpu_torch.server.local_server import LocalServer
+    from fluidframework_tpu_torch.testing import app_runs, client_runs, golden
+    from fluidframework_tpu_torch.testing.server_runs import _Cfg
+    from fluidframework_tpu_torch.testing.traces import keystroke_trace
+    from fluidframework_tpu_torch.tools import (MergeTreeReplayer, ReplayArgs,
+                                                ReplayTool, fetch_document)
+    from fluidframework_tpu_torch.tools import replay_tool
+    from fluidframework_tpu_torch.tools.mergetree_replay import \
+        record_from_sequence_ops
+
+    force = os.environ.pop("FLUID_TPU_FORCE_BULK", None)
+    g = golden.load_catchup()["full"]
+    n_ops, seed, n_clients = g["trace"]
+    require(n_clients == 1, "phase 20 (c): the trace must have one client")
+    ops = [op for op, *_ in keystroke_trace(n_ops, seed=seed,
+                                            n_clients=n_clients)]
+
+    def check_text(got: str, what: str) -> None:
+        sha = hashlib.sha256(got.encode()).hexdigest()
+        require(len(got) == g["digest"]["visible_length"]
+                and sha == g["digest"]["text_sha256"],
+                f"phase 20 (c): {what}'s text (length {len(got)}, sha256 "
+                f"{sha}) differs from the catch-up golden")
+
+    walls = {}
+    tmp = tempfile.mkdtemp(prefix="phase20_")
+    try:
+        # -- the document ---------------------------------------------------
+        t0 = time.perf_counter()
+        server = LocalServer(auto_pump=False,
+                             config=_Cfg(client_runs.config()))
+        factory = driver.LocalDocumentServiceFactory(server)
+        code = CodeLoader()
+        code.register("notes-app", "1.0.0",
+                      framework.ContainerRuntimeFactoryWithDefaultDataStore(
+                          framework.DataObjectFactory(
+                              "notes", app_runs.notes_class(framework))))
+        host = BaseHost(factory, code, app_runs.PACKAGE, device=dev)
+        creator = host.initialize_container(OFFLINE_DOC)
+        server.pump()
+        notes = creator.request("/")
+        string = notes.store.create_channel("text", SharedString.TYPE)
+        notes.root.set("text", string.handle)
+        server.pump()
+        creator.close()  # a live replica would replay every op per op
+        writer = server.connect(OFFLINE_DOC)
+        seen, nacks, csn = [0], [], [0]
+        writer.on("op", lambda m: seen.__setitem__(
+            0, max(seen[0], m.sequence_number)))
+        writer.on("nack", nacks.append)
+        server.pump()
+
+        def feed(batch) -> None:
+            for i in range(0, len(batch), TRACE_BOXCAR):
+                msgs = []
+                for op in batch[i:i + TRACE_BOXCAR]:
+                    csn[0] += 1
+                    msgs.append(DocumentMessage(
+                        client_sequence_number=csn[0],
+                        reference_sequence_number=seen[0],
+                        type=MessageType.OPERATION,
+                        contents={"address": "default", "contents": {
+                            "address": "text", "contents": op}}))
+                writer.submit(msgs)
+                if (i // TRACE_BOXCAR) % TRACE_PUMP_EVERY == \
+                        TRACE_PUMP_EVERY - 1:
+                    server.pump()
+            server.pump()
+
+        feed(ops[:OFFLINE_COMMENT_AT])
+        reviewer = host.initialize_container(OFFLINE_DOC)
+        server.pump()
+        app_runs.comment(reviewer.request("/").text(), server)
+        reviewer.close()
+        server.pump()
+        feed(ops[OFFLINE_COMMENT_AT:])
+        require(not nacks, f"phase 20 (c): the writer was nacked: "
+                f"{nacks[:3]}")
+        walls["document"] = time.perf_counter() - t0
+
+        # -- fetch ----------------------------------------------------------
+        t0 = time.perf_counter()
+        _, fetched, stats = fetch_document(factory, OFFLINE_DOC,
+                                           out_dir=f"{tmp}/{OFFLINE_DOC}")
+        walls["fetch"] = time.perf_counter() - t0
+        sizes = {name: os.path.getsize(f"{tmp}/{OFFLINE_DOC}/{name}")
+                 for name in sorted(os.listdir(f"{tmp}/{OFFLINE_DOC}"))}
+        print(f"phase 20 (c): the document ({n_ops} trace ops in boxcars of "
+              f"{TRACE_BOXCAR}, a comment before op {OFFLINE_COMMENT_AT}) "
+              f"built in {walls['document']:.1f} s; fetch_document "
+              f"{walls['fetch']:.1f} s: {stats.op_count} messages, seq "
+              f"{stats.first_seq}..{stats.last_seq}, by type "
+              f"{stats.ops_by_type}, {len(stats.ops_by_client)} senders, "
+              f"summary {stats.summary_blob_count} blobs / "
+              f"{stats.summary_bytes} bytes; capture files (bytes) {sizes}",
+              flush=True)
+        # The merge-tree client replay's input: the capture's first text
+        # ops, each with its writer's ordinal. Then the server goes: the
+        # loads below read the capture alone.
+        ordinals, messages = {}, []
+        for m in fetched:
+            inner = (m.contents or {}).get("contents") \
+                if m.type == MessageType.OPERATION and \
+                isinstance(m.contents, dict) else None
+            if not isinstance(inner, dict) or inner.get("address") != \
+                    "text" or inner.get("contents", {}).get("type") not in \
+                    (0, 1, 2):
+                continue
+            d = file_driver.message_to_json(m)
+            d["clientOrdinal"] = ordinals.setdefault(m.client_id,
+                                                     len(ordinals))
+            messages.append(d)
+            if len(messages) == MERGETREE_REPLAY_OPS:
+                break
+        del fetched, server, factory, host, writer
+
+        # -- the file driver's load on the card -----------------------------
+        times = {"fetch": 0.0, "stream": 0.0, "process_bulk": 0.0,
+                 "apply_bulk": 0.0}
+        calls = {"fetch": 0, "apply_bulk": 0, "finished": 0, "launches": 0}
+        events, pauses, gc_t0 = [], [], [0.0]
+        get, stream, process_bulk, apply_bulk, launch = (
+            file_driver.FileDeltaStorage.get,
+            file_driver.FileDocumentService.connect_to_delta_stream,
+            Container._process_bulk, MergeTreeClient.apply_bulk,
+            kernel._launch)
+
+        def gc_timed(phase, info):
+            if phase == "start":
+                gc_t0[0] = time.perf_counter()
+            else:
+                pauses.append((info["generation"],
+                               time.perf_counter() - gc_t0[0]))
+
+        def timed(key, fn):
+            def wrapped(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    times[key] += time.perf_counter() - t
+            return wrapped
+
+        def counted_get(self, *args):
+            calls["fetch"] += 1
+            return get(self, *args)
+
+        def counted_apply(self, tail, *args):
+            n0 = kernel.scan_apply.launches
+            calls["apply_bulk"] += 1
+            try:
+                out = apply_bulk(self, tail, *args)
+                calls["finished"] += 1
+                return out
+            finally:
+                calls["launches"] += kernel.scan_apply.launches - n0
+
+        def evented(state, ops_, runs, geo):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = launch(state, ops_, runs, geo)
+            e1.record()
+            events.append((e0, e1))
+            return out
+
+        file_driver.FileDeltaStorage.get = timed("fetch", counted_get)
+        file_driver.FileDocumentService.connect_to_delta_stream = timed(
+            "stream", stream)
+        Container._process_bulk = timed("process_bulk", process_bulk)
+        MergeTreeClient.apply_bulk = timed("apply_bulk", counted_apply)
+        kernel._launch = evented
+        gc.callbacks.append(gc_timed)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reader = BaseHost(file_driver.FileDocumentServiceFactory(tmp),
+                              code, app_runs.PACKAGE, device=dev)
+            loaded = reader.initialize_container(OFFLINE_DOC)
+            text = loaded.request("/").text()
+            torch.cuda.synchronize()
+            walls["file_load"] = time.perf_counter() - t0
+        finally:
+            gc.callbacks.remove(gc_timed)
+            (file_driver.FileDeltaStorage.get,
+             file_driver.FileDocumentService.connect_to_delta_stream,
+             Container._process_bulk, MergeTreeClient.apply_bulk,
+             kernel._launch) = (get, stream, process_bulk, apply_bulk,
+                                launch)
+        kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
+        check_text(text.get_text(), "the file driver's load")
+        require(calls["launches"] > 0 and text.bulk_catchup_count > 0
+                and calls["finished"] == calls["apply_bulk"],
+                f"phase 20 (c): the file driver's load did not finish on the "
+                f"card: apply_bulk {calls}, bulk catch-ups "
+                f"{text.bulk_catchup_count}")
+        split = {k: round(v * 1e3, 3) for k, v in times.items()}
+        full = [s for g_, s in pauses if g_ == 2]
+        print(f"phase 20 (c): the file driver's load (BaseHost over "
+              f"FileDocumentServiceFactory, the cost model's route) "
+              f"{walls['file_load'] * 1e3:.3f} ms for {stats.op_count} "
+              f"messages: the delta fetch {split['fetch']} ms over "
+              f"{calls['fetch']} calls (each re-reads ops.json), the "
+              f"read-only connection's own read of it {split['stream']} ms, "
+              f"the garbage collector {len(pauses)} pauses for "
+              f"{sum(s for _, s in pauses) * 1e3:.3f} ms ({len(full)} full "
+              f"for {sum(full) * 1e3:.3f} ms), "
+              f"_process_bulk {split['process_bulk']} ms, of it apply_bulk "
+              f"{split['apply_bulk']} ms ({calls['apply_bulk']} call(s)), of "
+              f"it the scan kernel {kernel_ms:.3f} ms by events over "
+              f"{calls['launches']} launches; the text equals the catch-up "
+              f"golden (length {len(text.get_text())}); card {card}",
+              flush=True)
+        del loaded, text, reader
+
+        # -- the replay tool on the card ------------------------------------
+        # Where each lazy body materializes: in a straight load (at the
+        # comment's interval op) or in a storage check (the container
+        # loaded from a snapshot, its tail deferred).
+        opens, last, where = [], [None], ["run"]
+        lazy = {"open": [], "check": [], "run": []}
+        tool_open, check, materialize = (
+            ReplayTool._open, ReplayTool._validate_from_snapshot,
+            SharedSegmentSequence._materialize_body)
+
+        def counted_open(self, replay_to):
+            n0 = kernel.scan_apply.launches
+            where.append("open")
+            try:
+                container, controller = tool_open(self, replay_to)
+            finally:
+                where.pop()
+            torch.cuda.synchronize()
+            opens.append((replay_to, kernel.scan_apply.launches - n0))
+            if replay_to == end:
+                last[0] = container
+            return container, controller
+
+        def marked_check(self, *args):
+            where.append("check")
+            try:
+                return check(self, *args)
+            finally:
+                where.pop()
+
+        def timed_materialize(self):
+            deferred = len(self._deferred_remote)
+            t = time.perf_counter()
+            try:
+                return materialize(self)
+            finally:
+                lazy[where[-1]].append((deferred, time.perf_counter() - t))
+
+        ReplayTool._open = counted_open
+        ReplayTool._validate_from_snapshot = marked_check
+        SharedSegmentSequence._materialize_body = timed_materialize
+        try:
+            t0 = time.perf_counter()
+            tool = ReplayTool.from_capture(f"{tmp}/{OFFLINE_DOC}",
+                                           device=dev)
+            end = tool.ops[-1].sequence_number  # read by counted_open
+            start = end - REPLAY_BACK
+            result = tool.run(ReplayArgs(from_seq=start,
+                                         snap_freq=REPLAY_SNAP))
+            torch.cuda.synchronize()
+            walls["replay"] = time.perf_counter() - t0
+        finally:
+            ReplayTool._open = tool_open
+            ReplayTool._validate_from_snapshot = check
+            SharedSegmentSequence._materialize_body = materialize
+        require(result.deterministic and not result.mismatches,
+                f"phase 20 (c): the replay tool reports {result.mismatches}")
+        past = [p.sequence_number for p in result.snapshots]
+        require(len(past) >= 2 and min(past) > start, f"phase 20 (c): "
+                f"snapshot points {past} past {start}: two or more needed")
+        require(opens and all(n > 0 for _, n in opens), f"phase 20 (c): "
+                f"every straight load must launch the scan apply: {opens}")
+        require(last[0] is not None,
+                "phase 20 (c): no straight load reached the end")
+        check_text(last[0].runtime.get_datastore("default").get_channel(
+            "text").get_text(), "the replay tool's last straight load")
+        def per_op(key):
+            return (f"{[(d, round(s * 1e3, 3)) for d, s in lazy[key]]} "
+                    f"(deferred ops, ms), "
+                    + (", ".join(f"{s / d * 1e6:.2f}" for d, s in lazy[key]
+                                 if d) or "none") + " µs a deferred op")
+
+        print(f"phase 20 (c): ReplayTool.from_capture(device=card).run("
+              f"from_seq={start}, snap_freq={REPLAY_SNAP}) "
+              f"{walls['replay']:.1f} s: snapshot points {past}, "
+              f"deterministic, no mismatch (canonical form: "
+              f"replay_tool.{replay_tool.coalesce_sequences.__name__}); "
+              f"straight loads (replay_to, scan-apply launches) {opens}; "
+              f"lazy materializations in the straight loads, at the "
+              f"comment {per_op('open')}; in the storage checks "
+              f"{per_op('check')}; in the live replay {per_op('run')}; the "
+              f"last straight load's text equals the catch-up golden; card "
+              f"{card}", flush=True)
+        del last, tool, result
+
+        # -- the merge-tree client replay -----------------------------------
+        t0 = time.perf_counter()
+        log = record_from_sequence_ops(messages)
+        converged = MergeTreeReplayer().replay(log)
+        oracle = MergeTreeClient(client_id=-1)
+        for seq, op in enumerate(ops[:MERGETREE_REPLAY_OPS], 1):
+            oracle.apply_msg(op, seq, seq - 1, 0)
+        require(len(log) == MERGETREE_REPLAY_OPS
+                and converged == oracle.get_text(),
+                f"phase 20 (c): the merge-tree client replay of "
+                f"{len(log)} ops converged to a text that differs from "
+                f"the trace's first {MERGETREE_REPLAY_OPS} ops")
+        walls["mergetree_replay"] = time.perf_counter() - t0
+        print(f"phase 20 (c): MergeTreeReplayer over the capture's first "
+              f"{len(log)} text ops ({len(ordinals)} writer(s) and an "
+              f"observer) converged to the trace's text (length "
+              f"{len(converged)}) in {walls['mergetree_replay']:.1f} s; "
+              f"walls (s) { {k: round(v, 1) for k, v in walls.items()} }; "
+              f"card {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if force is not None:
+            os.environ["FLUID_TPU_FORCE_BULK"] = force
+    return {"walls": walls, "split_ms": split, "kernel_ms": kernel_ms,
+            "calls": calls, "opens": opens, "lazy": lazy}
+
+
+def offline_phase(dev, card: str, twin: subprocess.Popen) -> list:
+    """Phase 20, the application layer and the offline document path on
+    the card: (a) corpora_part, (b) app_part (held to its CPU twin,
+    started with phase 18), (c) offline_part. The kernel counts are set to
+    0 at the start and read at the end: the scan apply (all three parts)
+    and the ticket scan ((b)'s TpuLocalServer) must have launched. The
+    kernel rows are each kernel's largest launch in the phase, with the
+    phase's launches; the phase must finish within PHASE20_BUDGET_S."""
+    t_phase = time.perf_counter()
+    reset_lambda_counts()
+    captured, restore = capture_largest_launches()
+    parts = {}
+    try:
+        before = lambda_counts()
+        corpora_part(dev, card)
+        parts["a"] = counts_since(before)
+        before = lambda_counts()
+        app_part(dev, card, twin)
+        parts["b"] = counts_since(before)
+        before = lambda_counts()
+        offline_part(dev, card)
+        parts["c"] = counts_since(before)
+    finally:
+        restore()
+        stop_twins([twin])
+    counts = lambda_counts()
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 20: kernel launches by part {parts}; {phase_s:.1f} s",
+          flush=True)
+    require(counts.get("scan_apply", 0) > 0
+            and counts.get("ticket_scan", 0) > 0,
+            f"phase 20: the scan apply and the ticket scan must launch: "
+            f"{counts}")
+    require(phase_s <= PHASE20_BUDGET_S, f"phase 20 took {phase_s:.1f} s, "
+            f"over its {PHASE20_BUDGET_S:.0f} s")
+    return kernel_rows(captured, counts, card, "phase 20")
 
 if __name__ == "__main__":
     try:

@@ -226,8 +226,12 @@ class SharedDirectory(SharedObject):
         return ops
 
     def summarize_core(self) -> SummaryTree:
-        return SummaryTree().add_blob(
-            "header", json.dumps(self.root.to_dict(), sort_keys=True))
+        # Handles serialize in their wire form, as SharedMap's do (the JAX
+        # package's directory raises TypeError on a handle value: ROADMAP
+        # Queue 3).
+        from .shared_object import encode_handles
+        return SummaryTree().add_blob("header", json.dumps(
+            encode_handles(self.root.to_dict()), sort_keys=True))
 
     def load_core(self, tree: SummaryTree) -> None:
         from .shared_object import decode_handles

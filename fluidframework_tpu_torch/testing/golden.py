@@ -74,11 +74,16 @@ serving decay probe (server/decay_probe.run) as decay_probe.lane_digest
 of the lambda it drove (the lane-health counters and every lane's text):
   card                           at DECAY_CARD (the tool's default);
   small                          at DECAY_SMALL (the JAX test's shape).
+golden/app_golden.json (APP_GOLDEN_PATH) holds the JAX package's
+application layer and offline document path (framework, code loader,
+host, client_api, the file driver, the fetch and replay tools) through
+testing/app_runs.run, as its digests (one run; app_runs has no size).
 tests/test_torch_golden.py regenerates the files from the JAX package and
 requires equality, so the values cannot drift (the lambda golden through
 tests/test_torch_lambda_golden.py, the server golden through
 tests/test_torch_server_golden.py, the decay golden through
-tests/test_torch_tools.py); chip_smoke.py holds the CUDA kernels,
+tests/test_torch_tools.py, the app golden through
+tests/test_torch_offline_tools.py); chip_smoke.py holds the CUDA kernels,
 the lambda and the local server against them on a machine without JAX.
 """
 
@@ -132,6 +137,7 @@ CLIENT_GOLDEN_PATH = GOLDEN_PATH.with_name("client_golden.json")
 # edits a sequence a writer a wave.
 CLIENT_CARD = {"docs": 8, "rounds": 3, "ops": 32}
 CLIENT_SMALL = {"docs": 4, "rounds": 2, "ops": 24}
+APP_GOLDEN_PATH = GOLDEN_PATH.with_name("app_golden.json")
 DECAY_GOLDEN_PATH = GOLDEN_PATH.with_name("decay_golden.json")
 # (documents, ops a document a wave, waves) of the decay probe's runs: the
 # tool's documented default (decay_probe.py main) and the JAX test's.
@@ -322,6 +328,17 @@ def load_client(path: Path = CLIENT_GOLDEN_PATH) -> dict:
 
 
 def save_client(doc: dict, path: Path = CLIENT_GOLDEN_PATH) -> None:
+    with open(path, "w") as f:
+        json.dump(doc, f, sort_keys=True, indent=1)
+        f.write("\n")
+
+
+def load_app(path: Path = APP_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def save_app(doc: dict, path: Path = APP_GOLDEN_PATH) -> None:
     with open(path, "w") as f:
         json.dump(doc, f, sort_keys=True, indent=1)
         f.write("\n")

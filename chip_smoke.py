@@ -159,6 +159,24 @@ the storage checks' lazy replay per deferred op printed; the phase within
 PHASE20_BUDGET_S. Phase 15's CPU twins start right after phase 5 and run
 beside phases 6-14; the twins of phase 19 (a) and phase 20 (b) start with
 phase 18 and run beside it.
+Phase 21 drives the server services on the card: (b) a cluster takeover
+(testing/cluster_runs at golden.CLUSTER_CARD: TpuLocalServer cores on
+three orderer nodes through the cluster driver; the owner dies and node B
+restores each document from its checkpoint), held to the JAX golden and
+to a CPU twin, with ticket-scan and scan-apply launches; (c) the
+deployment: the broker and the historian (store mode) as
+`fluidframework_tpu_torch.server.main` processes, the tpu-deli worker on
+the card once as a process (tests/test_deployment.py's shape) and once
+built in this process against a second broker process and fed
+testing/deploy_runs at golden.DEPLOY_CARD, its persisted deltas held to
+the JAX golden document by document (ops/s, the broker's send µs a
+message and the flush p50 printed); (a) BASELINE config #2 over real
+sockets, cut to the trace's first NETWORK_OPS: a reader on the
+routerlicious driver follows 3,000 ops of phase 11's trace live through
+Tinylicious, misses 57,000 and reconnects, its gap fetched over alfred's
+/deltas and applied through apply_bulk on the scan kernel, its text held
+to golden.trace_text (the string replay that the CPU tests hold to the
+catch-up golden); the phase within PHASE21_BUDGET_S.
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -1174,6 +1192,7 @@ def main(north_star_only: bool = False) -> int:
             stop_twins([app_twin])
             raise
         rows += offline_phase(dev, card, app_twin)
+        rows += services_phase(dev, card)
 
     require(not spilled, f"kernels use stack or spill: {spilled}")
     out = []
@@ -5380,6 +5399,576 @@ def offline_phase(dev, card: str, twin: subprocess.Popen) -> list:
     require(phase_s <= PHASE20_BUDGET_S, f"phase 20 took {phase_s:.1f} s, "
             f"over its {PHASE20_BUDGET_S:.0f} s")
     return kernel_rows(captured, counts, card, "phase 20")
+
+# -- phase 21: the server services -------------------------------------------
+
+# (a): the document's name, the trace's length and the ops the reader
+# follows live: BASELINE config #2's 100,000-op keystroke trace (phase
+# 11's) cut to its first 60,000 ops, the reader missing 95% of them, so
+# that the writer's feed over the socket (1,600-2,800 ops/s on an H100
+# host, PERF.md §4) fits the phase's budget; the writer's boxcars are
+# TRACE_BOXCAR ops, as in phase 19 (b).
+# (b): the CPU twin's threads and time limit. (c): the fleet the in-process
+# worker is fed (testing/deploy_runs.Spec fields; PERF.md §4 lists the cut
+# from phase 17's 512 documents) and the deadline for a service process to
+# listen. The whole phase must finish within PHASE21_BUDGET_S.
+NETWORK_DOC = "config2"
+NETWORK_OPS = 60_000
+NETWORK_LIVE_OPS = 3_000
+CLUSTER_CPU_THREADS = 2
+CLUSTER_CPU_TIMEOUT = 300
+SERVICE_LISTEN_S = 60.0
+PHASE21_BUDGET_S = 120.0
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def wait_until(predicate, deadline_s: float, what: str,
+               interval: float = 0.01) -> None:
+    """Poll `predicate` until it holds; raise SmokeFailure naming `what`
+    after `deadline_s`."""
+    end = time.perf_counter() + deadline_s
+    while not predicate():
+        if time.perf_counter() > end:
+            raise SmokeFailure(f"{what}: not within {deadline_s:.0f} s")
+        time.sleep(interval)
+
+
+def network_reconnect_part(dev, card: str, n_ops: int = NETWORK_OPS,
+                           live: int = NETWORK_LIVE_OPS) -> dict:
+    """Phase 21 (a), BASELINE config #2 over real sockets: the port's
+    Tinylicious (alfred's REST and websocket routes over a scalar
+    LocalServer) serves one document. A writer, a delta connection of the
+    routerlicious driver, types the first `n_ops` of the catch-up golden's
+    keystroke trace (phase 11's) in boxcars of TRACE_BOXCAR; a reader
+    container (Loader on `dev` over NetworkDocumentServiceFactory) follows
+    the first `live` ops live (the writer's flights are acked before the
+    next is sent, so its refs trail as phase 19 (b)'s do), reads its text,
+    disconnects, misses the rest and reconnects: the gap comes back over
+    alfred's /deltas route in one JSON body and DeltaManager hands it to
+    Container._process_bulk, whose sequence routes it by the cost model.
+    The text must equal golden.trace_text of the ops sent (the string
+    replay that tests/test_torch_golden.py holds to the golden's digest of
+    the whole trace; the digest itself when `n_ops` is the whole trace),
+    and the scan apply must launch under apply_bulk. Prints the reconnect's wall split:
+    the /deltas fetch, _process_bulk, apply_bulk, the scan kernel's event
+    ms."""
+    import hashlib
+
+    from fluidframework_tpu_torch.dds.sequence import SharedString
+    from fluidframework_tpu_torch.loader.container import Loader
+    from fluidframework_tpu_torch.loader.drivers import routerlicious as net
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.mergetree.client import MergeTreeClient
+    from fluidframework_tpu_torch.protocol.messages import (DocumentMessage,
+                                                            MessageType)
+    from fluidframework_tpu_torch.server.tinylicious import (DEFAULT_TENANT,
+                                                             Tinylicious)
+    from fluidframework_tpu_torch.testing import client_runs, golden
+    from fluidframework_tpu_torch.testing.server_runs import _Cfg
+    from fluidframework_tpu_torch.testing.traces import keystroke_trace
+
+    force = os.environ.pop("FLUID_TPU_FORCE_BULK", None)
+    g = golden.load_catchup()["full"]
+    full, seed, n_clients = g["trace"]
+    trace = keystroke_trace(n_ops, seed=seed, n_clients=n_clients)
+    ops = [op for op, *_ in trace]
+    t_part = time.perf_counter()
+    with Tinylicious(config=_Cfg(client_runs.config())) as server:
+        factory = net.NetworkDocumentServiceFactory(server.url,
+                                                    DEFAULT_TENANT)
+        loader = Loader(factory, device=dev)
+        creator = loader.create_detached(NETWORK_DOC)
+        creator.runtime.create_datastore("default").create_channel(
+            "text", SharedString.TYPE)
+        creator.attach()
+        creator.close()  # a live replica would replay every op scalar
+        writer = factory.create_document_service(
+            NETWORK_DOC).connect_to_delta_stream({})
+        # The writer's refs start at the document's head when it joined.
+        seen = [writer.checkpoint_sequence_number]
+        acked, nacks, csn = [0], [], [0]
+
+        def on_op(m) -> None:
+            seen[0] = max(seen[0], m.sequence_number)
+            if m.client_id == writer.client_id:
+                acked[0] = max(acked[0], m.client_sequence_number)
+
+        writer.on("op", on_op)
+        writer.on("nack", nacks.append)
+        reader = loader.resolve(NETWORK_DOC)
+        text = reader.runtime.get_datastore("default").get_channel("text")
+        try:
+            def acked_all() -> None:
+                want = csn[0]
+                # The writer's own ops come back over its socket.
+                wait_until(lambda: acked[0] >= want or nacks, 300.0,
+                           "phase 21 (a): the writer's ops sequenced")
+                require(not nacks, f"phase 21 (a): the writer was nacked: "
+                        f"{nacks[:3]}")
+
+            def feed(batch) -> float:
+                """Flights of TRACE_PUMP_EVERY boxcars, each sent once the
+                one before it is acked: the writer's refs trail by up to
+                TRACE_BOXCAR x TRACE_PUMP_EVERY ops, as phase 19 (b)'s
+                writer's trail between the server's pumps."""
+                t0 = time.perf_counter()
+                flight = TRACE_BOXCAR * TRACE_PUMP_EVERY
+                for f in range(0, len(batch), flight):
+                    ref = seen[0]
+                    for i in range(f, min(f + flight, len(batch)),
+                                   TRACE_BOXCAR):
+                        msgs = []
+                        for op in batch[i:i + TRACE_BOXCAR]:
+                            csn[0] += 1
+                            msgs.append(DocumentMessage(
+                                client_sequence_number=csn[0],
+                                reference_sequence_number=ref,
+                                type=MessageType.OPERATION,
+                                contents={"address": "default", "contents": {
+                                    "address": "text", "contents": op}}))
+                        writer.submit(msgs)
+                    acked_all()
+                return time.perf_counter() - t0
+
+            live_s = feed(ops[:live])
+            wait_until(lambda: reader.delta_manager.last_sequence_number
+                       >= seen[0], 60.0,
+                       "phase 21 (a): the reader following live")
+            text.get_text()  # materializes the body
+            reader.delta_manager.disconnect()
+            gap_s = feed(ops[live:])
+            bulk_before = text.bulk_catchup_count
+            times = {"fetch": 0.0, "process_bulk": 0.0, "apply_bulk": 0.0}
+            calls = {"apply_bulk": 0, "finished": 0, "launches": 0,
+                     "fetches": 0, "rows": 0}
+            events = []
+            get, apply_bulk, launch = (net.NetworkDeltaStorageService.get,
+                                       MergeTreeClient.apply_bulk,
+                                       kernel._launch)
+            dm = reader.delta_manager
+            handler = dm._bulk_handler
+
+            def timed(key, fn):
+                def wrapped(*args, **kwargs):
+                    t0 = time.perf_counter()
+                    try:
+                        return fn(*args, **kwargs)
+                    finally:
+                        times[key] += time.perf_counter() - t0
+                return wrapped
+
+            def fetch(self, *args, **kwargs):
+                out = get(self, *args, **kwargs)
+                calls["fetches"] += 1
+                calls["rows"] += len(out)
+                return out
+
+            def counted_apply(self, tail, *args):
+                n0 = kernel.scan_apply.launches
+                calls["apply_bulk"] += 1
+                try:
+                    out = apply_bulk(self, tail, *args)
+                    calls["finished"] += 1
+                    return out
+                finally:
+                    calls["launches"] += kernel.scan_apply.launches - n0
+
+            def evented(state, ops_, runs, geo):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = launch(state, ops_, runs, geo)
+                e1.record()
+                events.append((e0, e1))
+                return out
+
+            net.NetworkDeltaStorageService.get = timed("fetch", fetch)
+            MergeTreeClient.apply_bulk = timed("apply_bulk", counted_apply)
+            kernel._launch = evented
+            dm._bulk_handler = timed("process_bulk", handler)
+            head = seen[0]
+            try:
+                sync(dev)
+                h0 = time.perf_counter()
+                reader.reconnect()
+                wait_until(lambda: dm.last_sequence_number >= head, 300.0,
+                           "phase 21 (a): the reader at the head")
+                sync(dev)
+                wall_ms = (time.perf_counter() - h0) * 1e3
+            finally:
+                (net.NetworkDeltaStorageService.get,
+                 MergeTreeClient.apply_bulk, kernel._launch) = (
+                    get, apply_bulk, launch)
+                dm._bulk_handler = handler
+            got = text.get_text()
+        finally:
+            reader.close()
+            writer.close()
+            if force is not None:
+                os.environ["FLUID_TPU_FORCE_BULK"] = force
+    kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
+    sha = hashlib.sha256(got.encode()).hexdigest()
+    if n_ops == full:
+        require(len(got) == g["digest"]["visible_length"]
+                and sha == g["digest"]["text_sha256"],
+                f"phase 21 (a): the reader's text (length {len(got)}, "
+                f"sha256 {sha}) differs from the catch-up golden")
+    require(got == golden.trace_text(trace), f"phase 21 (a): the reader's "
+            f"text (length {len(got)}, sha256 {sha}) differs from the "
+            f"string replay of the {n_ops} ops sent")
+    require(calls["apply_bulk"] > 0 and calls["launches"] > 0
+            and calls["finished"] == calls["apply_bulk"]
+            and text.bulk_catchup_count > bulk_before,
+            f"phase 21 (a): the gap did not finish on the kernel: {calls}")
+    rest = n_ops - live
+    split = {k: round(v * 1e3, 3) for k, v in times.items()}
+    print(f"phase 21 (a): over alfred's sockets, the reader followed "
+          f"{live} ops live ({live_s:.1f} s of submit and sequencing), "
+          f"missed {rest} ({gap_s:.1f} s) and caught up in {wall_ms:.3f} ms "
+          f"({rest / (wall_ms / 1e3):.0f} ops/s; host clock from connect "
+          f"to the head, synced): the /deltas fetch {split['fetch']} ms "
+          f"({calls['fetches']} call(s), {calls['rows']} rows), "
+          f"_process_bulk {split['process_bulk']} ms, of it apply_bulk "
+          f"{split['apply_bulk']} ms ({calls['apply_bulk']} call(s)), of it "
+          f"the scan kernel {kernel_ms:.3f} ms by events over "
+          f"{calls['launches']} launches; the text equals the string "
+          f"replay of the {n_ops} ops sent (length {len(got)}); part "
+          f"{time.perf_counter() - t_part:.1f} s; card {card}", flush=True)
+    return {"wall_ms": wall_ms, "split_ms": split, "kernel_ms": kernel_ms,
+            "calls": calls}
+
+
+def cluster_cpu_main() -> int:
+    """Phase 21 (b)'s CPU twin in a process of its own: testing/
+    cluster_runs at golden.CLUSTER_CARD on the CPU; one JSON line."""
+    from fluidframework_tpu_torch.testing import cluster_runs, golden
+    torch.set_num_threads(CLUSTER_CPU_THREADS)
+    t0 = time.perf_counter()
+    out = cluster_runs.run(cluster_runs.port_package("cpu"),
+                           cluster_runs.Spec(**golden.CLUSTER_CARD))
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def start_cluster_twin() -> subprocess.Popen:
+    """Phase 21 (b)'s CPU twin (cluster_cpu_main)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+         "cluster_cpu_main())"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+
+
+def cluster_part(dev, card: str) -> dict:
+    """Phase 21 (b), a cluster takeover on the device sequencer:
+    testing/cluster_runs at golden.CLUSTER_CARD (8 documents x 3 writers
+    on three nodes through the cluster driver, Loader and TpuLocalServer
+    cores on `dev`): the owner node dies mid-session and node B restores
+    each document's core from its checkpoint and rebuilds its lanes from
+    the shared deltas. Held to the JAX golden: no seq reused or skipped,
+    every operation persisted, every stale client evicted, every text
+    equal (writers, late reader, the owner's device lanes). The ticket
+    scan and the scan apply must launch."""
+    from fluidframework_tpu_torch.testing import cluster_runs, golden
+
+    spec = cluster_runs.Spec(**golden.CLUSTER_CARD)
+    want = golden.load_cluster()["card"]
+    sync(dev)
+    h0 = time.perf_counter()
+    got, launches = cluster_runs.run_counted(
+        cluster_runs.port_package(dev), spec)
+    sync(dev)
+    wall_s = time.perf_counter() - h0
+    require(os.environ.get("FLUID_TPU_FORCE_BULK") is None,
+            "phase 21 (b): the scenario left FLUID_TPU_FORCE_BULK set")
+    for key in want:
+        require(got[key] == want[key], f"phase 21 (b): {key} differs from "
+                f"the JAX golden: {got[key]} vs {want[key]}")
+    require(got["contiguous"] == got["agreed"] == spec.docs
+            and got["evicted"] == got["stale"]
+            and got["op_rows"] == got["typed"],
+            f"phase 21 (b): the takeover lost or reused work: {got}")
+    require(launches.get("ticket_scan", 0) > 0
+            and launches.get("scan_apply", 0) > 0,
+            f"phase 21 (b): the ticket scan and the scan apply must "
+            f"launch: {launches}")
+    print(f"phase 21 (b): the cluster at {golden.CLUSTER_CARD} took over on "
+          f"node B and equals the JAX golden ({got['ops']} sequenced "
+          f"messages, {got['op_rows']} of {got['typed']} operations "
+          f"persisted, seqs contiguous in {got['contiguous']} of "
+          f"{spec.docs} documents, {got['evicted']} of {got['stale']} "
+          f"stale clients evicted, texts agreeing in {got['agreed']}); "
+          f"{wall_s:.1f} s; kernel launches {launches}; card {card}",
+          flush=True)
+    return {"result": got, "launches": launches, "wall_s": wall_s}
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spawn_service(args, cfg_path: str, cwd: str) -> subprocess.Popen:
+    """`python -m fluidframework_tpu_torch.server.main <args> --config
+    cfg_path` from this checkout, its output to a file in `cwd`."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    log = open(os.path.join(cwd, f"{args[0]}.log"), "w")
+    return subprocess.Popen(
+        [sys.executable, "-m", "fluidframework_tpu_torch.server.main",
+         *args, "--config", cfg_path],
+        cwd=cwd, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+
+def service_output(proc: subprocess.Popen, cwd: str, name: str) -> str:
+    with open(os.path.join(cwd, f"{name}.log")) as f:
+        return f.read()[-2000:]
+
+
+def wait_listening(proc, port: int, cwd: str, name: str) -> None:
+    import socket
+
+    def up() -> bool:
+        if proc.poll() is not None:
+            raise SmokeFailure(f"phase 21 (c): the {name} exited "
+                               f"{proc.returncode}: "
+                               f"{service_output(proc, cwd, name)}")
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=0.3).close()
+            return True
+        except OSError:
+            return False
+
+    wait_until(up, SERVICE_LISTEN_S, f"phase 21 (c): the {name} listening",
+               interval=0.1)
+
+
+def stop_services(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.terminate()
+    for proc in procs:
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def deploy_part(dev, card: str) -> dict:
+    """Phase 21 (c), the deployment: the port's `server.main` broker and
+    historian (store mode) as processes, and the tpu-deli, scriptorium,
+    scribe and copier worker on the card twice: as a spawned `worker`
+    process at tests/test_deployment.py's shape (one join and five ops,
+    its sqlite deltas checked), and built in this process by build_worker
+    against a second broker process, fed testing/deploy_runs at
+    golden.DEPLOY_CARD through RemoteMessageLog and held to the JAX
+    golden document by document. Records the fleet's ops/s from the
+    first send to the last persisted delta (the measured waves), the
+    broker's send µs a message and the sequencer lambda's flush p50; the
+    ticket scan and the scan apply must launch in this process."""
+    import json as _json
+    import tempfile
+
+    from fluidframework_tpu_torch.protocol.messages import (Boxcar,
+                                                            DocumentMessage,
+                                                            MessageType)
+    from fluidframework_tpu_torch.server.durable import SqliteDatabaseManager
+    from fluidframework_tpu_torch.server.lambdas.scriptorium import (
+        delta_key, query_deltas)
+    from fluidframework_tpu_torch.server.log_service import RemoteMessageLog
+    from fluidframework_tpu_torch.server.main import RAW_TOPIC
+    from fluidframework_tpu_torch.server.tpu_sequencer import (
+        TpuSequencerLambda)
+    from fluidframework_tpu_torch.testing import deploy_runs, golden
+
+    t_part = time.perf_counter()
+    before = lambda_counts()
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="phase21c-") as tmp:
+        try:
+            port, fleet_port, hist_port = (free_port(), free_port(),
+                                           free_port())
+            cfg = {
+                "broker": {"host": "127.0.0.1", "port": port,
+                           "partitions": 1},
+                "storage": {"db": os.path.join(tmp, "fluid.sqlite"),
+                            "git": os.path.join(tmp, "git")},
+                "worker": {"stages": deploy_runs.STAGES, "poll_ms": 5,
+                           "tenant": "local"},
+                "historian": {"host": "127.0.0.1", "port": hist_port,
+                              "url": f"http://127.0.0.1:{hist_port}"},
+            }
+            cfg_path = os.path.join(tmp, "config.json")
+            with open(cfg_path, "w") as f:
+                _json.dump(cfg, f)
+            fleet_dir = os.path.join(tmp, "fleet")
+            os.makedirs(fleet_dir)
+            fleet_cfg = os.path.join(fleet_dir, "config.json")
+            with open(fleet_cfg, "w") as f:
+                _json.dump({"broker": {"host": "127.0.0.1",
+                                       "port": fleet_port,
+                                       "partitions": 1}}, f)
+            broker = spawn_service(["broker"], cfg_path, tmp)
+            historian = spawn_service(["historian"], cfg_path, tmp)
+            fleet_broker = spawn_service(["broker"], fleet_cfg, fleet_dir)
+            procs += [broker, historian, fleet_broker]
+            wait_listening(broker, port, tmp, "broker")
+            worker = spawn_service(["worker"], cfg_path, tmp)
+            procs.append(worker)
+            log = RemoteMessageLog(f"127.0.0.1:{port}")
+            log.send(RAW_TOPIC, "doc", Boxcar(
+                tenant_id="local", document_id="doc", client_id=None,
+                contents=[DocumentMessage(
+                    client_sequence_number=0, reference_sequence_number=-1,
+                    type=MessageType.CLIENT_JOIN,
+                    data=_json.dumps({"clientId": "c1", "detail": {}}))]))
+            for i in range(1, 6):
+                log.send(RAW_TOPIC, "doc", Boxcar(
+                    tenant_id="local", document_id="doc", client_id="c1",
+                    contents=[DocumentMessage(
+                        client_sequence_number=i,
+                        reference_sequence_number=0,
+                        type=MessageType.OPERATION, contents={"n": i})]))
+            log.close()
+            db = SqliteDatabaseManager(cfg["storage"]["db"])
+            deltas = db.collection("deltas", unique_key=delta_key)
+            rows = []
+
+            def persisted() -> bool:
+                if worker.poll() is not None:
+                    raise SmokeFailure(
+                        f"phase 21 (c): the worker exited "
+                        f"{worker.returncode}: "
+                        f"{service_output(worker, tmp, 'worker')}")
+                rows[:] = query_deltas(deltas, "doc")
+                return len(rows) >= 6
+
+            spawned_s = time.perf_counter()
+            wait_until(persisted, 120.0, "phase 21 (c): the worker "
+                       "process's deltas", interval=0.1)
+            spawned_s = time.perf_counter() - spawned_s
+            db.close()
+            seqs = [r["sequence_number"] for r in rows]
+            require(seqs == list(range(1, len(seqs) + 1)) and
+                    [r["contents"]["n"] for r in rows
+                     if r["type"] == MessageType.OPERATION]
+                    == [1, 2, 3, 4, 5],
+                    f"phase 21 (c): the worker process's deltas {rows}")
+            wait_listening(historian, hist_port, tmp, "historian")
+            stop_services([worker])
+            print(f"phase 21 (c): the worker process (tpu-deli on the "
+                  f"card) sequenced and persisted the join and 5 ops "
+                  f"{spawned_s:.1f} s after they were sent; the broker "
+                  f"and the historian (store mode) are serving", flush=True)
+
+            wait_listening(fleet_broker, fleet_port, fleet_dir,
+                           "fleet broker")
+            spec = deploy_runs.Spec(**golden.DEPLOY_CARD)
+            want = golden.load_deploy()["card"]
+            flushes = []
+            flush = TpuSequencerLambda.flush
+
+            def timed_flush(self, *args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return flush(self, *args, **kwargs)
+                finally:
+                    flushes.append(time.perf_counter() - t0)
+
+            TpuSequencerLambda.flush = timed_flush
+            try:
+                got, timings = deploy_runs.run(
+                    deploy_runs.port_package(), spec,
+                    f"127.0.0.1:{fleet_port}", fleet_dir, device=str(dev))
+            finally:
+                TpuSequencerLambda.flush = flush
+            sync(dev)
+        finally:
+            stop_services(procs)
+    for key in ("docs", "rows", "ops"):
+        require(got[key] == want[key], f"phase 21 (c): {key} {got[key]} "
+                f"differs from the JAX golden's {want[key]}")
+    differ = [doc for doc, d in want["deltas"].items()
+              if got["deltas"].get(doc) != d]
+    require(not differ, f"phase 21 (c): the persisted deltas of "
+            f"{len(differ)} documents differ from the JAX golden: "
+            f"{differ[:5]}")
+    measured = slice(spec.warm, None)
+    n = sum(timings.messages[measured])
+    wall = sum(timings.wall[measured])
+    send_us = sum(timings.send[measured]) / n * 1e6
+    print(f"phase 21 (c): the in-process worker on the card persisted "
+          f"{got['rows']} deltas of {spec.docs} documents, equal to the JAX "
+          f"golden document by document; measured waves "
+          f"{[round(w, 3) for w in timings.wall[measured]]} s: {n / wall:.1f} "
+          f"ops/s from the first send to the last persisted delta, the "
+          f"broker's send {send_us:.1f} µs a message, the sequencer's "
+          f"flush p50 {p50(flushes) * 1e3:.3f} ms over {len(flushes)} "
+          f"flushes; part {time.perf_counter() - t_part:.1f} s; kernel "
+          f"launches in this process {counts_since(before)}; card {card}",
+          flush=True)
+    return {"result": got, "ops_per_s": n / wall, "send_us": send_us,
+            "flush_p50_ms": p50(flushes) * 1e3}
+
+
+def services_phase(dev, card: str) -> list:
+    """Phase 21, the server services on the card: (b) cluster_part, held
+    also to its CPU twin; (c) deploy_part; then (a)
+    network_reconnect_part, with no twin running. The kernel counts are
+    set to 0 at the start and read at the end; the kernel rows are each
+    kernel's largest launch in the phase, with the phase's launches. The
+    phase must finish within PHASE21_BUDGET_S."""
+    t_phase = time.perf_counter()
+    reset_lambda_counts()
+    captured, restore = capture_largest_launches()
+    parts = {}
+    twin = start_cluster_twin()
+    try:
+        before = lambda_counts()
+        b = cluster_part(dev, card)
+        parts["b"] = counts_since(before)
+        before = lambda_counts()
+        deploy_part(dev, card)
+        parts["c"] = counts_since(before)
+        require(parts["c"].get("ticket_scan", 0) > 0
+                and parts["c"].get("scan_apply", 0) > 0,
+                f"phase 21 (c): the ticket scan and the scan apply must "
+                f"launch: {parts['c']}")
+        t0 = time.perf_counter()
+        text, _ = twin.communicate(timeout=CLUSTER_CPU_TIMEOUT)
+        require(twin.returncode == 0,
+                f"phase 21 (b): the CPU twin exited {twin.returncode}")
+        got = json.loads(text.strip().splitlines()[-1])
+        seconds = got.pop("seconds")
+        require(got == b["result"], "phase 21 (b): the card and the CPU "
+                "twin differ")
+        print(f"phase 21 (b): the card equals the CPU twin ({seconds:.1f} s "
+              f"in its process; waited {time.perf_counter() - t0:.1f} s "
+              f"after (c))", flush=True)
+        before = lambda_counts()
+        network_reconnect_part(dev, card)
+        parts["a"] = counts_since(before)
+    finally:
+        restore()
+        stop_twins([twin])
+    counts = lambda_counts()
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 21: kernel launches by part {parts}; {phase_s:.1f} s",
+          flush=True)
+    require(phase_s <= PHASE21_BUDGET_S, f"phase 21 took {phase_s:.1f} s, "
+            f"over its {PHASE21_BUDGET_S:.0f} s")
+    return kernel_rows(captured, counts, card, "phase 21")
+
 
 if __name__ == "__main__":
     try:

@@ -15,10 +15,10 @@ Corpus file format (gzip JSON lines):
   line 0: header {"doc", "workload", "seed", "channel_type", ...}
   line 1..n: alfred /deltas rows (scriptorium delta records) in seq order
 
-A port of the replay side of fluidframework_tpu's testing/corpus.py (the
-capture side needs alfred and tinylicious, which the port does not have
-yet). It reads the same checked-in corpora under tests/corpus/ and their
-pins. A replay channel runs on `device` (None means "cuda", which raises
+A port of fluidframework_tpu's testing/corpus.py; the capture side is
+testing/record_corpus.py over the port's alfred and tinylicious, and
+writes only outside tests/corpus/. It reads the same checked-in corpora
+under tests/corpus/ and their pins. A replay channel runs on `device` (None means "cuda", which raises
 without CUDA): a bare channel takes its device from a runtime, so
 make_channel binds it to a detached ContainerRuntime on that device.
 """
@@ -39,6 +39,13 @@ CORPUS_DIR = os.path.join(os.path.dirname(os.path.dirname(
 # numbers, which ride in on the next op row's seq.
 _OP = "op"
 _JOIN = "join"
+
+
+def write_corpus(path: str, header: dict, rows: List[dict]) -> None:
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write(json.dumps(header, sort_keys=True) + "\n")
+        for row in rows:
+            f.write(json.dumps(row, sort_keys=True) + "\n")
 
 
 def read_corpus(path: str) -> Tuple[dict, List[dict]]:

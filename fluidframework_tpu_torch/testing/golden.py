@@ -78,12 +78,28 @@ golden/app_golden.json (APP_GOLDEN_PATH) holds the JAX package's
 application layer and offline document path (framework, code loader,
 host, client_api, the file driver, the fetch and replay tools) through
 testing/app_runs.run, as its digests (one run; app_runs has no size).
+golden/cluster_golden.json (CLUSTER_GOLDEN_PATH) holds the JAX package's
+multi-node ordering (server/nodes.Cluster with its TpuLocalServer cores,
+the cluster driver, the Loader) through a takeover, testing/
+cluster_runs.run, as its digests (the run gives the JAX package the
+port's per-document checkpoint scoping, ROADMAP Queue 3 item 11):
+  card                           at CLUSTER_CARD;
+  small                          at CLUSTER_SMALL.
+golden/deploy_golden.json (DEPLOY_GOLDEN_PATH) holds the JAX package's
+deployment worker (server/main.build_worker with the tpu-deli,
+scriptorium, scribe and copier stages over a gRPC broker, durable sqlite
+deltas) fed testing/deploy_runs's fleet, as each document's persisted
+delta rows' digest:
+  card                           at DEPLOY_CARD;
+  small                          at DEPLOY_SMALL.
 tests/test_torch_golden.py regenerates the files from the JAX package and
 requires equality, so the values cannot drift (the lambda golden through
 tests/test_torch_lambda_golden.py, the server golden through
 tests/test_torch_server_golden.py, the decay golden through
 tests/test_torch_tools.py, the app golden through
-tests/test_torch_offline_tools.py); chip_smoke.py holds the CUDA kernels,
+tests/test_torch_offline_tools.py, the cluster golden through
+tests/test_torch_cluster_golden.py, the deploy golden's small section
+through tests/test_torch_deploy_golden.py); chip_smoke.py holds the CUDA kernels,
 the lambda and the local server against them on a machine without JAX.
 """
 
@@ -138,6 +154,22 @@ CLIENT_GOLDEN_PATH = GOLDEN_PATH.with_name("client_golden.json")
 CLIENT_CARD = {"docs": 8, "rounds": 3, "ops": 32}
 CLIENT_SMALL = {"docs": 4, "rounds": 2, "ops": 24}
 APP_GOLDEN_PATH = GOLDEN_PATH.with_name("app_golden.json")
+CLUSTER_GOLDEN_PATH = GOLDEN_PATH.with_name("cluster_golden.json")
+# testing/cluster_runs.Spec fields. The card's cluster is phase 19 (a)'s
+# fleet (8 documents, 3 writers each) on three nodes, with three waves on
+# each side of the owner's death; the small one is the JAX test's shape
+# widened to two documents.
+CLUSTER_CARD = {"docs": 8, "nodes": 3, "before": 3, "after": 3, "ops": 16}
+CLUSTER_SMALL = {"docs": 2, "nodes": 2, "before": 2, "after": 2, "ops": 8}
+DEPLOY_GOLDEN_PATH = GOLDEN_PATH.with_name("deploy_golden.json")
+# testing/deploy_runs.Spec fields. The card's fleet keeps phase 17's
+# traffic widths (32 inserts a document a wave in boxcars of 8) at 32 of
+# its 512 documents and 1 of its 3 measured waves: the worker persists
+# each delta, each scribe checkpoint and each broker commit with a sqlite
+# or gRPC round trip of its own, milliseconds a message on the host
+# (PERF.md §4). The small fleet is the CPU tests'.
+DEPLOY_CARD = {"docs": 32, "ops": 32, "warm": 1, "measured": 1}
+DEPLOY_SMALL = {"docs": 8, "ops": 8, "warm": 1, "measured": 1}
 DECAY_GOLDEN_PATH = GOLDEN_PATH.with_name("decay_golden.json")
 # (documents, ops a document a wave, waves) of the decay probe's runs: the
 # tool's documented default (decay_probe.py main) and the JAX test's.
@@ -193,6 +225,23 @@ def entries_digest(entries: List[dict]) -> Dict[str, object]:
             "entries_sha256": hashlib.sha256(
                 canonical_entries(entries).encode()).hexdigest(),
             "text_sha256": hashlib.sha256(text.encode()).hexdigest()}
+
+
+def trace_text(trace) -> str:
+    """The visible text of a one-client keystroke trace (testing/traces.
+    keystroke_trace) replayed on a plain string: each op's positions are
+    in the text as it stands, since every op refers to the one before it.
+    tests/test_torch_golden.py holds it to the catch-up golden's digest of
+    the whole 100,000-op trace; chip_smoke.py phase 21 (a) holds a prefix
+    of the trace to it."""
+    text = ""
+    for op, *_ in trace:
+        if op["type"] == 0:
+            pos = op["pos1"]
+            text = text[:pos] + op["seg"]["text"] + text[pos:]
+        elif op["type"] == 1:
+            text = text[:op["pos1"]] + text[op["pos2"]:]
+    return text
 
 
 def load_catchup(path: Path = CATCHUP_GOLDEN_PATH) -> dict:
@@ -339,6 +388,28 @@ def load_app(path: Path = APP_GOLDEN_PATH) -> dict:
 
 
 def save_app(doc: dict, path: Path = APP_GOLDEN_PATH) -> None:
+    with open(path, "w") as f:
+        json.dump(doc, f, sort_keys=True, indent=1)
+        f.write("\n")
+
+
+def load_cluster(path: Path = CLUSTER_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def save_cluster(doc: dict, path: Path = CLUSTER_GOLDEN_PATH) -> None:
+    with open(path, "w") as f:
+        json.dump(doc, f, sort_keys=True, indent=1)
+        f.write("\n")
+
+
+def load_deploy(path: Path = DEPLOY_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def save_deploy(doc: dict, path: Path = DEPLOY_GOLDEN_PATH) -> None:
     with open(path, "w") as f:
         json.dump(doc, f, sort_keys=True, indent=1)
         f.write("\n")

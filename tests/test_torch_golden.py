@@ -373,6 +373,19 @@ class TestCatchupGolden:
         assert stats["retries"] >= 1
         assert golden.entries_digest(got)["count"] == len(got)
 
+    def test_trace_text_matches_full_digest(self):
+        """golden.trace_text, the string replay chip_smoke.py phase 21 (a)
+        holds a prefix of the trace to, gives the committed JAX digest's
+        text for the whole trace."""
+        import hashlib
+        g = golden.load_catchup()["full"]
+        n_ops, seed, n_clients = g["trace"]
+        assert n_clients == 1
+        text = golden.trace_text(keystroke_trace(n_ops, seed=seed))
+        assert len(text) == g["digest"]["visible_length"]
+        assert hashlib.sha256(text.encode()).hexdigest() == \
+            g["digest"]["text_sha256"]
+
     def test_catchup_golden_covers_the_hard_cases(self):
         g = golden.load_catchup()
         small = g["small"]["entries"]

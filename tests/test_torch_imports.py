@@ -281,8 +281,9 @@ def _top_level_imports(path: Path):
 
 def test_slice_twelve_is_covered_and_grpc_is_lazy():
     """The operator's surface is walked by the checks above (no jax, no
-    JAX package); grpc is imported only inside the bridge's transport,
-    where the JAX module imports it, never when a module loads."""
+    JAX package); grpc is imported only inside the functions that need it
+    (the bridge's transport and the broker's, where the JAX modules
+    import it), never when a module loads."""
     assert set(SLICE_TWELVE_MODULES) <= set(_port_modules())
     lazy = []
     for path in _port_files():
@@ -290,7 +291,28 @@ def test_slice_twelve_is_covered_and_grpc_is_lazy():
         assert "grpc" not in set(_top_level_imports(path)), path
         if "grpc" in roots:
             lazy.append(str(path.relative_to(REPO)))
-    assert lazy == ["fluidframework_tpu_torch/server/bridge.py"]
+    assert lazy == ["fluidframework_tpu_torch/server/bridge.py",
+                    "fluidframework_tpu_torch/server/log_service.py"]
+
+
+SLICE_FIFTEEN_MODULES = tuple(
+    f"fluidframework_tpu_torch.{m}" for m in (
+        "server.websocket", "server.auth", "server.document_router",
+        "server.log_service", "server.durable", "server.historian",
+        "server.alfred", "server.tinylicious", "server.package_registry",
+        "server.gateway", "server.nodes", "server.main",
+        "loader.drivers.routerlicious", "loader.drivers.mux",
+        "loader.drivers.cluster", "testing.record_corpus"))
+
+
+def test_slice_fifteen_is_covered():
+    """The server services keep the JAX modules' names and are walked by
+    the checks above, with no exception list."""
+    assert len(SLICE_FIFTEEN_MODULES) == 16
+    assert set(SLICE_FIFTEEN_MODULES) <= set(_port_modules())
+    for module in SLICE_FIFTEEN_MODULES:
+        rel = module.split(".", 1)[1].replace(".", "/") + ".py"
+        assert (REPO / "fluidframework_tpu" / rel).exists(), rel
 
 
 def test_slice_twelve_entry_points_raise_without_cuda(monkeypatch):

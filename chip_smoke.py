@@ -173,10 +173,26 @@ the JAX golden document by document (ops/s, the broker's send µs a
 message and the flush p50 printed); (a) BASELINE config #2 over real
 sockets, cut to the trace's first NETWORK_OPS: a reader on the
 routerlicious driver follows 3,000 ops of phase 11's trace live through
-Tinylicious, misses 57,000 and reconnects, its gap fetched over alfred's
+Tinylicious, misses 27,000 and reconnects, its gap fetched over alfred's
 /deltas and applied through apply_bulk on the scan kernel, its text held
 to golden.trace_text (the string replay that the CPU tests hold to the
 catch-up golden); the phase within PHASE21_BUDGET_S.
+Phase 22 drives the capacity soak and the client-side tools on the card:
+(a) the chaos-on capacity grade (testing/capacity_runs.grade at
+CAPACITY_CARD: 256 documents x 32 ticks, 2 partitions, 2 shards, an
+open-loop seeded workload on the virtual clock, partition crash-restarts
+and reconnect avalanches drawn from a FaultPlan; the grader's probes and
+the capacity point twice) over TpuLocalServer on the card, after phase
+21 (card_grade), held to the JAX golden and to a CPU twin started before
+the kernel build, with every ticket-scan and scan-apply launch counted by
+path (recovery apart) beside the stream ms between CUDA events recorded
+around it;
+(b) the keystroke load test with reconnect churn (testing/load_test
+LoadRunner) over TpuLocalServer, its texts held to the JAX golden; (c) two
+HeadlessAgentRunners hosting the IntelligenceRunner, the insights held to
+the JAX golden; (d) testing/historian_smoke.main on the card; (e) the C
+op packer (native/src/oppack.cpp) bit-exact to pack_ops_plain over a lane
+fleet's windows, both timed.
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -184,6 +200,8 @@ before that line. Exits nonzero when CUDA is not available.
 
 from __future__ import annotations
 
+import atexit
+import gc
 import json
 import logging
 import os
@@ -192,6 +210,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -217,11 +236,12 @@ PEAK_OPS_PER_S = 64 * 132 * 1.98e9
 PEAK_FP32_OPS_PER_S = 67e12
 # Phase 9: capacities fuzzed on each path (the warp path takes C <= 512),
 # (K, A) pairs, seeds and documents (a batch that leaves the last block of
-# a multi-document warp launch partly empty).
+# a multi-document warp launch partly empty). One seed: the second one's
+# 22 s did not fit the script's time limit (PERF.md §4).
 FUZZ_CAPACITIES = (1, 31, 32, 33, 63, 64, 100, 255, 256, 257, 512, 1000,
                    1024, 1100)
 FUZZ_SLOTS = ((3, 1), (3, 4))
-FUZZ_SEEDS = (0, 1)
+FUZZ_SEEDS = (0,)
 FUZZ_DOCS, FUZZ_OPS = 1059, 40
 PATHS = ("warp", "block")
 # At each main-path shape the rule's path may be at most this much slower
@@ -232,6 +252,9 @@ PATH_MARGIN = 0.10
 # launch latency varies by tens of microseconds, which decides a 0.2 ms
 # kernel's ranking when only a few are taken).
 PATH_REPS = 10
+# A kernel row's plain version is timed on the call that gives the output
+# the kernel is held to, or on a second, warm call when that took less.
+WARM_PLAIN_MS = 50.0
 # Phase 10: the scan apply's fuzz grid (capacities x documents x annotate
 # slots, both variants, K=3), ops per stream by capacity, and the largest
 # state (int32 elements) a cell may hold: a larger cell is dropped and
@@ -352,6 +375,76 @@ def card_line() -> str:
     return out.splitlines()[0] if out else "nvidia-smi printed nothing"
 
 
+# The garbage collector's thresholds in this script's process and its CPU
+# twins (CPython's default is (700, 10, 10)): the phases build large live
+# heaps of servers, clients and logs, over which the default thresholds ran
+# a full collection every second or so (PERF.md §5: 79 in phase 22 alone,
+# 91.6 s of full collections in all).
+GC_THRESHOLDS = (50_000, 20, 20)
+# A twin process's command: the script's collector thresholds, then its
+# entry point.
+TWIN_PRELUDE = "import sys, chip_smoke; chip_smoke.harness_gc(); "
+
+
+def harness_gc() -> None:
+    """Set GC_THRESHOLDS in this process."""
+    gc.set_threshold(*GC_THRESHOLDS)
+
+
+class PhaseClock:
+    """Each part's wall and the garbage collector's pauses in it. At every
+    mark() the part that ends is printed, the cyclic garbage it left is
+    collected, and every object still alive is frozen (gc.freeze), so that
+    a later full collection walks only what the later parts make, not the
+    heap that the earlier ones keep (such a pass took 5.0 s in phase 19
+    (b)'s reconnect and 6.6 s in phase 20 (c)'s file load with nothing
+    frozen)."""
+
+    def __init__(self, t_start: float, label: str):
+        self.t_start, self.label = t_start, label
+        self.t_part = time.perf_counter()
+        self.pauses = {0: [0, 0.0], 1: [0, 0.0], 2: [0, 0.0]}
+        self._t0 = None
+        self._own = False
+        gc.callbacks.append(self._on_gc)
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if self._own:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            p = self.pauses[info["generation"]]
+            p[0] += 1
+            p[1] += time.perf_counter() - self._t0
+            self._t0 = None
+
+    def mark(self, label: str) -> None:
+        now = time.perf_counter()
+        full, young = self.pauses[2], (
+            self.pauses[0][0] + self.pauses[1][0],
+            self.pauses[0][1] + self.pauses[1][1])
+        self._own = True
+        try:
+            gc.collect()
+            collect_s = time.perf_counter() - now
+            gc.freeze()
+        finally:
+            self._own = False
+        print(f"chip_smoke: {self.label} took {now - self.t_part:.1f} s, "
+              f"ending {now - self.t_start:.1f} s into the run; the garbage "
+              f"collector's pauses in it: {full[0]} full for {full[1]:.2f} "
+              f"s, {young[0]} young for {young[1]:.2f} s; the collection at "
+              f"its end {collect_s:.2f} s, then {gc.get_freeze_count()} "
+              f"objects frozen", flush=True)
+        self.pauses = {0: [0, 0.0], 1: [0, 0.0], 2: [0, 0.0]}
+        self.label = label
+        self.t_part = time.perf_counter()
+
+    def close(self) -> None:
+        gc.callbacks.remove(self._on_gc)
+
+
 def ms_of(fn, reps: int) -> float:
     """Mean device milliseconds of fn() over reps launches (CUDA events,
     after one warm-up call)."""
@@ -457,6 +550,17 @@ def once_ms(fn) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
+
+
+def plain_once(fn) -> tuple:
+    """(ms, output) of a plain version: once_ms around the call whose
+    output the kernel is held to; a call under WARM_PLAIN_MS is timed
+    once more, warm, since a first call's set-up would be much of it."""
+    out = []
+    ms = once_ms(lambda: out.append(fn()))
+    if ms < WARM_PLAIN_MS:
+        ms = once_ms(fn)
+    return ms, out[0]
 
 
 def cold_ms(fn, reps: int) -> float:
@@ -848,12 +952,28 @@ def main(north_star_only: bool = False) -> int:
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {name}", flush=True)
+    harness_gc()
+    capacity_twin = None if north_star_only else start_capacity_twin()
+    scalar_twin = None if north_star_only else start_scalar_twin()
+    clock = PhaseClock(t_start, "the kernel build and the set-up")
+    set_up_pool = ThreadPoolExecutor(max_workers=2)
+    set_up = None if north_star_only else start_set_up(set_up_pool)
 
     # -- phase 1: build + selftest ---------------------------------------
     t0 = time.perf_counter()
     build.library()
     print(f"setup: kernel build {time.perf_counter() - t0:.2f} s "
           f"({build.source_hash()})", flush=True)
+    if set_up is not None:
+        t0 = time.perf_counter()
+        early = finish_set_up(set_up)
+        del set_up
+        print(f"setup: phase 10's {len(early['scan'])} largest tables and "
+              f"phase 18 (c)'s {len(early['decay'])} fleet waves were drawn "
+              f"beside the build; waited {time.perf_counter() - t0:.2f} s "
+              f"after it", flush=True)
+    set_up_pool.shutdown()
+    clock.mark("phases 1-5")
     ptxas = build.BUILD_ROOT / build.source_hash() / "ptxas.log"
     require(ptxas.exists(), f"no ptxas report beside the library ({ptxas})")
     report = ptxas_report(ptxas.read_text())
@@ -1145,16 +1265,23 @@ def main(north_star_only: bool = False) -> int:
         lane_twins = start_lane_twins()
         twins_from = time.perf_counter()
         try:
+            clock.mark("phases 6-8")
             rows += serving_phases(dev, card)
+            clock.mark("phase 9")
             fuzz_phase(dev)
-            scan_fuzz_phase(dev)
+            clock.mark("phase 10")
+            scan_fuzz_phase(dev, early["scan"])
+            clock.mark("phase 11")
             rows += scan_full_step_phase(dev, card)
             catchup_rows, catchup_entries, catchup_ms = catchup_phases(
                 dev, card)
             rows += catchup_rows
+            clock.mark("phase 12")
             paged_rows, hot = paged_phase(dev, card)
             rows += paged_rows
-            scalar_phase(dev, card, catchup_entries)
+            clock.mark("phase 13")
+            scalar_phase(dev, card, catchup_entries, scalar_twin)
+            clock.mark("phase 14")
             summarize_phase(dev, card, hot, catchup_entries)
             del hot
         except BaseException:
@@ -1162,12 +1289,20 @@ def main(north_star_only: bool = False) -> int:
             raise
         print(f"phases 6-14 ({time.perf_counter() - twins_from:.1f} s) ran "
               f"beside phase 15's CPU twins (two processes of "
-              f"{LANE_CPU_THREADS} threads): their host-clock figures (the "
-              f"rings' stages, the catch-up's wall and host ms, the scalar "
-              f"replay, the summarize passes) shared the host with them",
-              flush=True)
+              f"{LANE_CPU_THREADS} threads) and phase 22's (one process of "
+              f"{CAPACITY_CPU_THREADS}, from the build on): their "
+              f"host-clock figures (the rings' stages, the catch-up's wall "
+              f"and host ms, the summarize passes) shared the host with "
+              f"them", flush=True)
+        clock.mark("phase 15")
         rows += lane_store_phase(dev, card, lane_twins)
+        clock.mark("phase 16")
+        state = "was still running" if capacity_twin.poll() is None \
+            else "had finished"
+        print(f"phase 22 (a)'s CPU twin {state} when phase 16 began",
+              flush=True)
         lambda_phase(dev, card)
+        clock.mark("phase 17")
         decay_twin = start_operator_twin("decay")
         try:
             server_rows, fig17 = server_phase(dev, card)
@@ -1175,10 +1310,12 @@ def main(north_star_only: bool = False) -> int:
         except BaseException:
             stop_twins([decay_twin])
             raise
+        clock.mark("phase 18")
         client_twin = start_client_twin()
         app_twin = start_app_twin()
         try:
-            rows += operator_phase(dev, card, decay_twin, fig17["bucketed"])
+            rows += operator_phase(dev, card, decay_twin, fig17["bucketed"],
+                                   early)
         except BaseException:
             stop_twins([client_twin, app_twin])
             raise
@@ -1186,13 +1323,20 @@ def main(north_star_only: bool = False) -> int:
               "the CPU twins of phase 19 (a) and phase 20 (b) (processes "
               f"of {CLIENT_CPU_THREADS} and {APP_CPU_THREADS} threads): its "
               "host-clock figures shared the host with them", flush=True)
+        clock.mark("phase 19")
         try:
             rows += client_phase(dev, card, catchup_ms, client_twin)
         except BaseException:
             stop_twins([app_twin])
             raise
+        clock.mark("phase 20")
         rows += offline_phase(dev, card, app_twin)
+        clock.mark("phase 21")
         rows += services_phase(dev, card)
+        clock.mark("phase 22")
+        rows += capacity_phase(dev, card, capacity_twin)
+    clock.mark("the kernels' line")
+    clock.close()
 
     require(not spilled, f"kernels use stack or spill: {spilled}")
     out = []
@@ -1659,55 +1803,85 @@ def scan_label(geo) -> str:
     return f"cluster{geo.blocks}" if geo.path == "cluster" else geo.path
 
 
-def scan_fuzz_phase(dev) -> None:
-    """Phase 10: every scan-apply path (scan_geometries) bit-exact against
-    the plain scan on fuzz_tables under gen_fuzz_traces over
-    SCAN_CAPACITIES x SCAN_BATCHES x SCAN_ANNO, plain and runs variants; a
-    one-document cell takes the near-full document of a fuzzed pair. Where
-    the fused apply takes the capacity, the scan kernel must also equal
-    the fused kernel, bit for bit."""
-    from fluidframework_tpu_torch import interop
-    from fluidframework_tpu_torch.mergetree import kernel
-    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
-    from fluidframework_tpu_torch.testing.traces import (fuzz_tables,
-                                                         gen_fuzz_traces)
-    t0 = time.perf_counter()
-    checked, vs_fused, flagged, dropped = {}, 0, 0, []
+def scan_cells() -> tuple:
+    """Phase 10's grid: the (C, B, A, steps, seed) cells it checks, and
+    the (B, C, A) cells that SCAN_MAX_INTS drops."""
+    cells, dropped = [], []
     for ci, c in enumerate(SCAN_CAPACITIES):
         steps = 24 if c <= 4200 else 12 if c <= 16384 else 8
         for b in SCAN_BATCHES:
             for a in SCAN_ANNO:
                 if b * c * (8 + 3 + a) > SCAN_MAX_INTS:
                     dropped.append((b, c, a))
-                    continue
-                seed = 1000 + 10 * ci + a
-                tables = fuzz_tables(max(b, 2), c, 3, a, seed=seed)
-                if b == 1:  # the near-full document
-                    tables = {f: v[1:2] for f, v in tables.items()}
-                state = interop.doc_state_from_numpy(tables, dev)
-                length = tables["count"] * 2
-                geos = scan_geometries(b, c, 3, a)
-                for with_runs in (False, True):
-                    got = gen_fuzz_traces(b, steps, seed=seed + with_runs,
-                                          runs=with_runs, length=length)
-                    cols, run_np = got if with_runs else (got, None)
-                    ops = interop.packed_ops_from_numpy(cols, dev)
-                    runs = None if run_np is None else \
-                        interop.run_cols_from_numpy(run_np, dev)
-                    want = kernel.scan_ops_plain(state, ops, True, runs)
-                    flagged += int(want.overflow.sum())
-                    what = f"scan C={c} B={b} A={a} runs={with_runs}"
-                    for label, geo in geos.items():
-                        out = kernel._launch(state, ops, runs, geo)
-                        torch.cuda.synchronize()
-                        assert_trees_equal(out, want, f"{what} {label}")
-                        checked[label] = checked.get(label, 0) + 1
-                    if fused_takes(pa, c, 3, a):
-                        fused = pa.apply_ops_fused(state, ops, runs)
-                        torch.cuda.synchronize()
-                        assert_trees_equal(want, fused, f"{what} vs fused")
-                        vs_fused += 1
-                del state, out, want
+                else:
+                    cells.append((c, b, a, steps, 1000 + 10 * ci + a))
+    return cells, dropped
+
+
+def scan_tables(cell) -> dict:
+    """A phase 10 cell's starting tables (numpy): fuzz_tables, a
+    one-document cell taking the near-full document of a fuzzed pair."""
+    from fluidframework_tpu_torch.testing.traces import fuzz_tables
+    c, b, a, _, seed = cell
+    tables = fuzz_tables(max(b, 2), c, 3, a, seed=seed)
+    if b == 1:  # the near-full document
+        tables = {f: v[1:2] for f, v in tables.items()}
+    return tables
+
+
+def scan_fuzz_phase(dev, early: dict) -> None:
+    """Phase 10: every scan-apply path (scan_geometries) bit-exact against
+    the plain scan on fuzz_tables under gen_fuzz_traces over
+    SCAN_CAPACITIES x SCAN_BATCHES x SCAN_ANNO, plain and runs variants; a
+    one-document cell takes the near-full document of a fuzzed pair. Where
+    the fused apply takes the capacity, the scan kernel must also equal
+    the fused kernel, bit for bit. `early` holds the tables of the largest
+    cells, drawn during the kernel build (start_set_up); each is dropped
+    once checked."""
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.mergetree import pallas_apply as pa
+    from fluidframework_tpu_torch.testing.traces import gen_fuzz_traces
+    t0 = time.perf_counter()
+    checked, vs_fused, flagged = {}, 0, 0
+    cells, dropped = scan_cells()
+
+    def tables_of(cell):
+        return early.pop(cell, None) or scan_tables(cell)
+
+    # The host draws the next cell's tables (most of the phase's time at
+    # the large cells) while the card checks this one.
+    pool = ThreadPoolExecutor(max_workers=1)
+    ahead = pool.submit(tables_of, cells[0])
+    for i, (c, b, a, steps, seed) in enumerate(cells):
+        tables = ahead.result()
+        if i + 1 < len(cells):
+            ahead = pool.submit(tables_of, cells[i + 1])
+        state = interop.doc_state_from_numpy(tables, dev)
+        length = tables["count"] * 2
+        geos = scan_geometries(b, c, 3, a)
+        for with_runs in (False, True):
+            got = gen_fuzz_traces(b, steps, seed=seed + with_runs,
+                                  runs=with_runs, length=length)
+            cols, run_np = got if with_runs else (got, None)
+            ops = interop.packed_ops_from_numpy(cols, dev)
+            runs = None if run_np is None else \
+                interop.run_cols_from_numpy(run_np, dev)
+            want = kernel.scan_ops_plain(state, ops, True, runs)
+            flagged += int(want.overflow.sum())
+            what = f"scan C={c} B={b} A={a} runs={with_runs}"
+            for label, geo in geos.items():
+                out = kernel._launch(state, ops, runs, geo)
+                torch.cuda.synchronize()
+                assert_trees_equal(out, want, f"{what} {label}")
+                checked[label] = checked.get(label, 0) + 1
+            if fused_takes(pa, c, 3, a):
+                fused = pa.apply_ops_fused(state, ops, runs)
+                torch.cuda.synchronize()
+                assert_trees_equal(want, fused, f"{what} vs fused")
+                vs_fused += 1
+        del state, out, want, tables
+    pool.shutdown()
     print(f"phase 10: every scan_apply path bit-exact against the plain "
           f"scan, launches by path {checked} (capacities "
           f"{SCAN_CAPACITIES} x documents {SCAN_BATCHES} x A {SCAN_ANNO} x "
@@ -1765,10 +1939,8 @@ def scan_rows(what: str, state, ops, runs, kernel_launches: dict,
     b, c = state.length.shape
     k, a = state.overlap_slots, state.anno_slots
     variant = "runs" if runs is not None else "plain"
-    want = kernel.scan_ops_plain(state, ops, True, runs)
-    plain_ms = once_ms(lambda: kernel.scan_ops_plain(state, ops, True,
-                                                      runs))
-    torch.cuda.synchronize()
+    plain_ms, want = plain_once(lambda: kernel.scan_ops_plain(
+        state, ops, True, runs))
     kinds = ops.kind.cpu().numpy()
     work = dict(
         bytes=fused_apply_bytes(b, c, ops.steps, k, a, runs is not None,
@@ -2374,24 +2546,23 @@ def paged_phase(dev, card: str) -> list:
     return rows, (store, keys)
 
 
-def scalar_phase(dev, card: str, catchup_entries) -> None:
-    """Phase 13, scalar against device catch-up: keystroke_trace(100,000,
-    seed=12) replayed op by op through the port's MergeTreeClient.apply_msg
-    on the host (the whole trace, or the prefix reached within
-    SCALAR_BUDGET_S), its text equal to the device catch-up's (phase 11's
-    for the whole trace); the scalar cost per op fitted against the live
-    segments (least squares over blocks of SCALAR_BLOCK ops), the device
-    wall fitted to the cost model's formula on prefixes of the same trace,
-    and where mergetree/costmodel.device_bulk_wins puts the crossover, by
-    the fit and by the committed constants."""
-    from fluidframework_tpu_torch.mergetree import catchup, costmodel
+def scalar_cpu_main() -> int:
+    """Phase 13's scalar replay in a process of its own: keystroke_trace
+    (100,000, seed=12) op by op through the port's MergeTreeClient.
+    apply_msg (a host path: the client's device serves apply_bulk only),
+    in blocks of SCALAR_BLOCK ops until the whole trace or the block that
+    crosses SCALAR_BUDGET_S; prints {"done", "seconds", "points" ((mean
+    live segments, seconds an op) a block), "segments", "text_sha256"} as
+    one JSON line."""
+    import hashlib
+
     from fluidframework_tpu_torch.mergetree.client import MergeTreeClient
     from fluidframework_tpu_torch.testing import golden
     from fluidframework_tpu_torch.testing.traces import keystroke_trace
-
+    torch.set_num_threads(1)
     n_ops, seed, n_clients = golden.load_catchup()["full"]["trace"]
     tail = keystroke_trace(n_ops, seed=seed, n_clients=n_clients)
-    client = MergeTreeClient(client_id=99, device=dev)
+    client = MergeTreeClient(client_id=99, device="cpu")
     points, done = [], 0
     t0 = time.perf_counter()
     while done < n_ops and time.perf_counter() - t0 < SCALAR_BUDGET_S:
@@ -2404,7 +2575,56 @@ def scalar_phase(dev, card: str, catchup_entries) -> None:
         points.append(((segs0 + len(client.tree.segments)) / 2,
                        dt / len(block)))
         done += len(block)
-    scalar_s = time.perf_counter() - t0
+    print(json.dumps({
+        "done": done, "seconds": time.perf_counter() - t0, "points": points,
+        "segments": len(client.tree.segments),
+        "text_sha256": hashlib.sha256(
+            client.get_text().encode()).hexdigest()}), flush=True)
+    return 0
+
+
+def start_scalar_twin() -> subprocess.Popen:
+    """scalar_cpu_main, started before the kernel build: the replay is
+    host work alone, so it runs in the build's wall (beside nvcc, the
+    set-up threads and phase 22's CPU twin) and phase 13 reads it. It is
+    killed at exit if it is still running."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
+         "scalar_cpu_main())"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+    atexit.register(stop_twins, [proc])
+    return proc
+
+
+def scalar_phase(dev, card: str, catchup_entries,
+                 twin: subprocess.Popen) -> None:
+    """Phase 13, scalar against device catch-up: keystroke_trace(100,000,
+    seed=12) replayed op by op through the port's MergeTreeClient.apply_msg
+    on the host (the whole trace, or the prefix reached within
+    SCALAR_BUDGET_S; scalar_cpu_main, in the process `twin`), its text
+    equal to the device catch-up's (phase 11's for the whole trace); the
+    scalar cost per op fitted against the live segments (least squares
+    over blocks of SCALAR_BLOCK ops), the device wall fitted to the cost
+    model's formula on prefixes of the same trace, and where
+    mergetree/costmodel.device_bulk_wins puts the crossover, by the fit
+    and by the committed constants."""
+    import hashlib
+
+    from fluidframework_tpu_torch.mergetree import catchup, costmodel
+    from fluidframework_tpu_torch.testing import golden
+    from fluidframework_tpu_torch.testing.traces import keystroke_trace
+
+    n_ops, seed, n_clients = golden.load_catchup()["full"]["trace"]
+    tail = keystroke_trace(n_ops, seed=seed, n_clients=n_clients)
+    t0 = time.perf_counter()
+    text, _ = twin.communicate(timeout=SCALAR_BUDGET_S * 4)
+    waited_s = time.perf_counter() - t0
+    require(twin.returncode == 0,
+            f"phase 13: the scalar replay's process exited {twin.returncode}")
+    replay = json.loads(text.strip().splitlines()[-1])
+    done, scalar_s = replay["done"], replay["seconds"]
+    points = [tuple(p) for p in replay["points"]]
     if done == n_ops:
         want_text = golden.entries_text(catchup_entries)
         device_s = None
@@ -2416,7 +2636,8 @@ def scalar_phase(dev, card: str, catchup_entries) -> None:
         torch.cuda.synchronize()
         device_s = time.perf_counter() - h0
         want_text = golden.entries_text(entries)
-    require(client.get_text() == want_text,
+    require(replay["text_sha256"]
+            == hashlib.sha256(want_text.encode()).hexdigest(),
             f"phase 13: the scalar replay of {done} ops differs from the "
             "device catch-up's text")
     segs = np.asarray([p[0] for p in points])
@@ -2428,11 +2649,13 @@ def scalar_phase(dev, card: str, catchup_entries) -> None:
         base, per_seg = 0.0, float((segs @ per_op) / (segs @ segs))
         how = "least squares through the origin (the free fit's base < 0)"
     print(f"phase 13: scalar replay of {done} of {n_ops} ops "
-          f"(keystroke_trace seed {seed}) through MergeTreeClient.apply_msg:"
-          f" {scalar_s * 1e3:.1f} ms ({done / scalar_s:.0f} ops/s), text "
-          f"equal to the device catch-up's; live segments "
-          f"{int(segs[0])} -> {len(client.tree.segments)}; (live segments,"
-          f" us per op) by block of {SCALAR_BLOCK} ops "
+          f"(keystroke_trace seed {seed}) through MergeTreeClient.apply_msg "
+          f"in a process of its own beside the kernel build (phase 13 "
+          f"waited {waited_s:.1f} s for it): {scalar_s * 1e3:.1f} ms "
+          f"({done / scalar_s:.0f} ops/s), text equal to the device "
+          f"catch-up's; live segments {int(segs[0])} -> "
+          f"{replay['segments']}; (live segments, us per op) by block of "
+          f"{SCALAR_BLOCK} ops "
           f"{[(int(x), round(y * 1e6, 1)) for x, y in points]}",
           flush=True)
 
@@ -2959,7 +3182,7 @@ def start_lane_twins() -> dict:
     from fluidframework_tpu_torch.testing import serving
     spec = getattr(serving, LANE_SPEC)
     return {store: subprocess.Popen(
-        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
          "lane_cpu_main(sys.argv[1], sys.argv[2]))",
          json.dumps([spec, LANE_SEED, LANE_BACKLOG, LANE_DIRTY_STRIDE]),
          store], cwd=os.path.dirname(os.path.abspath(__file__)),
@@ -3396,7 +3619,7 @@ def lambda_phase(dev, card: str) -> None:
     # The CPU twins (LAMBDA_CPU_THREADS threads each) run beside the
     # card's run, as phase 15's do: the host's other cores are theirs.
     twins = {layout: subprocess.Popen(
-        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
          "lambda_cpu_main(sys.argv[1]))", layout],
         cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=subprocess.PIPE, text=True)
@@ -3768,9 +3991,10 @@ def kernel_rows(captured: dict, counts: dict, card: str,
             def plain(state=state):
                 return pallas_ops.summary_lengths_plain(state)
 
+            plain_ms, want = plain_once(plain)
             r = dict(name=name, variant=variant,
                      launches=counts.get("summary_len", 0),
-                     err=max_abs_err([run()], [plain()]),
+                     err=max_abs_err([run()], [want]),
                      source="fluidframework_tpu_torch/kernels/csrc/"
                             "summary_len.cu",
                      replaces="fluidframework_tpu/mergetree/"
@@ -3789,7 +4013,7 @@ def kernel_rows(captured: dict, counts: dict, card: str,
             def plain(state=state, ops=ops, join=join):
                 return tk.scan_tickets_plain(state, ops, join)
 
-            want = plain()
+            plain_ms, want = plain_once(plain)
             got = run()
             r = dict(name=name, variant=variant, launches=counts.get(
                 "ticket_scan", 0), err=max_abs_err(got[0] + got[1],
@@ -3813,7 +4037,8 @@ def kernel_rows(captured: dict, counts: dict, card: str,
             def plain(state=state, ops=ops, runs=runs, extract=extract):
                 return pa.apply_ops_fused_plain(state, ops, runs, extract)
 
-            got, want = run(), plain()
+            got = run()
+            plain_ms, want = plain_once(plain)
             if not extract:
                 got, want = (got, ()), (want, ())
             r = dict(name=f"fused_apply_{variant}" if variant != "plain"
@@ -3845,10 +4070,11 @@ def kernel_rows(captured: dict, counts: dict, card: str,
                 return kernel.scan_ops_plain(state, ops, True, runs)
 
             geo = kernel.scan_geometry(b, c, k, a)
+            plain_ms, want = plain_once(plain)
             r = dict(name=name, variant=variant,
                      launches=counts.get(f"scan_apply:{geo.path}[{variant}]",
                                          0),
-                     err=max_abs_err(run(), plain()),
+                     err=max_abs_err(run(), want),
                      source="fluidframework_tpu_torch/kernels/csrc/"
                             "scan_apply.cu",
                      replaces="fluidframework_tpu/mergetree/kernel.py:396",
@@ -3861,7 +4087,7 @@ def kernel_rows(captured: dict, counts: dict, card: str,
                          live_slots(state, ops, runs), k, a),
                      device_ms=long_kernel_ms(run, PATH_REPS)[0])
         r.update(on_main_path=True, ms=ms_of(run, 20),
-                 plain_ms=once_ms(plain), library_ms=None)
+                 plain_ms=plain_ms, library_ms=None)
         require(r["err"] == 0, f"{phase}: {name}[{variant}] at "
                 f"{r['shape']}: the kernel differs from its plain version")
         bound = max(r["bytes"] / PEAK_BYTES_PER_S,
@@ -3892,7 +4118,7 @@ def server_phase(dev, card: str) -> list:
     t_phase = time.perf_counter()
     g = golden.load_server()["card"]
     twins = {layout: subprocess.Popen(
-        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
          "server_cpu_main(sys.argv[1]))", layout],
         cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=subprocess.PIPE, text=True)
@@ -3957,6 +4183,34 @@ def server_phase(dev, card: str) -> list:
 # tool's 40 waves.
 DECAY_FLEET = (4_096, 32, 40)
 DECAY_BUSY_WAVES = 10      # the fleet run's waves under the profiler
+# Phase 10's cells of at least this many int32 elements have their tables
+# drawn during the kernel build, beside phase 18 (c)'s fleet waves
+# (start_set_up): host set-up moved into the build's idle wall.
+SCAN_EARLY_INTS = 2**26
+
+
+def start_set_up(pool: ThreadPoolExecutor) -> dict:
+    """Host set-up that needs neither the card nor the kernels, started on
+    `pool` before the kernel build: phase 18 (c)'s fleet waves
+    (decay_probe.build_wave at DECAY_FLEET) and the tables of phase 10's
+    largest cells (scan_tables). Returns their futures ("decay"; "scan",
+    by cell)."""
+    from fluidframework_tpu_torch.server import decay_probe
+    docs, ops, waves = DECAY_FLEET
+    out = {"decay": pool.submit(lambda: [decay_probe.build_wave(
+        docs, ops, w) for w in range(waves)]), "scan": {}}
+    for cell in scan_cells()[0]:
+        c, b, a = cell[:3]
+        if b * c * (8 + 3 + a) >= SCAN_EARLY_INTS:
+            out["scan"][cell] = pool.submit(scan_tables, cell)
+    return out
+
+
+def finish_set_up(futures: dict) -> dict:
+    """start_set_up's results, waited for: {"decay": waves, "scan":
+    {cell: tables}}."""
+    return {"decay": futures["decay"].result(),
+            "scan": {cell: f.result() for cell, f in futures["scan"].items()}}
 # The op bridge at the north-star shape (bench.py:1056-1058): two sessions,
 # three chained partition batches each.
 BRIDGE_DOCS, BRIDGE_OPS, BRIDGE_CAPACITY = 10_000, 100, 256
@@ -4050,7 +4304,7 @@ def operator_cpu_main(part: str) -> int:
 
 def start_operator_twin(part: str) -> subprocess.Popen:
     return subprocess.Popen(
-        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
          "operator_cpu_main(sys.argv[1]))", part],
         cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=subprocess.PIPE, text=True)
@@ -4080,11 +4334,12 @@ def p50(values) -> float:
     return float(np.percentile(values, 50))
 
 
-def decay_part(dev, card: str, decay_twin) -> None:
+def decay_part(dev, card: str, decay_twin, early: dict) -> None:
     """Phase 18 (c): the decay probe at the tool's default (held to the
     JAX golden and the CPU twin by one lane digest) and at the serving
-    fleet's widths (timed, the device's busy share by the profiler); the
-    tool's own verdict, decayed == False, at both."""
+    fleet's widths (timed, the device's busy share by the profiler; its
+    waves built during the kernel build, early["decay"]); the tool's own
+    verdict, decayed == False, at both."""
     from fluidframework_tpu_torch.server import decay_probe
     from fluidframework_tpu_torch.testing import golden
 
@@ -4117,7 +4372,8 @@ def decay_part(dev, card: str, decay_twin) -> None:
 
     TpuSequencerLambda.handler_raw = counted
     try:
-        res, lam, rates = decay_probe.probe(*DECAY_FLEET, device=dev)
+        res, lam, rates = decay_probe.probe(*DECAY_FLEET, device=dev,
+                                            prebuilt=early.pop("decay"))
     finally:
         TpuSequencerLambda.handler_raw = handler
         started = seen[0] > (waves - DECAY_BUSY_WAVES) * docs
@@ -4430,7 +4686,8 @@ def server_part(dev, card: str, server_twin, fig17: dict) -> None:
           f"its process)", flush=True)
 
 
-def operator_phase(dev, card: str, decay_twin, fig17: dict) -> list:
+def operator_phase(dev, card: str, decay_twin, fig17: dict,
+                   early: dict) -> list:
     """Phase 18, the operator's surface on the card: (a) the conformance
     tool's --heavy run, (b) the microbench, (c) the decay probe, (d) the
     op bridge at the north-star shape, (e) the monitored local server over
@@ -4473,7 +4730,7 @@ def operator_phase(dev, card: str, decay_twin, fig17: dict) -> list:
 
             part("a", conformance)
             part("b", bench)
-            part("c", lambda: decay_part(dev, card, decay_twin))
+            part("c", lambda: decay_part(dev, card, decay_twin, early))
             part("d", lambda: bridge_part(dev, card))
             part("e", lambda: server_part(dev, card, server_twin, fig17))
         finally:
@@ -4792,7 +5049,7 @@ def start_client_twin() -> subprocess.Popen:
     """Phase 19 (a)'s CPU twin (client_cpu_main), started with phase 18 so
     that it is done when phase 19 reads it, before (b)'s timed reconnect."""
     return subprocess.Popen(
-        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
          "client_cpu_main())"],
         cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=subprocess.PIPE, text=True)
@@ -4901,7 +5158,7 @@ def start_app_twin() -> subprocess.Popen:
     """Phase 20 (b)'s CPU twin (app_cpu_main), started with phase 18 beside
     phase 19 (a)'s, so that it is done before phase 19 (b)."""
     return subprocess.Popen(
-        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
          "app_cpu_main())"],
         cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=subprocess.PIPE, text=True)
@@ -5404,16 +5661,18 @@ def offline_phase(dev, card: str, twin: subprocess.Popen) -> list:
 
 # (a): the document's name, the trace's length and the ops the reader
 # follows live: BASELINE config #2's 100,000-op keystroke trace (phase
-# 11's) cut to its first 60,000 ops, the reader missing 95% of them, so
+# 11's) cut to its first 30,000 ops, the reader missing 90% of them, so
 # that the writer's feed over the socket (1,600-2,800 ops/s on an H100
-# host, PERF.md §4) fits the phase's budget; the writer's boxcars are
-# TRACE_BOXCAR ops, as in phase 19 (b).
+# host, PERF.md §4) fits the script's time limit; the cost model still
+# routes the gap to the card (27,000 ops at the ~190 live segments of the
+# first 3,000); the writer's boxcars are TRACE_BOXCAR ops, as in phase 19
+# (b).
 # (b): the CPU twin's threads and time limit. (c): the fleet the in-process
 # worker is fed (testing/deploy_runs.Spec fields; PERF.md §4 lists the cut
 # from phase 17's 512 documents) and the deadline for a service process to
 # listen. The whole phase must finish within PHASE21_BUDGET_S.
 NETWORK_DOC = "config2"
-NETWORK_OPS = 60_000
+NETWORK_OPS = 30_000
 NETWORK_LIVE_OPS = 3_000
 CLUSTER_CPU_THREADS = 2
 CLUSTER_CPU_TIMEOUT = 300
@@ -5658,7 +5917,7 @@ def cluster_cpu_main() -> int:
 def start_cluster_twin() -> subprocess.Popen:
     """Phase 21 (b)'s CPU twin (cluster_cpu_main)."""
     return subprocess.Popen(
-        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
          "cluster_cpu_main())"],
         cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=subprocess.PIPE, text=True)
@@ -5969,6 +6228,326 @@ def services_phase(dev, card: str) -> list:
             f"over its {PHASE21_BUDGET_S:.0f} s")
     return kernel_rows(captured, counts, card, "phase 21")
 
+
+# -- phase 22: the capacity grade, the load test, the agents ----------------
+
+CAPACITY_CPU_THREADS = 1
+CAPACITY_CPU_TIMEOUT = 900
+
+
+def capacity_cpu_main() -> int:
+    """Phase 22 (a)'s CPU twin in a process of its own: the chaos-on
+    capacity grade (testing/capacity_runs.grade at CAPACITY_CARD) through
+    the port's TpuLocalServer(device="cpu"); prints the comparable record
+    and its seconds as one JSON line."""
+    from fluidframework_tpu_torch.testing import capacity_runs
+    torch.set_num_threads(CAPACITY_CPU_THREADS)
+    t0 = time.perf_counter()
+    out = capacity_runs.comparable(capacity_runs.grade(
+        capacity_runs.CAPACITY_CARD, device="cpu"))
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def start_capacity_twin() -> subprocess.Popen:
+    """Phase 22 (a)'s CPU twin (capacity_cpu_main), started before the
+    kernel build: it runs beside the build and phases 1-15, whose host is
+    busiest before phase 15's twins finish, and is done when phase 22
+    reads it. It is killed at exit if it is still running."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
+         "capacity_cpu_main())"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+    atexit.register(stop_twins, [proc])
+    return proc
+
+
+def first_difference(got, want, path: str = "") -> str:
+    """The first key path at which two JSON values differ ("" if none)."""
+    if isinstance(got, dict) and isinstance(want, dict):
+        for key in sorted(set(got) | set(want), key=str):
+            if key not in got or key not in want:
+                return f"{path}/{key} (missing on one side)"
+            diff = first_difference(got[key], want[key], f"{path}/{key}")
+            if diff:
+                return diff
+        return ""
+    if isinstance(got, list) and isinstance(want, list) \
+            and len(got) == len(want):
+        for i, (a, b) in enumerate(zip(got, want)):
+            diff = first_difference(a, b, f"{path}[{i}]")
+            if diff:
+                return diff
+        return ""
+    return "" if got == want else f"{path}: {got!r} != {want!r}"
+
+
+def card_grade(dev) -> dict:
+    """Phase 22 (a) on the card: testing/capacity_runs.grade at
+    CAPACITY_CARD, chaos on (the grader's probes, then the capacity point
+    twice). Every ticket-scan and scan-apply launch is counted by path,
+    apart for the launches inside a partition's crash-restart (the
+    lambda's recovery), with the stream ms between two CUDA events
+    recorded around its wrapper's launch call: the kernel and whatever
+    the wrapper queues around it, and the gaps while the host enqueues;
+    not the kernel's device time (the kernel rows give that). Returns the
+    comparable record, the walls and the launches by path."""
+    from collections import defaultdict
+
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.server import ticket_kernel as tk
+    from fluidframework_tpu_torch.testing import capacity_runs
+
+    where = ["windows"]
+    events = defaultdict(list)
+    saved = (tk._launch, kernel._launch)
+
+    def evented(name, launch, label):
+        def run(*args):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = launch(*args)
+            e1.record()
+            events[(name, label(args), where[0])].append((e0, e1))
+            return out
+        return run
+
+    def on_server(server):
+        tier = server.ingest
+        restart = tier.restart_partition
+
+        def restart_counted(partition):
+            where[0] = "recovery"
+            try:
+                return restart(partition)
+            finally:
+                where[0] = "windows"
+        tier.restart_partition = restart_counted
+
+    tk._launch = evented("ticket_scan", saved[0], lambda a: (
+        "kind_require_join" if a[2] else "plain"))
+    kernel._launch = evented("scan_apply", saved[1], lambda a: (
+        f"{scan_label(a[3])}[{'runs' if a[2] is not None else 'plain'}]"))
+    try:
+        rec = capacity_runs.grade(capacity_runs.CAPACITY_CARD, device=dev,
+                                  on_server=on_server)
+        torch.cuda.synchronize()
+    finally:
+        tk._launch, kernel._launch = saved
+    return {"record": capacity_runs.comparable(rec), "wall_s": rec["wall_s"],
+            "by_path": {f"{n} {p} ({w})": [len(pairs), round(sum(
+                a.elapsed_time(b) for a, b in pairs), 3)]
+                for (n, p, w), pairs in sorted(events.items())}}
+
+
+def capacity_part(dev, card: str, twin: subprocess.Popen) -> tuple:
+    """Phase 22 (a): the card grade (card_grade at CAPACITY_CARD, the
+    kernel counts set to 0 before it and read after it) held to the JAX
+    golden and to the CPU twin, with chaos inside the envelope and both
+    kernels launching. Returns the grade's figures, the launch counts and
+    the kernel rows (each kernel held against its plain version at its
+    largest launch's inputs, timed)."""
+    from fluidframework_tpu_torch.testing import capacity_runs, golden
+
+    section = capacity_runs.CAPACITY_CARD
+    want = dict(golden.load_capacity()["card"])
+    require(want.pop("section") == capacity_runs.comparable(
+        {"s": section._asdict()})["s"], "phase 22 (a): the golden's card "
+        "section was graded at another shape than CAPACITY_CARD")
+    reset_lambda_counts()
+    captured, restore = capture_largest_launches()
+    try:
+        out = card_grade(dev)
+    finally:
+        restore()
+    counts = lambda_counts()
+    got, walls, by_path = out["record"], out["wall_s"], out["by_path"]
+    require(got == want, "phase 22 (a): the grade differs from the JAX "
+            f"golden at {first_difference(got, want)}")
+    require(got["fingerprints"][0] == got["fingerprints"][1],
+            "phase 22 (a): the capacity point's two runs differ")
+    require(got["partition_restarts"] and got["avalanches"] >= 1,
+            f"phase 22 (a): no chaos inside the envelope (restarts "
+            f"{got['partition_restarts']}, avalanches {got['avalanches']})")
+    launched = {n: sum(v[0] for k, v in by_path.items()
+                       if k.startswith(n + " "))
+                for n in ("ticket_scan", "scan_apply")}
+    recovery = sum(v[0] for k, v in by_path.items()
+                   if k.endswith("(recovery)"))
+    require(launched["ticket_scan"] > 0 and launched["scan_apply"] > 0,
+            f"phase 22 (a): the ticket scan and the scan apply must launch: "
+            f"{by_path}")
+    g = got["grade"]
+    docs, ticks = section.workload["documents"], section.fleet["ticks"]
+    print(f"phase 22 (a): the capacity grade at {docs} documents x {ticks} "
+          f"ticks on the card equals the JAX golden: capacity_mult "
+          f"{g['capacity_mult']}, saturated {g['saturated']}, bottleneck "
+          f"{g['bottleneck']}, "
+          f"probes {[(p['rate_mult'], p['ok']) for p in g['probes']]}; the "
+          f"capacity point twice with equal fingerprints "
+          f"({got['fingerprints'][0]}), sustained "
+          f"{got['final']['sustained_ops_per_sec']} ops/s and "
+          f"{got['final']['readers_per_sec']} readers/s (virtual clock), "
+          f"partition restarts {got['partition_restarts']}, avalanches "
+          f"{got['avalanches']}; wall s: the grade {walls['grade']:.1f}, each"
+          f" soak {[round(w, 1) for w in walls['soaks']]}; card {card}",
+          flush=True)
+    print(f"phase 22 (a): kernel launches and stream ms between CUDA events "
+          f"around each launch call (the wrapper's queued work and the "
+          f"host's enqueue gaps included: not device time) by path, "
+          f"(recovery) inside a partition's crash-restart: {by_path} "
+          f"({recovery} recovery launches); card {card}", flush=True)
+    rows = kernel_rows(captured, counts, card, "phase 22 (a)")
+    t0 = time.perf_counter()
+    text, _ = twin.communicate(timeout=CAPACITY_CPU_TIMEOUT)
+    require(twin.returncode == 0,
+            f"phase 22 (a): the CPU twin exited {twin.returncode}")
+    cpu = json.loads(text.strip().splitlines()[-1])
+    seconds = cpu.pop("seconds")
+    require(cpu == got, "phase 22 (a): the card and the CPU twin differ at "
+            f"{first_difference(got, cpu)}")
+    print(f"phase 22 (a): the card equals the CPU twin ({seconds:.1f} s in "
+          f"its process of {CAPACITY_CPU_THREADS} thread, started before "
+          f"the kernel build; waited {time.perf_counter() - t0:.1f} s after "
+          f"the card)", flush=True)
+    return ({"grade_s": walls["grade"]}, {k: v for k, v in counts.items()
+                                          if v}, rows)
+
+
+def load_agents_part(dev, card: str) -> None:
+    """Phase 22 (b), (c), (d): the keystroke load test with reconnect
+    churn (testing/client_load_runs.keystroke_load at LOAD_CARD) over
+    TpuLocalServer(device=dev), its texts' digest held to the JAX golden
+    and the scan apply required to launch; two HeadlessAgentRunners
+    hosting the IntelligenceRunner over Loaders on dev, the insights held
+    to the JAX golden; the historian smoke on dev."""
+    from fluidframework_tpu_torch.testing import client_load_runs as clr
+    from fluidframework_tpu_torch.testing import golden, historian_smoke
+
+    g = golden.load_capacity()
+    pkg = clr.port_package(dev)
+    before = lambda_counts()
+    t0 = time.perf_counter()
+    got = clr.keystroke_load(pkg, clr.LOAD_CARD)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts_since(before)
+    want = dict(g["load"]["card"])
+    require(want.pop("profile") == clr.LOAD_CARD, "phase 22 (b): the "
+            "golden's load profile is not LOAD_CARD")
+    elapsed = got.pop("elapsed_s")
+    require(got == want, f"phase 22 (b): the load test differs from the JAX "
+            f"golden at {first_difference(got, want)}")
+    require(launched.get("scan_apply", 0) > 0,
+            f"phase 22 (b): the scan apply never launched: {launched}")
+    print(f"phase 22 (b): LoadRunner keystroke trace with reconnect churn "
+          f"({clr.LOAD_CARD}) over TpuLocalServer on the card: every replica "
+          f"converged, the server's channel text equals every client's, the "
+          f"texts ({got['chars']} characters) equal the JAX golden; "
+          f"{got['total_ops']} ops in {elapsed:.2f} s of the rig "
+          f"({got['total_ops'] / elapsed:.0f} ops/s, host clock), "
+          f"{wall:.2f} s in all; kernel launches {launched}; card {card}",
+          flush=True)
+    before = lambda_counts()
+    t0 = time.perf_counter()
+    agents = clr.agents_run(pkg)
+    torch.cuda.synchronize()
+    require(agents == g["agents"], "phase 22 (c): the insights differ from "
+            f"the JAX golden at {first_difference(agents, g['agents'])}")
+    print(f"phase 22 (c): two HeadlessAgentRunners on Loaders on the card, "
+          f"runner {agents['winner']} won the intelligence task alone "
+          f"(runs {agents['runs']}), the insights equal the JAX golden "
+          f"({sorted(agents['insights'])}); {time.perf_counter() - t0:.2f} s;"
+          f" kernel launches {counts_since(before)}; card {card}", flush=True)
+    t0 = time.perf_counter()
+    rc = historian_smoke.main(device=dev)
+    require(rc == 0, f"phase 22 (d): historian_smoke.main exited {rc}")
+    print(f"phase 22 (d): historian_smoke.main(device=card) exited 0 in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+PACKER_REPS = 5
+
+
+def packer_part(card: str) -> None:
+    """Phase 22 (e): the C op packer (native/src/oppack.cpp) built with g++
+    from this checkout, bit-exact to pack_ops_plain over the 8 windows of
+    testing/lanes.py's lane fleet at FULL_RING's size (10,000 documents),
+    each window's streams packed as the lane stores pack them; both
+    packers timed per window (host clock, the best of PACKER_REPS)."""
+    from fluidframework_tpu_torch.mergetree import oppack
+    from fluidframework_tpu_torch.mergetree.host import OpBuilder
+    from fluidframework_tpu_torch.native import build as native_build
+    from fluidframework_tpu_torch.testing import lanes, serving
+
+    t0 = time.perf_counter()
+    native_build.ensure_built("oppack", force=True)
+    oppack._NATIVE_PACK = None
+    oppack.native_packer()
+    build_s = time.perf_counter() - t0
+    fleet = lanes.LaneFleet(serving.FULL_RING, seed=0)
+    builder = OpBuilder()
+    times = {"c": [], "plain": []}
+    n_ops = 0
+    for _ in range(serving.FULL_RING.windows):
+        merge, _ = fleet.window()
+        streams = list(lanes.merge_streams(builder, merge).values())
+        n_ops += sum(len(s) for s in streams)
+        got = oppack.pack_ops(streams)
+        want = oppack.pack_ops_plain(streams)
+        for f in oppack.FIELDS:
+            require(got[f].dtype == want[f].dtype and
+                    np.array_equal(got[f], want[f]),
+                    f"phase 22 (e): the C packer differs from pack_ops_plain "
+                    f"in {f}")
+        for name, fn in (("c", oppack.pack_ops),
+                         ("plain", oppack.pack_ops_plain)):
+            best = float("inf")
+            for _ in range(PACKER_REPS):
+                h0 = time.perf_counter()
+                fn(streams)
+                best = min(best, time.perf_counter() - h0)
+            times[name].append(best * 1e3)
+    c_ms, plain_ms = sum(times["c"]), sum(times["plain"])
+    print(f"phase 22 (e): the C op packer built with g++ in {build_s:.2f} s "
+          f"and is bit-exact to pack_ops_plain over {len(times['c'])} lane-"
+          f"fleet windows ({len(streams)} documents, {n_ops} merge ops): "
+          f"{c_ms:.2f} ms in all ({n_ops / c_ms * 1e3:.0f} ops/s) against "
+          f"{plain_ms:.2f} ms for the numpy packer ({plain_ms / c_ms:.1f}x), "
+          f"per window ms c {[round(t, 3) for t in times['c']]}, plain "
+          f"{[round(t, 3) for t in times['plain']]} (host clock, the best of "
+          f"{PACKER_REPS}); card {card}", flush=True)
+
+
+def capacity_phase(dev, card: str, twin: subprocess.Popen) -> list:
+    """Phase 22: the capacity grade (a, on the card and in its CPU twin),
+    the load test (b), the agents (c), the historian smoke (d) and the C
+    op packer (e). The kernel counts of (a) and of (b)-(d) are each set
+    to 0 at the part's start and read at its end; the kernel rows are
+    each kernel's largest launch in (a) and in (b)-(d), with that part's
+    launches."""
+    t_phase = time.perf_counter()
+    parts = {}
+    try:
+        figures, parts["a"], rows = capacity_part(dev, card, twin)
+        reset_lambda_counts()
+        captured, restore = capture_largest_launches()
+        try:
+            load_agents_part(dev, card)
+        finally:
+            restore()
+    finally:
+        stop_twins([twin])
+    parts["b-d"] = {k: v for k, v in lambda_counts().items() if v}
+    rows += kernel_rows(captured, parts["b-d"], card, "phase 22 (b-d)")
+    packer_part(card)
+    print(f"phase 22: kernel launches by part {parts}; the grade "
+          f"{figures['grade_s']:.1f} s; {time.perf_counter() - t_phase:.1f} "
+          f"s; card {card}", flush=True)
+    return rows
 
 if __name__ == "__main__":
     try:

@@ -2,12 +2,15 @@
 
 The hot path never iterates Python objects: ops are packed into int32
 columns (documents x time), padded with NOOP rows, and the apply steps over
-T applying one op per document per step. Packing is pure numpy here; the
-tensors are placed on a device by interop.packed_ops_from_numpy.
+T applying one op per document per step. pack_ops packs with the C packer
+(native/src/oppack.cpp, built at first use); pack_ops_plain is the same
+packing in numpy. The tensors are placed on a device by
+interop.packed_ops_from_numpy.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -78,15 +81,77 @@ class PackedOps(NamedTuple):
 
 FIELDS = PackedOps._fields
 
+_NATIVE_PACK = None
+_native_lock = threading.Lock()
+
+# pack_into's negative codes (native/src/oppack.cpp) -> the error raised.
+_NATIVE_ERRORS = {
+    -1: (TypeError, "streams and each stream must be sequences"),
+    -2: (TypeError, "streams changed length while packing"),
+    -3: (TypeError, "each op must be a HostOp (a tuple of "
+                    f"{len(FIELDS)} integers)"),
+    -4: (TypeError, "an op field is not an integer"),
+    -5: (OverflowError, "an op field lies outside int32"),
+}
+
+
+def native_packer():
+    """The C packer (native/src/oppack.cpp), built with g++ on the first
+    call and loaded with ctypes.PyDLL (it walks Python objects, so the GIL
+    stays held). A failed build raises NativeBuildError; a library that
+    cannot load raises OSError or AttributeError. Nothing falls back."""
+    global _NATIVE_PACK
+    with _native_lock:
+        if _NATIVE_PACK is None:
+            import ctypes
+
+            from ..native.build import ensure_built
+
+            fn = ctypes.PyDLL(ensure_built("oppack")).pack_into
+            fn.argtypes = [ctypes.py_object, ctypes.c_void_p, ctypes.c_long,
+                           ctypes.c_long, ctypes.c_long,
+                           ctypes.POINTER(ctypes.c_longlong)]
+            fn.restype = ctypes.c_long
+            _NATIVE_PACK = fn
+        return _NATIVE_PACK
+
+
+def _steps(streams: List[List[HostOp]], steps: Optional[int]) -> int:
+    t = steps if steps is not None else max((len(s) for s in streams),
+                                            default=0)
+    return max(t, 1)
+
 
 def pack_ops(streams: List[List[HostOp]], steps: Optional[int] = None
              ) -> Dict[str, np.ndarray]:
     """Pack per-document op lists into numpy [B, T] int32 columns keyed by
-    PackedOps field, NOOP-padded (all-zero rows)."""
-    b = len(streams)
-    t = steps if steps is not None else max((len(s) for s in streams),
-                                            default=0)
-    t = max(t, 1)
+    PackedOps field, NOOP-padded (all-zero rows), with the C packer.
+
+    Raises ValueError when a document has more ops than `steps`,
+    TypeError when an op is not a HostOp of integers and OverflowError
+    when a field lies outside int32."""
+    import ctypes
+
+    b, t = len(streams), _steps(streams, steps)
+    buf = np.zeros((len(FIELDS), b, t), np.int32)
+    where = ctypes.c_longlong(0)
+    rc = native_packer()(streams, buf.ctypes.data, b, t, len(FIELDS),
+                         ctypes.byref(where))
+    if rc > 0:
+        d = rc - 1
+        raise ValueError(f"doc {d}: {len(streams[d])} ops > {t} steps")
+    if rc < 0:
+        err, what = _NATIVE_ERRORS[rc]
+        d, i = where.value >> 32, where.value & 0xFFFFFFFF
+        raise err(f"{what} (doc {d}, op {i})")
+    return {f: buf[j] for j, f in enumerate(FIELDS)}
+
+
+def pack_ops_plain(streams: List[List[HostOp]],
+                   steps: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """pack_ops in numpy, one document at a time: the reference the C
+    packer is held against."""
+    b, t = len(streams), _steps(streams, steps)
     buf = np.zeros((len(FIELDS), b, t), np.int32)
     for d, stream in enumerate(streams):
         if len(stream) > t:

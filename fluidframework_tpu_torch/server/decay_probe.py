@@ -35,7 +35,7 @@ import json
 import random
 import sys
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -53,41 +53,46 @@ class _Ctx:
         raise err
 
 
+def _message(csn: int, ref: int, kind: str, contents=None,
+             data=None) -> dict:
+    """A DocumentMessage as server/wire.py encodes it (its dataclass
+    fields, in order, as dataclasses.asdict gives them)."""
+    return {"client_sequence_number": csn, "reference_sequence_number": ref,
+            "type": kind, "contents": contents, "metadata": None,
+            "server_metadata": None, "traces": [], "data": data}
+
+
 def build_wave(docs: int, ops: int, wave: int) -> list:
     """One wave: a boxcar of `ops` typing inserts per document (a join
-    first in wave 0), as raw wire frames in QueuedMessages."""
+    first in wave 0), as raw wire frames in QueuedMessages. The frames
+    are server/wire.py's boxcar_to_wire bytes, written from plain dicts:
+    its dataclasses.asdict pass took ~80% of the build."""
     from ..mergetree.client import OP_INSERT
-    from ..protocol.messages import Boxcar, DocumentMessage, MessageType
+    from ..protocol.messages import MessageType
     from .log import QueuedMessage
-    from .wire import boxcar_to_wire
 
     rng = random.Random(17 + wave)
     out = []
     base_csn = wave * ops
+    typed = {n: {"address": "s", "contents": {"address": "t", "contents": {
+        "type": OP_INSERT, "pos1": 0, "seg": {"text": "x" * n}}}}
+        for n in (1, 2, 3)}
     for d in range(docs):
         contents = []
         if wave == 0:
-            contents.append(DocumentMessage(
-                client_sequence_number=0,
-                reference_sequence_number=-1,
-                type=MessageType.CLIENT_JOIN,
+            contents.append(_message(
+                0, -1, MessageType.CLIENT_JOIN,
                 data=json.dumps({"clientId": f"c{d}", "detail": {}})))
         for i in range(ops):
-            n = rng.randrange(1, 4)
-            contents.append(DocumentMessage(
-                client_sequence_number=base_csn + i + 1,
-                reference_sequence_number=base_csn,
-                type=MessageType.OPERATION,
-                contents={"address": "s", "contents": {
-                    "address": "t", "contents": {
-                        "type": OP_INSERT, "pos1": 0,
-                        "seg": {"text": "x" * n}}}}))
+            contents.append(_message(
+                base_csn + i + 1, base_csn, MessageType.OPERATION,
+                typed[rng.randrange(1, 4)]))
         out.append(QueuedMessage(
             topic="rawdeltas", partition=0, offset=wave * docs + d,
             key=f"d{d}",
-            value=boxcar_to_wire(Boxcar(
-                tenant_id="b", document_id=f"d{d}", client_id=f"c{d}",
-                contents=contents))))
+            value=json.dumps({"tenantId": "b", "documentId": f"d{d}",
+                              "clientId": f"c{d}",
+                              "contents": contents}).encode("utf-8")))
     return out
 
 
@@ -107,10 +112,13 @@ def lane_digest(lam, docs: int) -> dict:
 
 
 def probe(docs: int, ops: int, waves: int,
-          device: str | torch.device | None = None
+          device: str | torch.device | None = None,
+          prebuilt: Optional[List[list]] = None
           ) -> Tuple[dict, object, List[float]]:
     """run()'s result, the lambda it drove (for lane_digest) and each
-    wave's ops/s."""
+    wave's ops/s. `prebuilt` holds the waves' messages
+    (build_wave(docs, ops, w) for w in range(waves)) when the caller
+    built them before; they are built here otherwise."""
     from ..telemetry import counters
     from .tpu_sequencer import TpuSequencerLambda
 
@@ -123,7 +131,10 @@ def probe(docs: int, ops: int, waves: int,
     lam.pipelined = True
 
     rates: List[float] = []
-    prebuilt = [build_wave(docs, ops, w) for w in range(waves)]
+    if prebuilt is None:
+        prebuilt = [build_wave(docs, ops, w) for w in range(waves)]
+    elif len(prebuilt) != waves:
+        raise ValueError(f"{len(prebuilt)} prebuilt waves, not {waves}")
     for msgs in prebuilt:
         t0 = time.perf_counter()
         for qm in msgs:

@@ -2728,6 +2728,10 @@ class TpuSequencerLambda(IPartitionLambda):
         # Donation still follows the gate — risky windows keep their pre
         # states, which the forced recovery then needs.
         self.defer_risky_windows = False
+        # Fault-injection hook (testing/faultinject.py stall): called at
+        # the top of every flush to model a slow device; None in
+        # production.
+        self.stall_hook: Optional[Callable[[], float]] = None
         # The native wire pump: its build or load failure raises here.
         self._pump = P.WirePump()
         self._pump_ord: Dict[str, int] = {}     # doc id -> pump ordinal
@@ -3029,6 +3033,8 @@ class TpuSequencerLambda(IPartitionLambda):
         its ``serving.*`` latency histogram unconditionally, so the
         flush-p99/p50 spread attributes to a stage even with tracing
         off (server/monitor.py `/metrics.prom` + SLO)."""
+        if self.stall_hook is not None:
+            self.stall_hook()
         with tracing.span("serving.flush", parent=self._flush_parent(),
                           root=True, hist="serving.flush") as _fsp:
             # Device-measured sub-facts enrich the flush span: the

@@ -92,6 +92,16 @@ deltas) fed testing/deploy_runs's fleet, as each document's persisted
 delta rows' digest:
   card                           at DEPLOY_CARD;
   small                          at DEPLOY_SMALL.
+golden/capacity_golden.json (CAPACITY_GOLDEN_PATH) holds the JAX package's
+chaos-on capacity grade of a TpuLocalServer fleet, testing/
+capacity_runs.grade, as its comparable record (the grade with every
+probe's verdict and pressures, both final fingerprints, final_seq and
+stream_digests), and the keystroke load test's and the headless agents'
+results through testing/client_load_runs:
+  card                           at capacity_runs.CAPACITY_CARD;
+  small                          at capacity_runs.CAPACITY_SMALL;
+  load                           at client_load_runs.LOAD_CARD / _SMALL;
+  agents                         client_load_runs.agents_run.
 tests/test_torch_golden.py regenerates the files from the JAX package and
 requires equality, so the values cannot drift (the lambda golden through
 tests/test_torch_lambda_golden.py, the server golden through
@@ -99,8 +109,10 @@ tests/test_torch_server_golden.py, the decay golden through
 tests/test_torch_tools.py, the app golden through
 tests/test_torch_offline_tools.py, the cluster golden through
 tests/test_torch_cluster_golden.py, the deploy golden's small section
-through tests/test_torch_deploy_golden.py); chip_smoke.py holds the CUDA kernels,
-the lambda and the local server against them on a machine without JAX.
+through tests/test_torch_deploy_golden.py, the capacity golden's small
+sections through tests/test_torch_capacity_golden.py); chip_smoke.py
+holds the CUDA kernels, the lambda and the local server against them on
+a machine without JAX.
 """
 
 from __future__ import annotations
@@ -170,6 +182,7 @@ DEPLOY_GOLDEN_PATH = GOLDEN_PATH.with_name("deploy_golden.json")
 # (PERF.md §4). The small fleet is the CPU tests'.
 DEPLOY_CARD = {"docs": 32, "ops": 32, "warm": 1, "measured": 1}
 DEPLOY_SMALL = {"docs": 8, "ops": 8, "warm": 1, "measured": 1}
+CAPACITY_GOLDEN_PATH = GOLDEN_PATH.with_name("capacity_golden.json")
 DECAY_GOLDEN_PATH = GOLDEN_PATH.with_name("decay_golden.json")
 # (documents, ops a document a wave, waves) of the decay probe's runs: the
 # tool's documented default (decay_probe.py main) and the JAX test's.
@@ -421,6 +434,17 @@ def load_decay(path: Path = DECAY_GOLDEN_PATH) -> dict:
 
 
 def save_decay(doc: dict, path: Path = DECAY_GOLDEN_PATH) -> None:
+    with open(path, "w") as f:
+        json.dump(doc, f, sort_keys=True, indent=1)
+        f.write("\n")
+
+
+def load_capacity(path: Path = CAPACITY_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def save_capacity(doc: dict, path: Path = CAPACITY_GOLDEN_PATH) -> None:
     with open(path, "w") as f:
         json.dump(doc, f, sort_keys=True, indent=1)
         f.write("\n")

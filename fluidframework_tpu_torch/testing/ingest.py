@@ -83,7 +83,35 @@ def serving_waves(docs: int, ops_per_doc: int, waves: int,
                   start: int = 0) -> List[List[Frame]]:
     """Waves start .. start + waves - 1 of the serving-ingest fleet
     (documents d0.., clients c0..; wave 0 opens with each client's
-    join)."""
+    join). Each frame is written from the JSON of its messages'
+    templates: the bytes of `boxcar` over `channel_op` messages
+    (serving_waves_plain), without a json.dumps a message."""
+    typed = {n: _message_template(channel_op(
+        _CSN, _REF, "t", {"type": OP_INSERT, "pos1": 0,
+                          "seg": {"text": "x" * n}})) for n in (1, 2, 3)}
+    out = []
+    for wave in range(start, start + waves):
+        rng = random.Random(17 + wave)
+        frames = []
+        base = wave * ops_per_doc
+        for d in range(docs):
+            doc, client = f"d{d}", f"c{d}"
+            msgs = [json.dumps(join(client))] if wave == 0 else []
+            for i in range(ops_per_doc):
+                msgs.append(typed[rng.randrange(1, 4)] % (base + i + 1,
+                                                          base))
+            head = json.dumps({"tenantId": "b", "documentId": doc,
+                               "clientId": client, "contents": []})[:-2]
+            frames.append((wave * docs + d, doc, (
+                head + ", ".join(msgs) + "]}").encode("utf-8")))
+        out.append(frames)
+    return out
+
+
+def serving_waves_plain(docs: int, ops_per_doc: int, waves: int,
+                        start: int = 0) -> List[List[Frame]]:
+    """serving_waves built message by message with `boxcar`: the
+    reference its templates are held to."""
     out = []
     for wave in range(start, start + waves):
         rng = random.Random(17 + wave)
@@ -101,6 +129,19 @@ def serving_waves(docs: int, ops_per_doc: int, waves: int,
                            boxcar("b", doc, f"c{d}", msgs)))
         out.append(frames)
     return out
+
+
+# Stand-ins for a message's clientSeq and refSeq in its JSON template.
+_CSN, _REF = -918273645, -918273646
+
+
+def _message_template(msg: dict) -> str:
+    """json.dumps(msg) as a %-template of its clientSeq and refSeq (msg
+    holds _CSN and _REF there)."""
+    text = json.dumps(msg).replace("%", "%%")
+    if text.count(str(_CSN)) != 1 or text.count(str(_REF)) != 1:
+        raise ValueError(f"no single clientSeq and refSeq in {text}")
+    return text.replace(str(_CSN), "%d").replace(str(_REF), "%d")
 
 
 def storm_waves(waves: int, docs: int = 64, ops_keystroke: int = 2,

@@ -214,21 +214,32 @@ def fuzz_tables(n_docs: int, capacity: int, k_slots: int, a_slots: int,
     b, c, k, a = n_docs, capacity, k_slots, a_slots
     count = np.where(np.arange(b) % 2 == 1,
                      rng.integers(max(c - free, 0), c + 1, b), 0)
-    row = (np.arange(c)[None, :] < count[:, None]) | \
-        (np.arange(b) % 4 == 3)[:, None]
+    pad = ~((np.arange(c)[None, :] < count[:, None]) |
+            (np.arange(b) % 4 == 3)[:, None])
 
-    def rows(values, pad):
-        return np.where(row, values, pad).astype(np.int32)
+    # The planes are written in place, as int32, from the draws in their
+    # order: the tables of phase 10 of chip_smoke.py reach 10^9 slots.
+    def rows(values, fill):
+        out = values.astype(np.int32)
+        out[pad] = fill
+        return out
+
+    def drawn(shape, lo, hi, p):
+        """integers(lo, hi) where a uniform draw (taken first) is < p,
+        else -1, as int32."""
+        keep = rng.random(shape) < p
+        out = rng.integers(lo, hi, shape).astype(np.int32)
+        np.copyto(out, -1, where=~keep)
+        return out
 
     pend = rng.random((b, c)) < 0.15
     removed = rng.random((b, c))
     rem_seq = np.where(removed < 0.2, rng.integers(1, 9, (b, c)),
                        np.where(removed < 0.3, DEV_UNASSIGNED, DEV_NO_REMOVE))
-    rc = np.where(rng.random((b, c, k)) < 0.5,
-                  rng.integers(0, 4, (b, c, k)), -1)
-    rc = np.where((rem_seq != DEV_NO_REMOVE)[..., None], rc, -1)
-    anno = np.where(rng.random((b, c, a)) < 0.3,
-                    rng.integers(0, 1000, (b, c, a)), -1)
+    rc = drawn((b, c, k), 0, 4, 0.5)
+    rc[(rem_seq == DEV_NO_REMOVE) | pad] = -1
+    anno = drawn((b, c, a), 0, 1000, 0.3)
+    anno[pad] = -1
     return {
         "length": rows(rng.integers(1, 5, (b, c)), 0),
         "ins_seq": rows(np.where(pend, DEV_UNASSIGNED,
@@ -238,10 +249,10 @@ def fuzz_tables(n_docs: int, capacity: int, k_slots: int, a_slots: int,
         "rem_seq": rows(rem_seq, DEV_NO_REMOVE),
         "rem_local_seq": rows(np.where(rem_seq == DEV_UNASSIGNED,
                                        rng.integers(1, 4, (b, c)), 0), 0),
-        "rem_clients": np.where(row[..., None], rc, -1).astype(np.int32),
+        "rem_clients": rc,
         "origin_op": rows(rng.integers(0, 1000, (b, c)), -1),
         "origin_off": rows(rng.integers(0, 4, (b, c)), 0),
-        "anno": np.where(row[..., None], anno, -1).astype(np.int32),
+        "anno": anno,
         "count": count.astype(np.int32),
         "min_seq": np.zeros(b, np.int32),
         "seq": np.full(b, 8, np.int32),

@@ -12,8 +12,8 @@ JAX test it mirrors and returns what it observed; the results must be
 equal. No test waits on wall time: the retry policies take a recording
 sleep, and the nack recovery's sleep is an event the test releases.
 test_resilience.py's two historian cases (TestStickyDegradationWithHistorian)
-drive the routerlicious driver, which the port does not have yet
-(ROADMAP Queue 1 item 4.4).
+drive the routerlicious driver; they are mirrored in
+tests/test_torch_server_services.py.
 """
 
 import json

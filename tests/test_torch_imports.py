@@ -404,3 +404,48 @@ def test_slice_thirteen_client_stack_is_covered_and_defaults_to_the_card(
     # is not there.
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SharedString("unbound").device
+
+
+SLICE_SIXTEEN_MODULES = tuple(
+    f"fluidframework_tpu_torch.{m}" for m in (
+        "capacity", "capacity.workload", "capacity.grader", "capacity.fleet",
+        "agents", "agents.headless", "agents.intelligence",
+        "testing.faultinject", "testing.load_test",
+        "testing.historian_smoke", "core.collections", "core.trace"))
+
+
+def test_slice_sixteen_is_covered_and_defaults_to_the_card(monkeypatch):
+    """The capacity soak, the agents, the fault injector, the load test,
+    the historian smoke and the host collections keep the JAX modules'
+    names and are walked by the checks above; testing/capacity_runs is
+    the port's own scenario, and the C op packer has its source beside
+    the other native ones. capacity_runs's server factory,
+    the Loader that HeadlessAgentRunner loads through and
+    historian_smoke.main take the card by default and raise without
+    CUDA."""
+    assert set(SLICE_SIXTEEN_MODULES) <= set(_port_modules())
+    for module in SLICE_SIXTEEN_MODULES:
+        rel = module.split(".", 1)[1].replace(".", "/")
+        assert (REPO / "fluidframework_tpu" / f"{rel}.py").exists() or \
+            (REPO / "fluidframework_tpu" / rel / "__init__.py").exists(), rel
+    assert "fluidframework_tpu_torch.testing.capacity_runs" in \
+        _port_modules()
+    assert (PORT / "native" / "src" / "oppack.cpp").exists()
+
+    from fluidframework_tpu_torch.capacity import FleetSpec
+    from fluidframework_tpu_torch.loader.container import Loader
+    from fluidframework_tpu_torch.loader.drivers.local import \
+        LocalDocumentServiceFactory
+    from fluidframework_tpu_torch.server.admission import \
+        AdmissionController
+    from fluidframework_tpu_torch.server.local_server import LocalServer
+    from fluidframework_tpu_torch.testing import (capacity_runs,
+                                                  historian_smoke)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    factory = capacity_runs.server_factory(capacity_runs.port_package(None))
+    for make in (lambda: factory(FleetSpec(), AdmissionController()),
+                 lambda: Loader(LocalDocumentServiceFactory(LocalServer())),
+                 historian_smoke.main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()

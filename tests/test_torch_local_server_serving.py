@@ -14,14 +14,14 @@ summary the JAX container uploads is re-encoded through
 summary_tree_to_dict / summary_tree_from_dict into the port's classes.
 Reads go the other way unchanged: the JAX loader reads the port's
 SummaryTree and LazySummaryBlob objects by duck typing. The port's stack
-needs no wrapper. The keystroke stress tests drive either loader through
-the JAX package's testing/load_test.LoadRunner (not ported), which names
-its channels by type.
+needs no wrapper. The keystroke stress tests drive each loader through
+its own package's testing/load_test.LoadRunner, and the texts the two
+stacks end with must be equal.
 
 Where a JAX test reaches into the server (its sequencer's lane stores,
 the extraction helpers), the port's counterparts stand in, on the CPU.
-TestTpuClusterTakeover is not mirrored: it needs server/nodes.py, which
-is not ported (ROADMAP Queue 1).
+TestTpuClusterTakeover is mirrored in tests/test_torch_multinode.py and
+tests/test_torch_cluster_golden.py, over the port's server/nodes.py.
 """
 
 import random
@@ -36,6 +36,7 @@ from fluidframework_tpu.dds import sequence as jax_sequence
 from fluidframework_tpu.loader import container as jax_container
 from fluidframework_tpu.loader.drivers import local as jax_local
 from fluidframework_tpu.protocol import summary as jax_summary
+from fluidframework_tpu.testing import load_test as jax_load_test
 
 from fluidframework_tpu_torch.dds import cell as port_cell
 from fluidframework_tpu_torch.dds import counter as port_counter
@@ -55,6 +56,7 @@ from fluidframework_tpu_torch.server import tpu_sequencer as port_seq
 from fluidframework_tpu_torch.server.lambdas.deli import DeliLambda
 from fluidframework_tpu_torch.server.log import QueuedMessage
 from fluidframework_tpu_torch.telemetry import counters as port_counters
+from fluidframework_tpu_torch.testing import load_test as port_load_test
 
 
 @pytest.fixture(autouse=True)
@@ -123,7 +125,9 @@ CLIENT_STACKS = {
                 LocalDocumentServiceFactory=(
                     jax_local.LocalDocumentServiceFactory),
                 TpuLocalServer=jax_tpu_server,
-                LocalServer=jax_scalar_server),
+                LocalServer=jax_scalar_server,
+                LoadRunner=jax_load_test.LoadRunner,
+                LoadProfile=jax_load_test.LoadProfile),
     "port": dict(SharedCell=port_cell.SharedCell,
                  SharedCounter=port_counter.SharedCounter,
                  SharedMap=port_map.SharedMap,
@@ -132,7 +136,9 @@ CLIENT_STACKS = {
                  LocalDocumentServiceFactory=(
                      port_local_driver.LocalDocumentServiceFactory),
                  TpuLocalServer=port_tpu_server,
-                 LocalServer=port_local.LocalServer),
+                 LocalServer=port_local.LocalServer,
+                 LoadRunner=port_load_test.LoadRunner,
+                 LoadProfile=port_load_test.LoadProfile),
 }
 # Outside the fixture the module's names are the JAX stack's: other files
 # (test_torch_local_server_batched.py, _modules.py) import its servers
@@ -1302,45 +1308,54 @@ class TestSnapshotSeededLanes:
             assert sq.merge.capacities[b] > 64  # promoted out of bucket 0
 
 
+def keystroke_load(stack: str, **profile):
+    """A keystroke-trace load over a fresh TpuLocalServer(device="cpu"),
+    driven by `stack`'s LoadRunner and Loader: the result, the server and
+    each document's final text (read by a fresh client)."""
+    names = CLIENT_STACKS[stack]
+    server = names["TpuLocalServer"]()
+    factory = names["LocalDocumentServiceFactory"]
+    runner = names["LoadRunner"](lambda: names["Loader"](factory(server)))
+    result = runner.run(names["LoadProfile"](keystroke_trace=True,
+                                             **profile))
+    texts = {}
+    for d in range(profile["documents"]):
+        doc_id = f"load-doc-{d}"
+        texts[doc_id] = names["Loader"](factory(server)).resolve(
+            doc_id).runtime.get_datastore("load").get_channel(
+                "text").get_text()
+    return result, server, texts
+
+
 @pytest.mark.usefixtures("client_stack")
 class TestKeystrokeTraceStress:
-    def test_trace_load_converges_and_server_materializes(self):
+    def test_trace_load_converges_and_server_materializes(self,
+                                                          client_stack):
         """Service-load stress with the keystroke editing model (the
         position-locality real editors produce) against the DEVICE
         serving path: every replica converges AND the server's own
         merge-lane materialization matches the clients — the
-        nodeStressTest analog on realistic traffic."""
-        from fluidframework_tpu.testing.load_test import (LoadProfile,
-                                                          LoadRunner)
-
-        server = TpuLocalServer()
-        runner = LoadRunner(
-            lambda: Loader(LocalDocumentServiceFactory(server)))
-        result = runner.run(LoadProfile(
-            documents=2, clients_per_document=3, ops_per_client=60,
-            seed=11, keystroke_trace=True))
+        nodeStressTest analog on realistic traffic. Each stack's own
+        LoadRunner drives it, and both stacks end with the same texts."""
+        profile = dict(documents=2, clients_per_document=3,
+                       ops_per_client=60, seed=11)
+        result, server, texts = keystroke_load(client_stack, **profile)
         assert result.total_ops == 2 * 3 * 60
         assert result.converged, result.divergences
         sq = server.sequencer()
-        for d in range(2):
-            doc_id = f"load-doc-{d}"
-            loader = Loader(LocalDocumentServiceFactory(server))
-            text = loader.resolve(doc_id).runtime.get_datastore(
-                "load").get_channel("text")
-            assert sq.channel_text(doc_id, "load", "text") == \
-                text.get_text(), doc_id
+        for doc_id, text in texts.items():
+            assert sq.channel_text(doc_id, "load", "text") == text, doc_id
+        other = "jax" if client_stack == "port" else "port"
+        assert keystroke_load(other, **profile)[2] == texts
 
-    def test_trace_load_with_reconnect_churn(self):
-        from fluidframework_tpu.testing.load_test import (LoadProfile,
-                                                          LoadRunner)
-
-        server = TpuLocalServer()
-        runner = LoadRunner(
-            lambda: Loader(LocalDocumentServiceFactory(server)))
-        result = runner.run(LoadProfile(
-            documents=1, clients_per_document=3, ops_per_client=50,
-            seed=3, keystroke_trace=True, reconnect_probability=0.05))
+    def test_trace_load_with_reconnect_churn(self, client_stack):
+        profile = dict(documents=1, clients_per_document=3,
+                       ops_per_client=50, seed=3,
+                       reconnect_probability=0.05)
+        result, _, texts = keystroke_load(client_stack, **profile)
         assert result.converged, result.divergences
+        other = "jax" if client_stack == "port" else "port"
+        assert keystroke_load(other, **profile)[2] == texts
 
 
 @pytest.mark.usefixtures("client_stack")

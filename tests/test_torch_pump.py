@@ -67,6 +67,13 @@ def test_serving_and_storm_waves_parse_identically():
         _assert_equal(a, b)
 
 
+@pytest.mark.parametrize("shape", [(8, 6, 2, 0), (24, 4, 6, 0), (37, 5, 3, 2),
+                                   (256, 32, 3, 9)])
+def test_serving_waves_equal_the_plain_builder(shape):
+    """The templated frames are boxcar's bytes, wave 0's joins included."""
+    assert ingest.serving_waves(*shape) == ingest.serving_waves_plain(*shape)
+
+
 def test_preloads_continue_restored_numbering():
     def preload(p):
         o = p.preload_doc("x0")

@@ -33,12 +33,24 @@ from fluidframework_tpu_torch.loader.drivers.local import (
     LocalDocumentServiceFactory,
 )
 from fluidframework_tpu_torch.server import local_server
+from fluidframework_tpu_torch.telemetry import counters as port_counters
 
 torch.set_num_threads(1)
 
 Loader = functools.partial(_container.Loader, device="cpu")
 TpuLocalServer = functools.partial(local_server.TpuLocalServer, device="cpu")
 LocalServer = local_server.LocalServer
+
+
+@pytest.fixture(autouse=True)
+def isolate_port_histograms():
+    """The port's stage latency histograms are process-global, as the JAX
+    package's are (tests/conftest.py resets those after every test): the
+    monitors' /health verdicts here read serving.flush, so another file's
+    flush tail on the same worker must not reach them."""
+    port_counters.reset_histograms()
+    yield
+    port_counters.reset_histograms()
 
 
 def wait_until(predicate, timeout=10.0, interval=0.01):

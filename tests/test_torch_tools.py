@@ -144,6 +144,22 @@ class TestServingDecayProbe:
                    for m in decay_probe.build_wave(docs, ops, wave)]
             assert got == want
 
+    def test_prebuilt_waves_drive_the_same_lanes(self):
+        """Waves built before the probe (as chip_smoke.py builds the
+        fleet's while its kernels compile) give the lanes the probe's own
+        build gives; a wave count that disagrees is refused."""
+        docs, ops, waves = golden.DECAY_SMALL
+        waves_in = [decay_probe.build_wave(docs, ops, w)
+                    for w in range(waves)]
+        _, lam, _ = decay_probe.probe(docs, ops, waves, device="cpu",
+                                      prebuilt=waves_in)
+        _, own, _ = decay_probe.probe(docs, ops, waves, device="cpu")
+        assert decay_probe.lane_digest(lam, docs) == \
+            decay_probe.lane_digest(own, docs)
+        with pytest.raises(ValueError):
+            decay_probe.probe(docs, ops, waves, device="cpu",
+                              prebuilt=waves_in[:-1])
+
     def test_main_exit_code_follows_the_verdict(self, monkeypatch,
                                                 capsys):
         for decayed, code in ((False, 0), (True, 1)):

@@ -193,6 +193,22 @@ HeadlessAgentRunners hosting the IntelligenceRunner, the insights held to
 the JAX golden; (d) testing/historian_smoke.main on the card; (e) the C
 op packer (native/src/oppack.cpp) bit-exact to pack_ops_plain over a lane
 fleet's windows, both timed.
+Phase 23 drives the multi-device path on the card, in the main process
+after phase 22: (a) phase 4's north-star step as full_step over a dp mesh
+of four entries (the card's own devices when it has four, else four
+entries of cuda:0), every kernel launching once per shard and the
+gathered outputs and state bit-exact to phase 4's, the sharded step's
+p50 beside phase 4's and each shard's kernel device ms; (b)
+testing/server_runs on TpuLocalServer(mesh=...) bucketed at SERVER_CARD
+and paged at SERVER_SMALL, every digest equal to the JAX golden (and to
+phase 17's at SERVER_CARD), testing/shardcheck.verify_store passing, the
+ticket scan and the scan apply launching on every shard, ops/s beside
+phase 17's and the page copies between shards; (c) the long document of
+tests/test_fused_sp.py (2 x 48 ops at C = 4,096) and a rich schedule
+through apply_ops_fused_shardmap over dp=1 x sp=8 and dp=2 x sp=4,
+bit-exact to scan_apply.cu, with the boundary exchanges per op, and
+gpu_conformance.check_fused_sp; the phase's wall printed against
+PHASE23_BUDGET_S.
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -845,7 +861,8 @@ def live_slots(state, ops, runs=None) -> np.ndarray:
         need = 2 if runs is None else torch.where(
             op["kind"] == OpKind.INSERT_RUN, RUN_K + 1, 2)
         out.append(torch.where(uniform, (count + need).clamp(max=c), c))
-        st = pa._apply_one_batched(st, op, k, a, with_runs=runs is not None)
+        st = pa._apply_one_batched(st, op, k, a, pa.local_lanes(c),
+                                   with_runs=runs is not None)
     return torch.cat(out, 1).cpu().numpy()
 
 
@@ -1258,6 +1275,9 @@ def main(north_star_only: bool = False) -> int:
           f"launch latency included); bound {sl_bound:.5f} ms "
           f"({summary_bytes} bytes over 3.35 TB/s): {share} of the "
           f"bound cold (device); card {card}", flush=True)
+    # Phase 23 (a) holds the sharded step to this run's unsharded one.
+    north = {"raw": raw, "ops": ops, "fresh": fresh, "p50": p50,
+             "out": (tout, mout, ticketed, total)}
     del tstate0, mstate0, mout, p_mout, tout, p_tout, ticketed, p_ticketed
     del admitted, p_plain
 
@@ -1335,6 +1355,9 @@ def main(north_star_only: bool = False) -> int:
         rows += services_phase(dev, card)
         clock.mark("phase 22")
         rows += capacity_phase(dev, card, capacity_twin)
+        clock.mark("phase 23")
+        mesh_phase(dev, card, north, fig17)
+    del north
     clock.mark("the kernels' line")
     clock.close()
 
@@ -4132,6 +4155,7 @@ def server_phase(dev, card: str) -> list:
                 launched = lambda_counts()
                 card_res[layout], figures[layout] = server_layout(
                     dev, card, layout, g[layout])
+                figures[layout]["digests"] = card_res[layout]
                 parts[layout] = counts_since(launched)
         finally:
             restore()
@@ -6548,6 +6572,281 @@ def capacity_phase(dev, card: str, twin: subprocess.Popen) -> list:
           f"{figures['grade_s']:.1f} s; {time.perf_counter() - t_phase:.1f} "
           f"s; card {card}", flush=True)
     return rows
+
+
+# -- phase 23: multi-device ---------------------------------------------------
+
+MESH_DP = 4                      # (a) and (b): a dp mesh of four entries
+SP_MESHES = ((1, 8), (2, 4))     # (c): (dp, sp), every entry cuda:0
+SP_SHAPE = (2, 48, 4_096, 19)    # (c): tests/test_fused_sp.py's long doc
+SP_RICH_SEED = 7                 # (c): the rich schedule's seed
+# (b)'s paged layout runs at SERVER_SMALL: at SERVER_CARD both layouts on
+# the mesh would take the phase past its 60 s (PERF.md §4 records the cut
+# and its reason).
+PHASE23_PAGED_SIZE = "small"
+# The phase's share of the script's 1,200 s: printed beside the phase's
+# wall, not gated (a slower host is not a fault of the path).
+PHASE23_BUDGET_S = 60.0
+
+
+def phase_mesh(dp: int, sp: int = 1):
+    """A [dp, sp] mesh: the card's own devices when it has that many,
+    else dp * sp entries of cuda:0 (one process drives them all, as the
+    JAX package's single controller does)."""
+    from fluidframework_tpu_torch.parallel import make_mesh
+    n = dp * sp
+    if torch.cuda.device_count() >= n:
+        return make_mesh(dp=dp, sp=sp)
+    return make_mesh(dp=dp, sp=sp, devices=[torch.device("cuda", 0)] * n)
+
+
+def shard_counts() -> dict:
+    from fluidframework_tpu_torch.parallel.mesh import shard_launches
+    return {k: dict(sorted(v.items())) for k, v in shard_launches.items()}
+
+
+def mesh_step_part(dev, card: str, north: dict) -> dict:
+    """Phase 23 (a): phase 4's north-star step (DOCS x OPS at C=CAPACITY)
+    as full_step over a dp mesh: each shard's 2,500 documents run the
+    ticket scan, the fused apply and the summary length on its entry,
+    counted per shard from 0; the gathered outputs and state must equal
+    phase 4's unsharded step bit for bit. The sharded step's p50 (CUDA
+    events, TRIALS from fresh placed state) is printed beside phase 4's,
+    and each shard's kernel device ms (torch.profiler)."""
+    from fluidframework_tpu_torch.mergetree import pallas_apply, pallas_ops
+    from fluidframework_tpu_torch.parallel.mesh import (
+        gather, gather_tree, on_shard, reset_shard_launches, shard_docs,
+        tree_map)
+    from fluidframework_tpu_torch.server import pipeline
+    from fluidframework_tpu_torch.server import ticket_kernel as tk
+
+    t_part = time.perf_counter()
+    mesh = phase_mesh(MESH_DP)
+    raw, ops = north["raw"], north["ops"]
+
+    def placed():
+        ts, ms = north["fresh"]()
+        return (shard_docs(mesh, ts), shard_docs(mesh, ms),
+                shard_docs(mesh, raw), shard_docs(mesh, ops))
+
+    args = placed()
+    torch.cuda.synchronize()
+    reset_shard_launches()
+    out = pipeline.full_step(*args)
+    torch.cuda.synchronize()
+    per = shard_counts()
+    every = {i: 1 for i in range(MESH_DP)}
+    for k in ("ticket_scan", "fused_apply", "summary_len"):
+        require(per.get(k) == every, f"phase 23 (a): {k} did not launch "
+                f"once on each of the {MESH_DP} shards: {per}")
+    got = gather_tree(out[:3])
+    for what, g, w in zip(("tstate", "mstate", "ticketed"), got,
+                          north["out"][:3]):
+        assert_tuple_equal(g, w, f"phase 23 (a) {what} vs phase 4")
+    require(bool(torch.equal(gather(out[3]), north["out"][3])),
+            "phase 23 (a): total_len differs from phase 4's")
+    step_ms = []
+    for _ in range(TRIALS):
+        a = placed()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        pipeline.full_step(*a)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+    by_shard = []
+    for i in range(MESH_DP):
+        ts, ms, r, o = tree_map(lambda x: x.block(i), placed())
+
+        def shard_step():
+            _ts, tkd = tk.scan_tickets(ts, r)
+            pallas_ops.summary_lengths(pallas_apply.apply_ops_fused(
+                ms, pipeline.admit_ops(o, tkd)))
+
+        got = {}
+        for _ in range(2):  # a trace that misses a kernel is taken again
+            with on_shard(mesh, i):
+                trace = kernel_device_ms(shard_step, 3)
+            for k in ("ticket_scan", "fused_apply", "summary_len"):
+                hits = [ms_ for name, (ms_, _n) in trace.items() if k in name]
+                if hits and k not in got:
+                    got[k] = round(sum(hits), 4)
+            if len(got) == 3:
+                break
+        by_shard.append({k: got.get(k, "not measured")
+                         for k in ("ticket_scan", "fused_apply",
+                                   "summary_len")})
+    p50 = float(np.median(step_ms))
+    print(f"phase 23 (a): full_step {DOCS}x{OPS} C={CAPACITY} over a dp "
+          f"mesh of {MESH_DP} ({mesh}): launches per shard {per}; outputs "
+          f"and state bit-exact to phase 4's; sharded step p50 {p50:.3f} "
+          f"ms ({DOCS * OPS / (p50 / 1e3):.0f} ops/s, trials "
+          f"{[round(v, 3) for v in step_ms]}) beside phase 4's "
+          f"{north['p50']:.3f} ms; kernel device ms by shard (profiler) "
+          f"{by_shard}; "
+          f"card {card}", flush=True)
+    return {"p50": p50, "per_shard": per, "shard_ms": by_shard,
+            "seconds": time.perf_counter() - t_part}
+
+
+def mesh_server_part(dev, card: str, fig17: dict) -> dict:
+    """Phase 23 (b): testing/server_runs on TpuLocalServer(device=dev,
+    mesh=<a dp mesh of MESH_DP>), bucketed at SERVER_CARD and paged at
+    PHASE23_PAGED_SIZE: every digest equal to the JAX golden's section of
+    that size (and, at SERVER_CARD, to phase 17's result in this run),
+    testing/shardcheck.verify_store passing on every sequencer after the
+    run, and the ticket scan and the scan apply launching on every shard
+    (counts from 0 at each layout's start). Prints ops/s (host clock over
+    the measured waves, synced) beside phase 17's and the pages copied
+    between the pool's shards and the dispatching device."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.parallel.mesh import reset_shard_launches
+    from fluidframework_tpu_torch.testing import golden, server_runs
+    from fluidframework_tpu_torch.testing import shardcheck
+
+    g = golden.load_server()
+    figures = {}
+    for layout, size in (("bucketed", "card"),
+                         ("paged", PHASE23_PAGED_SIZE)):
+        spec = server_runs.Spec(**(golden.SERVER_CARD if size == "card"
+                                   else golden.SERVER_SMALL))
+        mesh = phase_mesh(MESH_DP)
+        servers, facts = [], {}
+
+        def measured(server, run_waves):
+            servers.append(server)
+            t0 = time.perf_counter()
+            facts["ops"] = run_waves()
+            torch.cuda.synchronize()
+            facts["wall_s"] = time.perf_counter() - t0
+            return facts["ops"]
+
+        reset_shard_launches()
+        kernel.reset_page_copies()
+        t0 = time.perf_counter()
+        res = server_runs.run(server_runs.port_package(dev, mesh), spec,
+                              hooks={"measured": measured},
+                              **server_runs.VARIANTS[layout])
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        per = shard_counts()
+        want = g[size][layout]
+        diff = sorted(k for k in want if res.get(k) != want[k])
+        require(not diff, f"phase 23 (b) {layout}: {diff} differ from the "
+                f"JAX golden's {size} section")
+        same17 = None
+        if size == "card" and "digests" in fig17.get(layout, {}):
+            same17 = res == fig17[layout]["digests"]
+            require(same17, f"phase 23 (b) {layout}: differs from phase "
+                    f"17's result in this run")
+        checked = sum(shardcheck.verify_store(lam.merge)
+                      for lam in servers[0].ingest.sequencers())
+        require(checked > 0, f"phase 23 (b) {layout}: verify_store checked "
+                f"no leaf")
+        for k in ("ticket_scan", "scan_apply"):
+            require(sorted(per.get(k, {})) == list(range(MESH_DP)),
+                    f"phase 23 (b) {layout}: {k} did not launch on every "
+                    f"shard: {per}")
+        ops_s = facts["ops"] / facts["wall_s"]
+        beside = fig17.get(layout, {}).get("ops_s") if size == "card" \
+            else None
+        beside = "not run at this size" if beside is None \
+            else f"{beside:.0f}"
+        pages = (kernel.gather_pages.page_copies,
+                 kernel.scatter_pages.page_copies)
+        print(f"phase 23 (b) {layout} at {size} ({res['docs']} documents, "
+              f"{res['ops']} ops): every digest equals the JAX golden"
+              f"{' and phase 17' if same17 else ''}; verify_store checked "
+              f"{checked} leaves; launches per shard {per}; {ops_s:.0f} "
+              f"ops/s (measured waves, host clock) beside phase 17's "
+              f"{beside}; "
+              f"pages gathered / scattered between shards and the "
+              f"dispatching device {pages[0]} / {pages[1]}; block copies "
+              f"{mesh.copies}; {total_s:.1f} s; card {card}", flush=True)
+        figures[layout] = {"ops_s": ops_s, "per_shard": per,
+                           "page_copies": pages, "seconds": total_s}
+    return figures
+
+
+def mesh_sp_part(dev, card: str) -> dict:
+    """Phase 23 (c): a long document with the capacity axis sharded:
+    apply_ops_fused_shardmap over SP_MESHES (every entry cuda:0) at
+    SP_SHAPE (gen_traces) and on one rich schedule (inserts and removes
+    from three clients, gpu_conformance's traces) at the same width, each
+    bit-exact to scan_apply.cu's result; then
+    gpu_conformance.check_fused_sp. Prints the apply's wall and its
+    boundary exchanges per op."""
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.mergetree import fused_sp, kernel
+    from fluidframework_tpu_torch.mergetree.oppack import pack_ops
+    from fluidframework_tpu_torch.mergetree.state import make_state
+    from fluidframework_tpu_torch.parallel.mesh import gather_tree, make_mesh
+    from fluidframework_tpu_torch.testing.traces import gen_traces
+    from fluidframework_tpu_torch.tools import gpu_conformance
+
+    b, t, cap, seed = SP_SHAPE
+    cases = {
+        "gen_traces": interop.packed_ops_from_numpy(
+            gen_traces(b, t, seed=seed), dev),
+        "rich": interop.packed_ops_from_numpy(
+            pack_ops(gpu_conformance._traces(b, t, SP_RICH_SEED)), dev)}
+    f = fused_sp.apply_ops_fused_shardmap
+    out = {}
+    for label, ops in cases.items():
+        state = make_state(cap, 2, batch=b, device=dev)
+        ref = kernel.scan_apply(state, ops)
+        torch.cuda.synchronize()
+        k, a = state.overlap_slots, state.anno_slots
+        b_ms = fused_apply_bytes(b, cap, t, k, a, False, False) \
+            / PEAK_BYTES_PER_S * 1e3
+        o_ms = fused_apply_lane_ops(ops.kind.cpu().numpy(),
+                                    live_slots(state, ops),
+                                    k, a) / PEAK_OPS_PER_S * 1e3
+        for dp, sp in SP_MESHES:
+            mesh = make_mesh(dp=dp, sp=sp, devices=[dev] * (dp * sp))
+            fused_sp.reset_counts()
+            t0 = time.perf_counter()
+            got = gather_tree(f(state, ops, mesh))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            assert_tuple_equal(got, ref, f"phase 23 (c) {label} dp={dp} "
+                               f"sp={sp} vs scan_apply.cu")
+            out[(label, dp, sp)] = {"wall_ms": wall,
+                                    "exchanges_per_op": f.exchanges / f.ops}
+            print(f"phase 23 (c) {label} {b} x {t} ops at C={cap} over "
+                  f"dp={dp} sp={sp}: bit-exact to scan_apply.cu; wall "
+                  f"{wall:.1f} ms (host clock, synced; the apply is plain "
+                  f"torch, no hand kernel) against the fused apply's bound "
+                  f"{max(b_ms, o_ms):.5f} ms (by "
+                  f"{'bytes' if b_ms >= o_ms else 'operations'}); "
+                  f"{f.exchanges} "
+                  f"boundary exchanges over {f.ops} op steps "
+                  f"({f.exchanges / f.ops:.2f} an op), {f.collectives} "
+                  f"collectives, {mesh.copies} block copies; card {card}",
+                  flush=True)
+    require(gpu_conformance.check_fused_sp(*gpu_conformance.FUSED_SP_SHAPE,
+                                           device=dev),
+            "phase 23 (c): check_fused_sp failed")
+    return out
+
+
+def mesh_phase(dev, card: str, north: dict, fig17: dict) -> None:
+    """Phase 23: the north-star step on a dp mesh (a), the local server
+    on a dp mesh (b) and a long document on sp meshes (c), in the main
+    process after phase 22 with no child process beside it; its wall is
+    printed against PHASE23_BUDGET_S."""
+    t_phase = time.perf_counter()
+    figures = {"a": mesh_step_part(dev, card, north)}
+    figures["b"] = mesh_server_part(dev, card, fig17)
+    figures["c"] = mesh_sp_part(dev, card)
+    took = time.perf_counter() - t_phase
+    print(f"phase 23: {took:.1f} s ((a) {figures['a']['seconds']:.1f}, (b) "
+          f"{sum(f['seconds'] for f in figures['b'].values()):.1f}; "
+          f"{'within' if took <= PHASE23_BUDGET_S else 'OVER'} its "
+          f"{PHASE23_BUDGET_S:.0f} s); card {card}", flush=True)
+
 
 if __name__ == "__main__":
     try:

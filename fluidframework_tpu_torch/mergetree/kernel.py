@@ -29,8 +29,15 @@ Summary extraction (`extract_visible_batched`, the fused zamboni +
 extraction `compact_extract_batched` and its paged form
 `compact_extract_paged`, `gather_rows_pow2`) and the narrow device-to-host
 wire (`fetch_extracted`) are XLA code in JAX, not Pallas: plain PyTorch
-on both devices here. Not ported: the sequence-parallel `sp_shards`
-formulation.
+on both devices here.
+
+The sequence-parallel formulation (`sp_shards`): the visibility prefix sum
+as `sp_shards` block-local cumsums plus an exclusive scan of the block
+totals (`_cumsum_sp`, the two-level recipe of parallel/seq_scan.py). It is
+exact integer arithmetic, so on one device it changes nothing:
+`scan_apply` takes `sp_shards` and launches scan_apply.cu as it is. A
+table whose capacity axis is sharded over a mesh runs the explicit
+per-shard form of mergetree/fused_sp.py instead.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from ..parallel.mesh import (Sharded, clone, note_launch, on_shard,
+                             take_rows, write_rows)
 from ..telemetry import counters
 from .constants import DEV_NO_REMOVE, DEV_UNASSIGNED
 from .oppack import RUN_K, OpKind, PackedOps, RunCols
@@ -97,17 +106,33 @@ def _masked_scalar(values, mask):
     return torch.where(mask, values, 0).sum(dim=1, keepdim=True, dtype=_I32)
 
 
-def visibility(s: DocState, ref_seq, client):
+def _cumsum_sp(vlen: torch.Tensor, sp_shards: int) -> torch.Tensor:
+    """Inclusive prefix sum of [B, C] over the capacity axis in the
+    sequence-parallel formulation: sp_shards block-local cumsums plus an
+    exclusive scan of the block totals. With C not divisible by sp_shards
+    (or sp_shards <= 1) it is the plain cumsum."""
+    b, c = vlen.shape
+    if sp_shards <= 1 or c % sp_shards:
+        return torch.cumsum(vlen, dim=1, dtype=_I32)
+    local = torch.cumsum(vlen.reshape(b, sp_shards, c // sp_shards), dim=2,
+                         dtype=_I32)
+    totals = local[..., -1]
+    offsets = torch.cumsum(totals, dim=1, dtype=_I32) - totals
+    return (local + offsets[..., None]).reshape(b, c)
+
+
+def visibility(s: DocState, ref_seq, client, sp_shards: int = 1):
     """(vis, vlen, cum): visibility mask, visible lengths and the
     exclusive prefix sum of [B, C] states at perspective (ref_seq, client),
-    each [B, 1] (kernel.py visibility; mergeTree.ts:1586 nodeLength)."""
+    each [B, 1] (kernel.py visibility; mergeTree.ts:1586 nodeLength), the
+    prefix sum in the sp_shards formulation."""
     valid = _lanes(s) < s.count[:, None]
     inserted = (s.ins_seq <= ref_seq) | (s.ins_client == client)
     removed = (s.rem_seq <= ref_seq) | \
         (s.rem_clients == client[..., None]).any(dim=-1)
     vis = valid & inserted & ~removed
     vlen = torch.where(vis, s.length, 0)
-    cum = torch.cumsum(vlen, dim=1, dtype=_I32) - vlen
+    cum = _cumsum_sp(vlen, sp_shards) - vlen
     return vis, vlen, cum
 
 
@@ -133,12 +158,13 @@ def _shift_right_at(s: DocState, slot, do) -> DocState:
     return _shift_right_by(s, slot, do, 1)
 
 
-def _ensure_boundary(s: DocState, pos, ref_seq, client, enabled) -> DocState:
+def _ensure_boundary(s: DocState, pos, ref_seq, client, enabled,
+                     sp_shards: int = 1) -> DocState:
     """Split the segment containing `pos` (if any) so `pos` falls on a
     segment boundary (reference ensureIntervalBoundary, mergeTree.ts:2240)."""
     if _off(enabled):
         return s
-    vis, vlen, cum = visibility(s, ref_seq, client)
+    vis, vlen, cum = visibility(s, ref_seq, client, sp_shards)
     inside = vis & (cum < pos) & (pos < cum + vlen)
     do = enabled & _any(inside)
     idx = _first(inside)
@@ -330,10 +356,11 @@ def _ack_phase(s: DocState, op) -> DocState:
         rem_local_seq=torch.where(rem_hit, 0, s.rem_local_seq))
 
 
-def apply_one(s: DocState, op, run=None) -> DocState:
+def apply_one(s: DocState, op, run=None, sp_shards: int = 1) -> DocState:
     """Apply one op per document: `op` maps each PackedOps field to its
     [B, 1] column at this step, `run` (INSERT_RUN streams only) each
-    RunCols field to its [B, RUN_K] row."""
+    RunCols field to its [B, RUN_K] row; the prefix sums in the sp_shards
+    formulation."""
     kind = op["kind"]
     is_run = (kind == OpKind.INSERT_RUN) if run is not None \
         else torch.zeros_like(kind, dtype=torch.bool)
@@ -350,11 +377,11 @@ def apply_one(s: DocState, op, run=None) -> DocState:
     is_run = is_run & fits
 
     r, cl = op["ref_seq"], op["client"]
-    s1 = _ensure_boundary(s, op["pos1"], r, cl, is_edit)
-    s2 = _ensure_boundary(s1, op["pos2"], r, cl, is_range)
+    s1 = _ensure_boundary(s, op["pos1"], r, cl, is_edit, sp_shards)
+    s2 = _ensure_boundary(s1, op["pos2"], r, cl, is_range, sp_shards)
     # One visibility pass on s2 serves the insert and range phases (each
     # leaves the others' state unchanged where it is consumed).
-    view2 = visibility(s2, r, cl)
+    view2 = visibility(s2, r, cl, sp_shards)
     s_ins = _insert_phase(s2, op, is_edit & (kind == OpKind.INSERT), view2)
     if run is not None:
         s_ins = _insert_run_phase(s_ins, op, run, is_run, view2)
@@ -376,26 +403,30 @@ def apply_one(s: DocState, op, run=None) -> DocState:
 
 
 def _scan_batched_plain(state: DocState, ops: PackedOps,
-                        runs: Optional[RunCols]) -> DocState:
+                        runs: Optional[RunCols],
+                        sp_shards: int = 1) -> DocState:
     s = state
     for t in range(ops.steps):
         op = {f: col[:, t:t + 1] for f, col in zip(PackedOps._fields, ops)}
         run = None if runs is None else {
             f: col[:, t] for f, col in zip(RunCols._fields, runs)}
-        s = apply_one(s, op, run)
+        s = apply_one(s, op, run, sp_shards)
     # A skipped phase hands its input back: copy what no op replaced.
     return DocState(*(o.clone() if o is i else o.contiguous()
                       for o, i in zip(s, state)))
 
 
 def scan_ops_plain(state: DocState, ops: PackedOps, batched: bool,
-                   runs: Optional[RunCols] = None) -> DocState:
+                   runs: Optional[RunCols] = None,
+                   sp_shards: int = 1) -> DocState:
     """The plain PyTorch scan apply on any device: the reference that
     scan_apply.cu is held to. [C] / [T] (batched=False) or [B, C] /
-    [B, T]; runs: RunCols [T, RUN_K] / [B, T, RUN_K] or None."""
+    [B, T]; runs: RunCols [T, RUN_K] / [B, T, RUN_K] or None; sp_shards:
+    the prefix sums' two-level formulation (the same result)."""
     if batched:
-        return _scan_batched_plain(state, ops, runs)
-    return _drop(_scan_batched_plain(_lift(state), _lift(ops), _lift(runs)))
+        return _scan_batched_plain(state, ops, runs, sp_shards)
+    return _drop(_scan_batched_plain(_lift(state), _lift(ops), _lift(runs),
+                                     sp_shards))
 
 
 # ---------------------------------------------------------------------------
@@ -602,14 +633,20 @@ def _check_launchable(state: DocState, ops: PackedOps,
 
 
 def scan_apply(state: DocState, ops: PackedOps,
-               runs: Optional[RunCols] = None) -> DocState:
+               runs: Optional[RunCols] = None,
+               sp_shards: int = 1) -> DocState:
     """One launch of kernels/csrc/scan_apply.cu on the path scan_geometry
     names: [B, T] op streams (and [B, T, RUN_K] runs) applied to B
     documents of any capacity, into a new state; the input is left as it
     was. CUDA tensors only: a shape or device the kernel does not take, a
     build error or a launch error (a cluster that cannot be scheduled
     too) raises. Counted in scan_apply.launches (per variant and per
-    kernel)."""
+    kernel). sp_shards only names the prefix sums' formulation: the
+    two-level form is exact integer arithmetic, the same result as the
+    kernel's one-level scan, so the kernel launches as it is."""
+    if sp_shards < 1:
+        raise ValueError(f"scan_apply: sp_shards must be >= 1 "
+                         f"(got {sp_shards})")
     b, c = state.length.shape
     return _launch(state, ops, runs, scan_geometry(
         b, c, state.overlap_slots, state.anno_slots))
@@ -636,6 +673,7 @@ def _launch(state: DocState, ops: PackedOps, runs: Optional[RunCols],
     variant = "runs" if runs is not None else "plain"
     scan_apply.variant_launches[variant] += 1
     scan_apply.kernel_launches[f"{geo.path}[{variant}]"] += 1
+    note_launch("scan_apply")
     build.check(lib.fluid_scan_apply(
         arr, b, c, k, a, ops.steps, int(runs is not None),
         _SCAN_PATHS[geo.path], geo.blocks, geo.threads, geo.smem_bytes,
@@ -660,13 +698,15 @@ reset_launches()
 # ---------------------------------------------------------------------------
 
 def _scan_ops(state: DocState, ops: PackedOps, batched: bool,
-              runs: Optional[RunCols] = None) -> DocState:
+              runs: Optional[RunCols] = None,
+              sp_shards: int = 1) -> DocState:
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     if state.length.device.type == "cpu":
-        return scan_ops_plain(state, ops, batched, runs)
+        return scan_ops_plain(state, ops, batched, runs, sp_shards)
     if batched:
-        return scan_apply(state, ops, runs)
-    return _drop(scan_apply(_lift(state), _lift(ops), _lift(runs)))
+        return scan_apply(state, ops, runs, sp_shards)
+    return _drop(scan_apply(_lift(state), _lift(ops), _lift(runs),
+                            sp_shards))
 
 
 def apply_ops(state: DocState, ops: PackedOps) -> DocState:
@@ -816,10 +856,19 @@ def gather_pages(pool: DocState, page_ids: torch.Tensor, counts: torch.Tensor,
     gidx = torch.clamp(page_ids, min=0).to(torch.int64)
     b, p = page_ids.shape
     r = pool.capacity
+    if isinstance(pool.length, Sharded):
+        # A pool on a mesh: each page comes from its owning shard to the
+        # dispatching device (the counts' device).
+        ids = gidx.reshape(-1).cpu().numpy()
+        gather_pages.page_copies += int((page_ids >= 0).sum())
 
-    def g(col):
-        x = col[gidx]  # [B, P, R, ...]
-        return x.reshape((b, p * r) + tuple(x.shape[3:]))
+        def g(col):
+            x = take_rows(col, ids, device=counts.device)
+            return x.reshape((b, p * r) + tuple(x.shape[2:]))
+    else:
+        def g(col):
+            x = col[gidx]  # [B, P, R, ...]
+            return x.reshape((b, p * r) + tuple(x.shape[3:]))
 
     return DocState(
         **{name: g(getattr(pool, name)) for name in _ROW_FIELDS},
@@ -840,6 +889,19 @@ def scatter_pages(pool: DocState, page_ids: torch.Tensor,
     collision-free."""
     b, p = page_ids.shape
     r = pool.capacity
+    if isinstance(pool.length, Sharded):
+        # A pool on a mesh: each real page is written back into its owning
+        # shard; padding ids are dropped, as JAX's mode="drop" does.
+        ids = page_ids.reshape(-1).cpu().numpy()
+        keep = np.nonzero(ids >= 0)[0]
+        scatter_pages.page_copies += len(keep)
+        if len(keep):
+            for name in _ROW_FIELDS:
+                v = getattr(view, name)
+                v = v.reshape((b * p, r) + tuple(v.shape[2:]))
+                write_rows(getattr(pool, name), ids[keep],
+                           v[torch.as_tensor(keep, device=v.device)])
+        return pool
     dst = torch.where(page_ids >= 0, page_ids,
                       BLANK_PAGE).to(torch.int64).reshape(-1)
     for name in _ROW_FIELDS:
@@ -861,7 +923,18 @@ def scatter_pages(pool: DocState, page_ids: torch.Tensor,
 # leave every input as it was (JAX's non-donating twins).
 
 def _copy_pool(pool: DocState) -> DocState:
-    return DocState(*(t.clone() for t in pool))
+    return DocState(*(clone(t) if isinstance(t, Sharded) else t.clone()
+                      for t in pool))
+
+
+def reset_page_copies() -> None:
+    """Zero the counts of pages gathered from a mesh pool's shards and
+    scattered back (gather_pages.page_copies, scatter_pages.page_copies)."""
+    gather_pages.page_copies = 0
+    scatter_pages.page_copies = 0
+
+
+reset_page_copies()
 
 
 def paged_stats_vec(ops: PackedOps, out: DocState) -> torch.Tensor:
@@ -877,19 +950,45 @@ def paged_stats_vec(ops: PackedOps, out: DocState) -> torch.Tensor:
                                    out.count.sum(dtype=_I32)])
 
 
-def _scan_group(view: DocState, ops: PackedOps, plain: bool) -> DocState:
+def _scan_group(view: DocState, ops: PackedOps, plain: bool,
+                mesh=None) -> DocState:
     """The apply inside every paged op: kernel.py's _scan_ops(batched=True)
     (scan_apply.cu for CUDA tensors, the plain scan for CPU tensors), or
-    the plain scan on any device with plain=True."""
-    if plain:
-        return scan_ops_plain(view, ops, batched=True)
-    return _scan_ops(view, ops, batched=True)
+    the plain scan on any device with plain=True. With the pool on a
+    `mesh`, the view's documents split into dp contiguous parts, each
+    applied on its shard's device (one launch per shard that has
+    documents), and the results come back in document order."""
+    def scan(v, o):
+        if plain:
+            return scan_ops_plain(v, o, batched=True)
+        return _scan_ops(v, o, batched=True)
+
+    if mesh is None:
+        return scan(view, ops)
+    home = view.length.device
+    parts = []
+    for i, rows in enumerate(np.array_split(np.arange(view.length.shape[0]),
+                                            mesh.shape["dp"])):
+        if not len(rows):
+            continue
+        dev, part = mesh.device(i), slice(int(rows[0]), int(rows[-1]) + 1)
+        with on_shard(mesh, i):
+            parts.append(scan(DocState(*(x[part].to(dev) for x in view)),
+                              PackedOps(*(x[part].to(dev) for x in ops))))
+        mesh.copies += 2
+    return DocState(*(torch.cat([p[k].to(home) for p in parts])
+                      for k in range(len(view))))
+
+
+def pool_mesh(pool: DocState):
+    """The mesh a page pool is placed on, or None."""
+    return pool.length.mesh if isinstance(pool.length, Sharded) else None
 
 
 def _apply_ops_paged(pool, page_ids, counts, min_seqs, seqs, ops,
                      stats, plain):
     pre = gather_pages(pool, page_ids, counts, min_seqs, seqs)
-    out = _scan_group(pre, ops, plain)
+    out = _scan_group(pre, ops, plain, pool_mesh(pool))
     scatter_pages(pool, page_ids, out)
     base = (pool, page_ids, out.count, out.min_seq, out.seq, out.overflow,
             pre)

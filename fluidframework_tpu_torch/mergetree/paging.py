@@ -1,13 +1,12 @@
 """Paged lane memory: fixed-size segment pages + per-document page tables.
 
-Counterpart of fluidframework_tpu's mergetree/paging.py (all of it but
-`PagedMergeStore.placement_spec_table`, which waits for the multi-device
-partition rules). Segment rows live in a device pool of
-[n_pages, PAGE_ROWS] pages (a DocState whose batch axis is pages; its
-per-page scalar fields are unused padding), each document owns a host-side
-table of int32 page ids, and a refcounted free list hands pages out. A
-document grows by appending a page; its rows never move, because the
-apply-time view is gathered from its own pages (kernel.gather_pages).
+Counterpart of fluidframework_tpu's mergetree/paging.py. Segment rows
+live in a device pool of [n_pages, PAGE_ROWS] pages (a DocState whose
+batch axis is pages; its per-page scalar fields are unused padding), each
+document owns a host-side table of int32 page ids, and a refcounted free
+list hands pages out. A document grows by appending a page; its rows
+never move, because the apply-time view is gathered from its own pages
+(kernel.gather_pages).
 
 Invariants:
 - page 0 is the reserved BLANK page: never allocated, always blank, so a
@@ -21,6 +20,15 @@ Invariants:
 
 JAX donates the pool to its jitted page writes; here they update the pool
 tensors in place.
+
+On a mesh (`PagedMergeStore(mesh=...)`) the page axis shards over 'dp' by
+the partition-rule table (partition_rules.POOL_PARTITION_RULES), so the
+pool's capacity scales with the mesh; the page count rounds up to a dp
+multiple, and doubling keeps it one. A window's pages may sit on several
+shards: kernel.gather_pages copies each from its owning shard to the
+dispatching device and kernel.scatter_pages writes each back, bit for bit,
+and both count the pages they move. JAX turns donation off on a mesh; the
+`donate` flag says so here too (the paged dispatches keep their pre views).
 """
 
 from __future__ import annotations
@@ -31,7 +39,10 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..parallel.mesh import Sharded, gather_tree, take_rows, write_rows
 from .constants import MAX_OVERLAP_CLIENTS, PAGE_ROWS
+from .partition_rules import (POOL_PARTITION_RULES, ensure_placement,
+                              place_with_rules, resolved_spec_table)
 from .state import DEFAULT_ANNO_SLOTS, DocState, make_state
 
 BLANK_PAGE = 0  # reserved, never allocated, always blank
@@ -43,7 +54,12 @@ def _zero_pool_pages(pool: DocState, idx: torch.Tensor,
     the per-page scalar fields are unused) and return the pool. A repeated
     id writes the same blank twice, which is harmless."""
     for col, b in zip(pool, blank):
-        if col.dim() > 1:
+        if col.dim() <= 1:
+            continue
+        if isinstance(col, Sharded):
+            rows = idx.cpu().numpy()
+            write_rows(col, rows, b.expand((len(rows),) + tuple(b.shape)))
+        else:
             col[idx] = b
     return pool
 
@@ -56,7 +72,11 @@ def _put_pool_pages(pool: DocState, idx: torch.Tensor,
     compiled shapes; nothing here compiles per shape, so `idx` holds the
     document's pages only.)"""
     for col, v in zip(pool, row):
-        if col.dim() > 1:
+        if col.dim() <= 1:
+            continue
+        if isinstance(col, Sharded):
+            write_rows(col, idx.cpu().numpy(), v)
+        else:
             col[idx] = v
     return pool
 
@@ -148,14 +168,25 @@ class PagedMergeStore:
     def __init__(self, page_rows: int = PAGE_ROWS, pages: int = 64,
                  anno_slots: int = DEFAULT_ANNO_SLOTS,
                  overlap_slots: int = MAX_OVERLAP_CLIENTS,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
+        """device: where a dispatch gathers its pages (the mesh's home
+        device on a mesh). mesh: a parallel.mesh.Mesh whose 'dp' axis the
+        page axis shards over (None: one device)."""
         self.page_rows = page_rows
         self.anno_slots = anno_slots
         self.overlap_slots = overlap_slots
         self.device = resolve_device(device)
-        self.pool: DocState = make_state(page_rows, anno_slots,
-                                         overlap_slots, batch=pages,
-                                         device=self.device)
+        self.mesh = mesh
+        # The paged dispatches keep their inputs on a mesh (JAX gates
+        # donation off there); the page writes themselves stay in place.
+        self.donate = mesh is None
+        if mesh is not None:
+            dp = mesh.shape["dp"]
+            pages = -(-pages // dp) * dp
+        self.pool: DocState = self._placed(make_state(
+            page_rows, anno_slots, overlap_slots, batch=pages,
+            device=self.device))
+        self.pool_replacements = 0  # leaves re-placed after spec drift
         self.allocator = PageAllocator(pages)
         self.tables: Dict[tuple, List[int]] = {}
         self.counts: Dict[tuple, int] = {}
@@ -189,14 +220,25 @@ class PagedMergeStore:
         grown = make_state(self.page_rows, self.anno_slots,
                            self.overlap_slots, batch=new_cap,
                            device=self.device)
-        for g, s in zip(grown, self.pool):
+        for g, s in zip(grown, gather_tree(self.pool)):
             g[:old] = s
-        self.adopt_pool(grown)
+        self.adopt_pool(self._placed(grown))
         self.allocator.grow(new_cap)
         self.pool_grows += 1
 
+    def _placed(self, pool: DocState) -> DocState:
+        if self.mesh is None:
+            return pool
+        return place_with_rules(self.mesh, pool, POOL_PARTITION_RULES)
+
     def adopt_pool(self, new_pool: DocState) -> None:
-        """Adopt a pool returned by a serving call."""
+        """Adopt a pool returned by a serving call. On a mesh, every leaf
+        is checked against its rule-table placement and a drifted leaf is
+        placed again (counted in `pool_replacements`)."""
+        if self.mesh is not None:
+            new_pool, replaced = ensure_placement(
+                self.mesh, new_pool, POOL_PARTITION_RULES)
+            self.pool_replacements += replaced
         self.pool = new_pool
 
     def zero_pages(self, pids: List[int]) -> None:
@@ -303,7 +345,8 @@ class PagedMergeStore:
         idx = torch.as_tensor(table, dtype=torch.int64, device=self.device)
 
         def g(col):
-            x = col[idx]
+            x = take_rows(col, table, self.device) \
+                if isinstance(col, Sharded) else col[idx]
             return x.reshape((len(table) * self.page_rows,)
                              + tuple(x.shape[2:]))
 
@@ -337,6 +380,13 @@ class PagedMergeStore:
         self.min_seqs[key] = int(row.min_seq)
         self.seqs[key] = int(row.seq)
         self.release_trailing(key)
+
+    # -- placement -----------------------------------------------------------
+    def placement_spec_table(self) -> Dict[str, str]:
+        """Leaf name -> rule-resolved PartitionSpec string for the pool
+        (partition_rules.resolved_spec_table): the table that
+        testing/shardcheck verifies."""
+        return resolved_spec_table(self.pool, POOL_PARTITION_RULES)
 
     # -- stats ---------------------------------------------------------------
     @property

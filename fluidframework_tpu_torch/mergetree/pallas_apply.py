@@ -5,10 +5,12 @@ Counterpart of fluidframework_tpu's mergetree/pallas_apply.py.
 `apply_ops_fused` launches the CUDA kernel (kernels/csrc/fused_apply.cu)
 for CUDA tensors, each document's table resident in shared memory for all
 T ops, on one of two paths that `launch_geometry` chooses from the shape:
-one warp per document or one block per document. `apply_ops_fused_plain` is the plain PyTorch version,
-a transcription of `_apply_one_batched` and its phases over [B, C] planes
-stepping over T; the wrapper uses it only for CPU tensors. Neither mutates
-its input.
+one warp per document or one block per document. `apply_ops_fused_plain`
+is the plain PyTorch version, a transcription of `_apply_one_batched` and
+its phases over [B, C] planes stepping over T, written, as the reference's
+body is, against a `Lanes` context of lane primitives (`local_lanes` here;
+mergetree/fused_sp.py supplies the sequence-parallel ones); the wrapper
+uses it only for CPU tensors. Neither mutates its input.
 
 Both take the two variants of the TPU kernel: `runs=` (RunCols [B, T,
 RUN_K]: INSERT_RUN steps land up to RUN_K rows at one tie-break slot) and
@@ -19,11 +21,12 @@ min_seq, seq) that the serving megakernel reads).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..kernels import build
+from ..parallel.mesh import note_launch
 from .constants import DEV_NO_REMOVE, DEV_UNASSIGNED
 from .oppack import RUN_K, OpKind, PackedOps, RunCols
 from .state import DocState
@@ -122,31 +125,58 @@ def _forced_geometry(path: str, capacity: int, k_slots: int,
 
 
 # ---------------------------------------------------------------------------
-# the plain version: _apply_one_batched over [B, C] planes
+# the plain version: _apply_one_batched over [B, C] planes, its lane
+# primitives injected through a Lanes context
 # ---------------------------------------------------------------------------
+
+class Lanes(NamedTuple):
+    """The lane-axis primitives the batched body is written against (the
+    reference's Lanes). Everything the body does along the segment axis
+    goes through these seven operations, so swapping the context retargets
+    the same body: whole planes on one device (`local_lanes`), the two-level
+    prefix sum (mergetree/fused_sp.gspmd_lanes), or per-shard lane tiles
+    with explicit exchanges between them (fused_sp.shard_lanes). `total` is
+    the global lane count: `iota` gives global lane indices and
+    `first_true` answers `total` where no lane matches, so per-document
+    scalars stay global under every context."""
+
+    total: int
+    iota: Callable           # (plane) -> its global lane indices
+    any_lane: Callable       # (mask [B, Cl]) -> bool [B, 1] (global any)
+    first_true: Callable     # (mask) -> first global lane, else total
+    masked_scalar: Callable  # (values, mask) -> global masked sum [B, 1]
+    cumsum_excl: Callable    # exclusive prefix sum along the global lanes
+    roll: Callable           # cyclic shift along the global lane axis
+    roll_many: Callable      # ([planes], n) -> each rolled (one exchange)
+
 
 def _lanes(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(x.shape[-1], device=x.device, dtype=torch.int32)
 
 
-def _any_lane(m):
-    return m.any(dim=1, keepdim=True)
+def local_lanes(total: int) -> Lanes:
+    """The whole lane axis resident on one device: the context of
+    apply_ops_fused_plain."""
+
+    def roll(x, n):
+        return torch.roll(x, n, dims=1)
+
+    return Lanes(
+        total=total,
+        iota=_lanes,
+        any_lane=lambda m: m.any(dim=1, keepdim=True),
+        first_true=lambda m: torch.where(m, _lanes(m), total).amin(
+            dim=1, keepdim=True),
+        masked_scalar=lambda v, m: torch.where(m, v, 0).sum(
+            dim=1, keepdim=True, dtype=torch.int32),
+        cumsum_excl=lambda x: torch.cumsum(x, dim=1, dtype=torch.int32) - x,
+        roll=roll,
+        roll_many=lambda xs, n: [roll(x, n) for x in xs],
+    )
 
 
-def _first_true(m):
-    return torch.where(m, _lanes(m), m.shape[-1]).amin(dim=1, keepdim=True)
-
-
-def _masked_scalar(v, m):
-    return torch.where(m, v, 0).sum(dim=1, keepdim=True, dtype=torch.int32)
-
-
-def _cumsum_excl(x):
-    return torch.cumsum(x, dim=1, dtype=torch.int32) - x
-
-
-def _visibility(st, ref, client, k_slots):
-    lane = _lanes(st["length"])
+def _visibility(st, ref, client, k_slots, ln: Lanes):
+    lane = ln.iota(st["length"])
     valid = lane < st["count"]
     inserted = (st["ins_seq"] <= ref) | (st["ins_client"] == client)
     removed = st["rem_seq"] <= ref
@@ -154,7 +184,7 @@ def _visibility(st, ref, client, k_slots):
         removed = removed | (st[f"rc{i}"] == client)
     vis = valid & inserted & ~removed
     vlen = torch.where(vis, st["length"], 0)
-    return vis, vlen, _cumsum_excl(vlen)
+    return vis, vlen, ln.cumsum_excl(vlen)
 
 
 def _plane_names(k_slots, a_slots):
@@ -162,23 +192,25 @@ def _plane_names(k_slots, a_slots):
         tuple(f"an{i}" for i in range(a_slots))
 
 
-def _shift_right(st, shift_mask, k_slots, a_slots, by: int = 1):
+def _shift_right(st, shift_mask, k_slots, a_slots, ln: Lanes, by: int = 1):
+    names = _plane_names(k_slots, a_slots)
+    rolled = ln.roll_many([st[name] for name in names], by)
     out = dict(st)
-    for name in _plane_names(k_slots, a_slots):
-        out[name] = torch.where(shift_mask, torch.roll(st[name], by, dims=1),
-                                st[name])
+    for name, r in zip(names, rolled):
+        out[name] = torch.where(shift_mask, r, st[name])
     return out
 
 
-def _ensure_boundary(st, pos, ref, client, enabled, k_slots, a_slots):
-    vis, vlen, cum = _visibility(st, ref, client, k_slots)
+def _ensure_boundary(st, pos, ref, client, enabled, k_slots, a_slots,
+                     ln: Lanes):
+    vis, vlen, cum = _visibility(st, ref, client, k_slots, ln)
     inside = vis & (cum < pos) & (pos < cum + vlen)
-    do = enabled & _any_lane(inside)
-    slot = _first_true(inside)
-    off = pos - _masked_scalar(cum, inside)
-    parent_len = _masked_scalar(st["length"], inside)
-    lane = _lanes(st["length"])
-    g = _shift_right(st, (lane >= slot + 1) & do, k_slots, a_slots)
+    do = enabled & ln.any_lane(inside)
+    slot = ln.first_true(inside)
+    off = pos - ln.masked_scalar(cum, inside)
+    parent_len = ln.masked_scalar(st["length"], inside)
+    lane = ln.iota(st["length"])
+    g = _shift_right(st, (lane >= slot + 1) & do, k_slots, a_slots, ln)
     g["count"] = st["count"] + do.to(torch.int32)
     is_left = do & (lane == slot)
     is_right = do & (lane == slot + 1)
@@ -190,20 +222,20 @@ def _ensure_boundary(st, pos, ref, client, enabled, k_slots, a_slots):
     return g
 
 
-def _insert_phase(st, op, enabled, view, k_slots, a_slots):
+def _insert_phase(st, op, enabled, view, k_slots, a_slots, ln: Lanes):
     vis, _vlen, cum = view
-    lane = _lanes(st["length"])
+    lane = ln.iota(st["length"])
     is_local = op["seq"] == DEV_UNASSIGNED
     in_run = cum == op["pos1"]
     tomb = st["rem_seq"] <= op["ref_seq"]
     acked_ins = st["ins_seq"] != DEV_UNASSIGNED
     stop = in_run & (vis | (~tomb & (is_local | acked_ins))
                      | (lane >= st["count"]))
-    found = _any_lane(stop)
+    found = ln.any_lane(stop)
     bad = enabled & ~found
     enabled = enabled & found
-    slot = _first_true(stop)
-    g = _shift_right(st, (lane >= slot) & enabled, k_slots, a_slots)
+    slot = ln.first_true(stop)
+    g = _shift_right(st, (lane >= slot) & enabled, k_slots, a_slots, ln)
     g["count"] = st["count"] + enabled.to(torch.int32)
     here = enabled & (lane == slot)
     g["length"] = torch.where(here, op["new_len"], g["length"])
@@ -223,21 +255,21 @@ def _insert_phase(st, op, enabled, view, k_slots, a_slots):
     return g
 
 
-def _insert_run_phase(st, op, enabled, view, k_slots, a_slots):
+def _insert_run_phase(st, op, enabled, view, k_slots, a_slots, ln: Lanes):
     """Up to RUN_K packed cursor-advance inserts land as contiguous rows at
     one tie-break slot: one shift by RUN_K and RUN_K masked fills; padding
     rows (length 0) are born dead."""
     vis, _vlen, cum = view
-    lane = _lanes(st["length"])
+    lane = ln.iota(st["length"])
     in_run = cum == op["pos1"]
     tomb = st["rem_seq"] <= op["ref_seq"]
     acked_ins = st["ins_seq"] != DEV_UNASSIGNED
     stop = in_run & (vis | (~tomb & acked_ins) | (lane >= st["count"]))
-    found = _any_lane(stop)
+    found = ln.any_lane(stop)
     bad = enabled & ~found
     enabled = enabled & found
-    slot = _first_true(stop)
-    g = _shift_right(st, (lane >= slot) & enabled, k_slots, a_slots,
+    slot = ln.first_true(stop)
+    g = _shift_right(st, (lane >= slot) & enabled, k_slots, a_slots, ln,
                      by=RUN_K)
     g["count"] = st["count"] + enabled.to(torch.int32) * RUN_K
     rel = lane - slot
@@ -292,7 +324,7 @@ def _append_overlap(st, need, client, k_slots):
     return placed
 
 
-def _remove_phase(st, op, enabled, view, k_slots):
+def _remove_phase(st, op, enabled, view, k_slots, ln: Lanes):
     target = _range_targets(op, view) & enabled
     is_local = op["seq"] == DEV_UNASSIGNED
     fresh = target & (st["rem_seq"] == DEV_NO_REMOVE)
@@ -319,15 +351,15 @@ def _remove_phase(st, op, enabled, view, k_slots):
     landed = torch.zeros_like(already)
     for i in range(k_slots):
         landed = landed | (g3[f"rc{i}"] == want)
-    over = _any_lane((displaced | need) & ~landed)
+    over = ln.any_lane((displaced | need) & ~landed)
     g3["overflow"] = st["overflow"] | over
     return g3
 
 
-def _annotate_phase(st, op, enabled, view, a_slots):
+def _annotate_phase(st, op, enabled, view, a_slots, ln: Lanes):
     target = _range_targets(op, view) & enabled
     g = dict(st)
-    over = _any_lane(target & (st[f"an{a_slots - 1}"] != -1))
+    over = ln.any_lane(target & (st[f"an{a_slots - 1}"] != -1))
     for i in range(a_slots - 1, 0, -1):
         g[f"an{i}"] = torch.where(target, st[f"an{i - 1}"], st[f"an{i}"])
     g["an0"] = torch.where(target, op["op_id"], st["an0"])
@@ -351,7 +383,8 @@ def _ack_phase(st, op):
     return g
 
 
-def _apply_one_batched(st, op, k_slots, a_slots, with_runs=False):
+def _apply_one_batched(st, op, k_slots, a_slots, ln: Lanes,
+                       with_runs=False):
     """One op per document; op fields are [B, 1]."""
     kind = op["kind"]
     is_run = (kind == OpKind.INSERT_RUN) if with_runs else False
@@ -359,7 +392,7 @@ def _apply_one_batched(st, op, k_slots, a_slots, with_runs=False):
         (kind == OpKind.ANNOTATE) | is_run
     is_range = (kind == OpKind.REMOVE) | (kind == OpKind.ANNOTATE)
     need = torch.where(is_run, RUN_K + 1, 2) if with_runs else 2
-    fits = st["count"] + need <= st["length"].shape[-1]
+    fits = st["count"] + need <= ln.total
     st = dict(st)
     st["overflow"] = st["overflow"] | (is_edit & ~fits)
     is_edit = is_edit & fits
@@ -367,17 +400,20 @@ def _apply_one_batched(st, op, k_slots, a_slots, with_runs=False):
     is_run = is_run & fits
 
     r, cl = op["ref_seq"], op["client"]
-    s1 = _ensure_boundary(st, op["pos1"], r, cl, is_edit, k_slots, a_slots)
-    s2 = _ensure_boundary(s1, op["pos2"], r, cl, is_range, k_slots, a_slots)
-    view2 = _visibility(s2, r, cl, k_slots)
+    s1 = _ensure_boundary(st, op["pos1"], r, cl, is_edit, k_slots, a_slots,
+                          ln)
+    s2 = _ensure_boundary(s1, op["pos2"], r, cl, is_range, k_slots, a_slots,
+                          ln)
+    view2 = _visibility(s2, r, cl, k_slots, ln)
     s_ins = _insert_phase(s2, op, is_edit & (kind == OpKind.INSERT), view2,
-                          k_slots, a_slots)
+                          k_slots, a_slots, ln)
     if with_runs:
-        s_ins = _insert_run_phase(s_ins, op, is_run, view2, k_slots, a_slots)
+        s_ins = _insert_run_phase(s_ins, op, is_run, view2, k_slots, a_slots,
+                                  ln)
     s_rem = _remove_phase(s_ins, op, is_range & (kind == OpKind.REMOVE),
-                          view2, k_slots)
+                          view2, k_slots, ln)
     s_ann = _annotate_phase(s_rem, op, is_range & (kind == OpKind.ANNOTATE),
-                            view2, a_slots)
+                            view2, a_slots, ln)
     out = _ack_phase(s_ann, op)
 
     acked = (kind != OpKind.NOOP) & (op["seq"] != DEV_UNASSIGNED)
@@ -443,13 +479,22 @@ def apply_ops_fused_plain(state: DocState, ops: PackedOps,
     """Plain PyTorch version: apply [B, T] op streams to B documents.
     Returns the new DocState, or (DocState, narrow) with extract=True."""
     k, a = state.overlap_slots, state.anno_slots
-    st = _to_planes(state)
     fields, cols = op_cols(ops, runs)
-    for t in range(ops.steps):
-        op = {f: cols[f][:, t:t + 1] for f in fields}
-        st = _apply_one_batched(st, op, k, a, with_runs=runs is not None)
+    st = _stream_loop(_to_planes(state), ops.steps, fields, cols, k, a,
+                      local_lanes(state.capacity), runs is not None)
     out = _from_planes(st, k, a)
     return (out, narrow_of(out)) if extract else out
+
+
+def _stream_loop(st, t_steps: int, fields, cols, k_slots, a_slots,
+                 ln: Lanes, with_runs: bool = False):
+    """Apply all T ops to the planes: op t's fields are the [B, 1] columns
+    cols[f][:, t:t + 1] (the forms of mergetree/fused_sp.py share it)."""
+    for t in range(t_steps):
+        op = {f: cols[f][:, t:t + 1] for f in fields}
+        st = _apply_one_batched(st, op, k_slots, a_slots, ln,
+                                with_runs=with_runs)
+    return st
 
 
 # ---------------------------------------------------------------------------
@@ -530,6 +575,7 @@ def _launch(state: DocState, ops: PackedOps, runs: Optional[RunCols],
     apply_ops_fused.launches += 1
     apply_ops_fused.variant_launches[variant_name(runs, extract)] += 1
     apply_ops_fused.path_launches[geo.path] += 1
+    note_launch("fused_apply")
     build.check(lib.fluid_fused_apply(
         arr, b, c, k, a, ops.steps, int(runs is not None), int(extract),
         _PATHS[geo.path], geo.docs_per_block, geo.threads, geo.smem_bytes,

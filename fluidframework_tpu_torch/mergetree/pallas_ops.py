@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from ..kernels import build
+from ..parallel.mesh import note_launch
 from .state import DocState
 
 
@@ -50,6 +51,7 @@ def summary_lengths(state: DocState) -> torch.Tensor:
         return summary_lengths_plain(state)
     out = _launch(state, "fluid_summary_len", "summary_lengths")
     summary_lengths.launches += 1
+    note_launch("summary_len")
     return out
 
 

@@ -670,9 +670,10 @@ class TpuLocalServer(LocalServer):
     device: where every partition's sequencer keeps its ticket table and
     lanes. None is the card and raises without CUDA; the tests pass "cpu".
 
-    mesh: not ported. The JAX package shards the sequencer's lanes over a
-    device mesh; here any mesh other than None raises NotImplementedError
-    (ROADMAP Queue 1 item 5, multi-device).
+    mesh: an optional parallel.mesh.Mesh — the sequencer's ticket lanes
+    and merge/LWW channel lanes shard over its 'dp' axis (multi-device
+    serving; parallel/mesh.py), the paged pool by the partition rules.
+    `device` then names the mesh's home device (its kind must match).
 
     paged_lanes: store merge segment rows in the refcounted page pool
     (per-doc page tables, gather-by-page-id applies) instead of the
@@ -682,11 +683,12 @@ class TpuLocalServer(LocalServer):
 
     def __init__(self, *args, mesh=None, paged_lanes=False,
                  device: str | torch.device | None = None, **kwargs):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TpuLocalServer(mesh=...): the sequencer's lanes have no "
-                "mesh placement in the port (ROADMAP Queue 1 item 5)")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and device is not None and \
+                resolve_device(device).type != mesh.home.type:
+            raise ValueError(f"device {device} is not the mesh's home "
+                             f"device {mesh.home}")
+        self.device = resolve_device(device if mesh is None else mesh.home)
         self.paged_lanes = paged_lanes
         super().__init__(*args, **kwargs)
         # Read-path catch-up artifacts (server/readpath.py): ON by
@@ -712,7 +714,7 @@ class TpuLocalServer(LocalServer):
         lam = TpuSequencerLambda(
             ctx, emit=self._emit_sequenced, nack=self._emit_nack,
             checkpoints=checkpoints, deltas=self.deltas,
-            fresh_log=True, device=self.device,
+            fresh_log=True, device=self.device, mesh=self.mesh,
             # Snapshot seeding: lanes for channels whose base content
             # shipped in the attach/client summary bootstrap from the
             # historian instead of overflowing on their first op.

@@ -15,13 +15,17 @@ Differences from the JAX program, none of which changes a result:
 - the ticketing is one launch of the ticket-scan kernel
   (kernels/csrc/ticket_scan.cu) for CUDA tensors, its plain version for
   CPU tensors and under `plain`;
-- there is no `fused` argument. CUDA tensors launch the fused-apply kernel
-  (kernels/csrc/fused_apply.cu, the runs= and extract=True variants where
-  the megakernel needs them) and CPU tensors run its plain version. A
-  merge group whose capacity exceeds `max_fused_capacity` takes the scan
-  apply instead, as JAX's does (mergetree/kernel._scan_ops:
+- `fused` is a plain switch, not a probe. With it (the default) CUDA
+  tensors launch the fused-apply kernel (kernels/csrc/fused_apply.cu, the
+  runs= and extract=True variants where the megakernel needs them) and CPU
+  tensors run its plain version. A merge group whose capacity exceeds
+  `max_fused_capacity`, or every group with fused=False (the mesh
+  lambda's choice, as JAX's `_fused_serve` is off on a mesh), takes the
+  scan apply, as JAX's does (mergetree/kernel._scan_ops:
   kernels/csrc/scan_apply.cu on the card), and its narrow tuple is derived
   from the scan's output;
+- states placed on a mesh run each dp shard's lanes on its shard
+  (_serve_window_impl);
 - every apply runs. JAX skips the apply of an all-NOOP group under
   `noop_skip`; a NOOP stream is an exact identity, so the port launches
   anyway, and `noop_skip` only counts such applies in the stats plane;
@@ -44,6 +48,8 @@ import torch
 from ..mergetree import kernel
 from ..mergetree import pallas_apply as pa
 from ..mergetree.oppack import OpKind, PackedOps, RunCols
+from ..parallel.mesh import (P, Sharded, gather, gather_tree, map_dp, place,
+                             replicate)
 from ..telemetry.device_stats import N_SERVE
 from . import lww_kernel as lk
 from . import ticket_kernel as tk
@@ -123,10 +129,16 @@ def admit_merge_ops(seq_bt: torch.Tensor, msn_bt: torch.Tensor,
     return ops, runs, over_extra
 
 
+def _mesh_of(tree):
+    """The mesh a tree's first leaf is placed on, or None."""
+    leaf = tree[0]
+    return leaf.mesh if isinstance(leaf, Sharded) else None
+
+
 def _serve_window_impl(tstate, ticket_cols, merge_states, merge_cols,
                        lww_states, lww_cols, merge_runs=None,
                        noop_skip=False, stats=False, paged_scalars=False,
-                       plain=False, stage: Stage = None):
+                       plain=False, stage: Stage = None, fused=True):
     """One window: the body shared by serve_window, serve_burst and the
     megakernel.
 
@@ -147,42 +159,51 @@ def _serve_window_impl(tstate, ticket_cols, merge_states, merge_cols,
     written by the fused kernel's extract variant, or derived from the
     scan apply's output for a group above `max_fused_capacity`. `plain`
     composes the plain PyTorch versions on any device (the kernels'
-    reference). `stage`, if given, is called with each stage's name as it
-    ends: "ticket", then per merge group "admit" and "apply_<variant>"
-    (pallas_apply.variant_name) for the fused apply or
-    "apply_scan_<plain|runs>" for the scan apply, then "lww" and
-    "pack"."""
+    reference). `fused=False` takes the scan apply for every group (the
+    mesh lambda's choice, as JAX's `_fused_serve` off). `stage`, if given,
+    is called with each stage's name as it ends: "ticket", then per merge
+    group "admit" and "apply_<variant>" (pallas_apply.variant_name) for
+    the fused apply or "apply_scan_<plain|runs>" for the scan apply, then
+    "lww" and "pack".
+
+    A ticket state placed on a mesh (parallel/mesh.shard_docs) tickets
+    each dp shard's lanes on its shard, and its [B, T] results come to the
+    home device (the window's one gather). A merge or LWW state placed on
+    the mesh applies each shard's lanes on its shard, from the gathered
+    results copied to every shard; a plain state (a paged view gathered
+    to the home device) applies there. flat16 and msn32 are built on the
+    home device, the same bytes either way."""
     mark = stage or (lambda _name: None)
-    fused = pa.apply_ops_fused_plain if plain else pa.apply_ops_fused
+    fused_fn = pa.apply_ops_fused_plain if plain else pa.apply_ops_fused
     ticket = tk.scan_tickets_plain if plain else tk.scan_tickets
-    raw = tk.RawOps(client=ticket_cols[1], client_seq=ticket_cols[2],
-                    ref_seq=ticket_cols[3], kind=ticket_cols[0])
-    tstate, ticketed = ticket(tstate, raw, require_join=True)
+
+    def tick(ts, tc):
+        raw = tk.RawOps(client=tc[1], client_seq=tc[2], ref_seq=tc[3],
+                        kind=tc[0])
+        return ticket(ts, raw, require_join=True)
+
+    mesh = _mesh_of(tstate)
+    if mesh is None:
+        tstate, ticketed = tick(tstate, ticket_cols)
+    else:
+        tstate, ticketed = map_dp(tick, mesh, tstate,
+                                  place(ticket_cols, mesh, P(None, "dp")))
+        ticketed = gather_tree(ticketed)
+        seq_rep = replicate(mesh, ticketed.seq)
+        msn_rep = replicate(mesh, ticketed.min_seq)
     seq_bt, msn_bt = ticketed.seq, ticketed.min_seq
     mark("ticket")
 
-    if merge_runs is None:
-        merge_runs = [None] * len(merge_cols)
-    zero = torch.zeros((), dtype=torch.int32, device=seq_bt.device)
-    st_kind = [zero] * len(_MERGE_KINDS)
-    st_lww = zero
-    st_skips = zero
-    new_merge, merge_narrow = [], []
-    for mstate, mc, mr in zip(merge_states, merge_cols, merge_runs):
-        ops2, runs, over_extra = admit_merge_ops(seq_bt, msn_bt, mc, mr)
-        if stats:
-            st_kind = [s + (ops2.kind == kv).sum(dtype=torch.int32)
-                       for s, kv in zip(st_kind, _MERGE_KINDS)]
-            if noop_skip:
-                st_skips = st_skips + _i32(~(ops2.kind != OpKind.NOOP).any())
-        mark("admit")
+    def merge_one(mstate, mc, mr, seq_g, msn_g, mark_admit=mark):
+        ops2, runs, over_extra = admit_merge_ops(seq_g, msn_g, mc, mr)
+        mark_admit("admit")
         limit = pa.max_fused_capacity(mstate.overlap_slots,
                                       mstate.anno_slots)
-        if mstate.capacity <= limit:
+        if fused and mstate.capacity <= limit:
             if paged_scalars:
-                out, nr = fused(mstate, ops2, runs=runs, extract=True)
+                out, nr = fused_fn(mstate, ops2, runs=runs, extract=True)
             else:
-                out, nr = fused(mstate, ops2, runs=runs), None
+                out, nr = fused_fn(mstate, ops2, runs=runs), None
             name = "apply_" + pa.variant_name(runs, paged_scalars)
         else:
             scan = kernel.scan_ops_plain if plain else kernel._scan_ops
@@ -195,42 +216,87 @@ def _serve_window_impl(tstate, ticket_cols, merge_states, merge_cols,
             out = out._replace(overflow=out.overflow | over_extra)
             if nr is not None:
                 nr = (nr[0] | _i16(over_extra),) + tuple(nr[1:])
-        new_merge.append(out)
-        merge_narrow.append(nr)
-        mark(name)
+        return out, nr, ops2.kind, name
 
-    new_lww = []
-    for lstate, lc in zip(lww_states, lww_cols):
-        seq_g = seq_bt[lc[4].long(), lc[5].long()]
-        ok = (lc[0] != lk.LwwKind.NOOP) & (seq_g > 0)
+    def lww_one(lstate, lc, seq_g):
+        seq_l = seq_g[lc[4].long(), lc[5].long()]
+        ok = (lc[0] != lk.LwwKind.NOOP) & (seq_l > 0)
         ops = lk.LwwOps(kind=torch.where(ok, lc[0], lk.LwwKind.NOOP),
                         key=lc[1], val=lc[2], delta=lc[3],
-                        seq=torch.where(ok, seq_g, 0))
-        if stats:
-            st_lww = st_lww + (ops.kind != lk.LwwKind.NOOP).sum(
-                dtype=torch.int32)
-            if noop_skip:
-                st_skips = st_skips + _i32(
-                    ~(ops.kind != lk.LwwKind.NOOP).any())
-        new_lww.append(lk.apply_lww_batched(lstate, ops))
+                        seq=torch.where(ok, seq_l, 0))
+        out = lk.apply_lww_batched(lstate, ops)
+        return out, ops.kind, (out.key >= 0).sum(dim=-1)
+
+    if merge_runs is None:
+        merge_runs = [None] * len(merge_cols)
+    new_merge, merge_narrow, merge_sums = [], [], []
+    for mstate, mc, mr in zip(merge_states, merge_cols, merge_runs):
+        m_mesh = _mesh_of(mstate)
+        if m_mesh is None:
+            out, nr, kinds, name = merge_one(mstate, mc, mr, seq_bt, msn_bt)
+            over, count = out.overflow, out.count
+        else:
+            cut = P(None, "dp")
+            out, nr, kinds, name = map_dp(
+                lambda *a: merge_one(*a, mark_admit=lambda _n: None),
+                m_mesh, mstate, place(mc, m_mesh, cut),
+                None if mr is None else place(mr, m_mesh, cut),
+                seq_rep, msn_rep)
+            kinds, over, count = (gather(kinds), gather(out.overflow),
+                                  gather(out.count))
+            mark("admit")
+        new_merge.append(out)
+        merge_narrow.append(nr)
+        merge_sums.append((over, count, kinds))
+        mark(name)
+
+    new_lww, lww_sums = [], []
+    for lstate, lc in zip(lww_states, lww_cols):
+        l_mesh = _mesh_of(lstate)
+        if l_mesh is None:
+            out, kinds, occ = lww_one(lstate, lc, seq_bt)
+            over = out.overflow
+        else:
+            out, kinds, occ = map_dp(lww_one, l_mesh, lstate,
+                                     place(lc, l_mesh, P(None, "dp")),
+                                     seq_rep)
+            kinds, occ, over = gather(kinds), gather(occ), \
+                gather(out.overflow)
+        new_lww.append(out)
+        lww_sums.append((over, occ, kinds))
     mark("lww")
 
+    tstate_home = gather_tree(tstate) if mesh is not None else tstate
+    flat16 = _pack_window(tstate_home, ticketed, merge_sums, merge_narrow,
+                          lww_sums, noop_skip, stats, paged_scalars)
+    mark("pack")
+    return tstate, new_merge, new_lww, flat16, msn_bt
+
+
+def _pack_window(tstate, ticketed, merge_sums, merge_narrow, lww_sums,
+                 noop_skip, stats, paged_scalars) -> torch.Tensor:
+    """The window's flat16 (layout in _serve_window_impl) from the ticket
+    state and results and, per merge group (overflow, count, kind plane)
+    and per LWW bucket (overflow, occupancy, kind plane), all on one
+    device."""
+    seq_bt, msn_bt = ticketed.seq, ticketed.min_seq
+    zero = torch.zeros((), dtype=torch.int32, device=seq_bt.device)
     flags = _i32(ticketed.nacked) | (_i32(ticketed.not_joined) << 1)
     bits = [_i32(tstate.overflow.any())[None]]
-    bits += [_i32(s.overflow.any())[None] for s in new_merge]
-    bits += [_i32(s.overflow.any())[None] for s in new_lww]
+    bits += [_i32(over.any())[None] for over, _, _ in merge_sums]
+    bits += [_i32(over.any())[None] for over, _, _ in lww_sums]
     if paged_scalars:
         planes = [nr[0] for nr in merge_narrow]
     else:
-        planes = [_i16(s.overflow) for s in new_merge]
-    planes += [_i16(s.overflow) for s in new_lww]
+        planes = [_i16(over) for over, _, _ in merge_sums]
+    planes += [_i16(over) for over, _, _ in lww_sums]
     if paged_scalars:
         # int16 view of the group counts; the host adopts the exact int32
         # values from the paged tail below.
         planes += [_i16(nr[1]) for nr in merge_narrow]
     else:
-        planes += [_i16(s.count) for s in new_merge]
-    planes += [_i16((s.key >= 0).sum(dim=-1)) for s in new_lww]
+        planes += [_i16(count) for _, count, _ in merge_sums]
+    planes += [_i16(occ) for _, occ, _ in lww_sums]
 
     admitted = seq_bt > 0
     next32 = _i32(tstate.next_seq)
@@ -251,38 +317,51 @@ def _serve_window_impl(tstate, ticket_cols, merge_states, merge_cols,
     if stats:
         def total(xs):
             return sum(xs, zero)
+
+        st_kind = [total((kinds == kv).sum(dtype=torch.int32)
+                         for _, _, kinds in merge_sums)
+                   for kv in _MERGE_KINDS]
+        st_lww = total((kinds != lk.LwwKind.NOOP).sum(dtype=torch.int32)
+                       for _, _, kinds in lww_sums)
+        st_skips = zero
+        if noop_skip:
+            st_skips = total(
+                [_i32(~(kinds != OpKind.NOOP).any())
+                 for _, _, kinds in merge_sums]
+                + [_i32(~(kinds != lk.LwwKind.NOOP).any())
+                   for _, _, kinds in lww_sums])
         st_vec = torch.stack(st_kind + [
             st_lww,
             admitted.sum(dtype=torch.int32),
             ticketed.nacked.sum(dtype=torch.int32),
             ticketed.not_joined.sum(dtype=torch.int32),
-            total(s.overflow.sum(dtype=torch.int32) for s in new_merge),
-            total(s.overflow.sum(dtype=torch.int32) for s in new_lww),
+            total(over.sum(dtype=torch.int32) for over, _, _ in merge_sums),
+            total(over.sum(dtype=torch.int32) for over, _, _ in lww_sums),
             st_skips,
-            total(s.count.sum(dtype=torch.int32) for s in new_merge),
-            total((s.key >= 0).sum(dtype=torch.int32) for s in new_lww),
+            total(count.sum(dtype=torch.int32)
+                  for _, count, _ in merge_sums),
+            total(occ.sum(dtype=torch.int32) for _, occ, _ in lww_sums),
         ])
         assert st_vec.shape == (N_SERVE,)
         stats_tail = halves(st_vec)
 
-    flat16 = torch.cat(
+    return torch.cat(
         [_i16(seq_d.reshape(-1)), _i16(msn_d.reshape(-1)),
          _i16(flags.reshape(-1))]
         + halves(next32) + halves(msn_base)
         + [_i16(torch.cat([msn_ok[None]] + bits))]
         + planes + paged_tail + stats_tail)
-    mark("pack")
-    return tstate, new_merge, new_lww, flat16, msn_bt
 
 
 def serve_window(tstate, ticket_cols, merge_states, merge_cols, lww_states,
-                 lww_cols, merge_runs=None, stats=False):
+                 lww_cols, merge_runs=None, stats=False, fused=True):
     """One fast window over capacity buckets (see _serve_window_impl for
     the contract and the flat16 layout). The JAX version donates the
     states; here they are returned as new tensors and the inputs are left
     as they were, so serve_window_keep is the same function."""
     return _serve_window_impl(tstate, ticket_cols, merge_states, merge_cols,
-                              lww_states, lww_cols, merge_runs, stats=stats)
+                              lww_states, lww_cols, merge_runs, stats=stats,
+                              fused=fused)
 
 
 serve_window_keep = serve_window
@@ -314,7 +393,7 @@ def _serve_paged_burst(pool, page_ids, counts, min_seqs, seqs,
     view, over_k, stats_k = pre, [], []
     for k in range(ops_xs.kind.shape[0]):
         ops = PackedOps(*(col[k] for col in ops_xs))
-        view = kernel._scan_group(view, ops, plain)
+        view = kernel._scan_group(view, ops, plain, kernel.pool_mesh(pool))
         over_k.append(view.overflow)
         if stats:
             stats_k.append(kernel.paged_stats_vec(ops, view))
@@ -356,7 +435,7 @@ def serve_paged_burst_keep(pool, page_ids, counts, min_seqs, seqs,
 def _serve_megakernel(tstate, pool, lww_states, ticket_xs,
                       page_ids: Sequence[torch.Tensor], counts, min_seqs,
                       seqs, merge_xs, lww_xs, runs_xs, stats=False,
-                      plain=False, stage: Stage = None):
+                      plain=False, stage: Stage = None, fused=True):
     """K fast serving windows over PAGED merge lanes.
 
     1. gather each group's documents once by page id (kernel.gather_pages:
@@ -388,7 +467,7 @@ def _serve_megakernel(tstate, pool, lww_states, ticket_xs,
             [x[k] for x in lww_xs],
             [None if r is None else r[k] for r in runs_xs],
             noop_skip=True, stats=stats, paged_scalars=True, plain=plain,
-            stage=stage)
+            stage=stage, fused=fused)
         flats.append(flat16)
         msns.append(msn32)
     for p, out in zip(page_ids, ms):
@@ -400,7 +479,7 @@ def _serve_megakernel(tstate, pool, lww_states, ticket_xs,
 def make_serve_megakernel(keep: bool, plain: bool = False):
     """Build serve_megakernel(tstate, pool, lww_states, ticket_xs,
     page_ids, counts, min_seqs, seqs, merge_xs, lww_xs, runs_xs,
-    stats=False, stage=None).
+    stats=False, stage=None, fused=True).
 
     keep=False scatters into `pool` in place (the JAX donating twin);
     keep=True copies the pool first, so no input changes. plain=True
@@ -409,13 +488,13 @@ def make_serve_megakernel(keep: bool, plain: bool = False):
 
     def serve(tstate, pool, lww_states, ticket_xs, page_ids, counts,
               min_seqs, seqs, merge_xs, lww_xs, runs_xs, stats=False,
-              stage: Stage = None):
+              stage: Stage = None, fused=True):
         if keep:
-            pool = type(pool)(*(t.clone() for t in pool))
+            pool = kernel._copy_pool(pool)
         return _serve_megakernel(tstate, pool, lww_states, ticket_xs,
                                  page_ids, counts, min_seqs, seqs, merge_xs,
                                  lww_xs, runs_xs, stats=stats, plain=plain,
-                                 stage=stage)
+                                 stage=stage, fused=fused)
 
     return serve
 

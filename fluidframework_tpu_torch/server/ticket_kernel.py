@@ -20,6 +20,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..kernels import build
+from ..parallel.mesh import note_launch
 
 INT32_MAX = 2**31 - 1
 # The kernel holds a document's client table in one warp's registers, at
@@ -268,6 +269,7 @@ def _launch(state: TicketState, ops: RawOps, require_join: bool
         (ctypes.c_void_p * len(ptrs))(*ptrs), b, t, k, int(require_join),
         ctypes.c_void_p(build.stream_handle())), "scan_tickets")
     scan_tickets.launches += 1
+    note_launch("ticket_scan")
     return new, out
 
 

@@ -41,7 +41,15 @@ pre-window view as a gathered copy.
 
 Devices: the stores and the lambda take `device=None` (the card, raising
 when CUDA is absent) or a device the caller names; the tests pass "cpu".
-There is no mesh placement: one device holds every lane. There is no
+With `mesh=` (parallel/mesh.py) the ticket lanes and the bucket lanes
+shard over the mesh's 'dp' axis and the paged pool over it by the
+partition rules: each window tickets and applies each shard's lanes on
+that shard's device (a ticket scan and a scan apply per shard), the
+results come back in lane order, and a paged window's pages are gathered
+to the home device and scattered back. On a mesh the lambda keeps the
+reference's choices: the windows take the scan apply (no fused serve),
+every window keeps its pre states (`donate_lane_states` is False), and
+fused bursts stay off. There is no
 probe and no fallback: on CUDA tensors the kernels run and
 pallas_apply.launch_geometry / kernel.scan_geometry choose their paths,
 on CPU tensors the plain versions run, and a failed pump build, kernel
@@ -81,6 +89,8 @@ from ..mergetree.oppack import (HostOp, OpKind, PackedOps, RUN_K, RUN_MIN,
                                 pack_ops)
 from ..mergetree.paging import PagedMergeStore, pages_for, pow2_pages
 from ..mergetree.state import DocState, make_state
+from ..parallel.mesh import (Sharded, gather, gather_tree, map_dp, row_of,
+                             set_rows, shard_docs, take_rows)
 from ..protocol.messages import (
     Boxcar,
     DocumentMessage,
@@ -117,8 +127,10 @@ def _bucket(n: int, buckets: Tuple[int, ...]) -> int:
 
 
 def _host(x) -> np.ndarray:
-    """A tensor (or numpy array) as host numpy: the device-to-host copy
-    for a CUDA tensor."""
+    """A tensor, Sharded (gathered) or numpy array as host numpy: the
+    device-to-host copy for a CUDA tensor."""
+    if isinstance(x, Sharded):
+        x = gather(x)
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
@@ -136,14 +148,20 @@ def _index(rows, device) -> torch.Tensor:
 
 def _take(state, rows):
     """Rows `rows` (host ints) of every field of a batched tuple: a
-    gathered copy."""
+    gathered copy (on the mesh's home device for a state on a mesh)."""
+    if isinstance(state[0], Sharded):
+        return _tree_map(lambda x: take_rows(x, rows), state)
     idx = _index(rows, state[0].device)
     return _tree_map(lambda x: x[idx], state)
 
 
 def _set_rows(state, rows, values):
     """A new batched tuple whose rows `rows` are `values` ([k, ...] per
-    field): JAX's `.at[rows].set(values)`, never a write into `state`."""
+    field): JAX's `.at[rows].set(values)`, never a write into `state`. On
+    a mesh each row goes to its owning shard."""
+    if isinstance(state[0], Sharded):
+        return _tree_map(lambda col, v: set_rows(col, rows, v), state,
+                         values)
     idx = _index(rows, state[0].device)
     return _tree_map(lambda col, v: col.index_put((idx,), v), state,
                      values)
@@ -151,8 +169,28 @@ def _set_rows(state, rows, values):
 
 def _row(state, j: int):
     """Row j of a batched tuple (a view: callers only read it, and no
-    update writes into a bucket's tensors)."""
+    update writes into a bucket's tensors; a copy on the home device for
+    a state on a mesh)."""
+    if isinstance(state[0], Sharded):
+        return _tree_map(lambda x: row_of(x, j), state)
     return _tree_map(lambda x: x[j], state)
+
+
+def _dispatch(fn, state, *args):
+    """fn(state, *args), once per dp shard when `state` is placed on a
+    mesh: each shard runs its lanes' rows of the args (built on the home
+    device and cut over dp here), and the results come back placed as the
+    lanes are. A state on one device runs fn as it is."""
+    if not isinstance(state[0], Sharded):
+        return fn(state, *args)
+    mesh = state[0].mesh
+    return map_dp(fn, mesh, state, *(shard_docs(mesh, a) for a in args))
+
+
+def _gathered(state):
+    """A state on a mesh as one state on the home device (others as they
+    are): the summarize path's input."""
+    return gather_tree(state) if isinstance(state[0], Sharded) else state
 
 
 # ---------------------------------------------------------------------------
@@ -179,15 +217,16 @@ class _MergeBucket:
         # windows' staged-op bound.
         self.count_hint = np.zeros(lanes, np.int64)
         self.hint_pending = np.zeros(lanes, np.int64)
+        self.placer = None  # the lambda's dp-mesh placement, if any
 
     def grow(self) -> None:
         old = self.lanes
         grown = make_state(self.capacity, anno_slots=self.state.anno_slots,
                            overlap_slots=self.state.overlap_slots,
                            batch=old * 2, device=self.device)
-        for g, s in zip(grown, self.state):
+        for g, s in zip(grown, _gathered(self.state)):
             g[:old] = s
-        self.state = grown
+        self.state = grown if self.placer is None else self.placer(grown)
         self.used.extend([None] * old)
         self.lanes = old * 2
         self.count_hint = np.concatenate(
@@ -364,8 +403,13 @@ class MergeLaneStore:
                  t_buckets: Tuple[int, ...] = DEFAULT_T_BUCKETS,
                  paged: bool = False,
                  page_rows: Optional[int] = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh=None):
+        """mesh: a parallel.mesh.Mesh. The paged pool is then placed by
+        partition_rules.POOL_PARTITION_RULES (its page axis over 'dp');
+        the bucket grids are placed by the lambda's bucket placer."""
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.capacities = tuple(capacities)
         self.t_buckets = tuple(t_buckets)
         # Paged lane memory: rows live in a page pool with per-document
@@ -376,7 +420,7 @@ class MergeLaneStore:
         self.pages: Optional[PagedMergeStore] = None
         if self.paged:
             self.pages = PagedMergeStore(page_rows=page_rows or PAGE_ROWS,
-                                         device=self.device)
+                                         device=self.device, mesh=mesh)
         self.buckets = [] if self.paged else [
             _MergeBucket(c, lanes_per_bucket, self.device)
             for c in self.capacities]
@@ -647,6 +691,10 @@ class MergeLaneStore:
             op_np, an_np = host
             bucket.state = bucket.state._replace(
                 origin_op=renumber(op_np), anno=renumber(an_np))
+            if bucket.placer is not None:
+                # The renumbered planes were built on one device: place
+                # them again so the collection keeps the dp placement.
+                bucket.state = bucket.placer(bucket.state)
         remap = {old: new for new, old in enumerate(order)}
         self._fold_payloads = {
             key: sorted(remap[i] for i in ids if i in remap)
@@ -843,7 +891,7 @@ class MergeLaneStore:
             pre = bucket.state
             with tracing.span("serving.dispatch", hist="serving.dispatch",
                               stage="merge-apply", bucket=b):
-                new_state = _apply_keep_batched(pre, packed)
+                new_state = _dispatch(_apply_keep_batched, pre, packed)
             with tracing.span("serving.readback", hist="serving.readback",
                               stage="merge-overflow", bucket=b):
                 over = _host(new_state.overflow)
@@ -1343,7 +1391,8 @@ class MergeLaneStore:
             return
         for bucket in self.buckets:
             if any(k is not None for k in bucket.used):
-                bucket.state = kernel.compact_batched(bucket.state)
+                bucket.state = _dispatch(kernel.compact_batched,
+                                         bucket.state)
                 # Exact occupancy refresh (one small read per bucket).
                 bucket.count_hint = _host(
                     bucket.state.count).astype(np.int64)
@@ -1516,21 +1565,25 @@ class MergeLaneStore:
             # Generations captured at dispatch.
             gens = {key: self.change_gen.get(key, 0) for _, key in lanes}
             stats_on = device_stats.enabled()
+            # On a mesh the extraction runs on the home device over the
+            # gathered bucket (the summarize path, not the serving one).
+            state = _gathered(bucket.state)
             if len(lanes) == live:
                 # Every live lane extracts: fuse over the whole bucket and
                 # adopt the compacted result (this tick's zamboni).
                 with compile_ledger.track("kernel.compact_extract",
                                           kernel.compact_extract_batched):
                     res = kernel.compact_extract_batched(
-                        bucket.state, stats=stats_on)
+                        state, stats=stats_on)
                 new_state, packed = res[0], res[1]
                 pre_counts = res[2] if stats_on else None
-                bucket.state = new_state
+                bucket.state = new_state if bucket.placer is None \
+                    else bucket.placer(new_state)
                 jobs.append((packed, lanes, new_state.seq,
                              new_state.min_seq, gens, pre_counts))
             else:
                 sub, _n = kernel.gather_rows_pow2(
-                    bucket.state, [i for i, _ in lanes])
+                    state, [i for i, _ in lanes])
                 with compile_ledger.track("kernel.compact_extract",
                                           kernel.compact_extract_batched):
                     res = kernel.compact_extract_batched(
@@ -1904,14 +1957,15 @@ class _LwwBucket:
         # _MergeBucket.count_hint).
         self.count_hint = np.zeros(lanes, np.int64)
         self.hint_pending = np.zeros(lanes, np.int64)
+        self.placer = None  # the lambda's dp-mesh placement, if any
 
     def grow(self) -> None:
         old = self.lanes
         grown = self.lk.make_lww_state(self.capacity, old * 2,
                                        device=self.device)
-        for g, s in zip(grown, self.state):
+        for g, s in zip(grown, _gathered(self.state)):
             g[:old] = s
-        self.state = grown
+        self.state = grown if self.placer is None else self.placer(grown)
         self.used.extend([None] * old)
         self.lanes = old * 2
         self.count_hint = np.concatenate(
@@ -2132,7 +2186,7 @@ class LwwLaneStore:
                         self.t_buckets)
             ops_dev = self._pack(bucket.lanes, lane_ops, t)
             pre = bucket.state
-            new = self.lk.apply_lww_batched(pre, ops_dev)
+            new = _dispatch(self.lk.apply_lww_batched, pre, ops_dev)
             over = _host(new.overflow)
             flagged = [i for i in range(bucket.lanes)
                        if over[i] and i in lane_ops]
@@ -2192,6 +2246,9 @@ class LwwLaneStore:
                            -1).astype(np.int32)
             bucket.state = bucket.state._replace(
                 val=torch.from_numpy(out).to(self.device))
+            if bucket.placer is not None:
+                # Same rule as the merge side's payload collection.
+                bucket.state = bucket.placer(bucket.state)
         self.windows_since_value_compact = 0
 
     # -- reads (tests / snapshots) -----------------------------------------
@@ -2201,9 +2258,9 @@ class LwwLaneStore:
         if lane_key not in self.where:
             return None
         b, lane = self.where[lane_key]
-        state = self.buckets[b].state
-        keys = _host(state.key[lane])
-        vals = _host(state.val[lane])
+        state = self.buckets[b].row(lane)
+        keys = _host(state.key)
+        vals = _host(state.val)
         entries = {}
         for kid, vid in zip(keys, vals):
             if int(kid) >= 0:
@@ -2211,8 +2268,8 @@ class LwwLaneStore:
                     self.value(int(vid)) if int(vid) >= 0 else None)
         return {
             "entries": entries,
-            "counter": int(_host(state.counter[lane])),
-            "sequenceNumber": int(_host(state.last_seq[lane])),
+            "counter": int(_host(state.counter)),
+            "sequenceNumber": int(_host(state.last_seq)),
         }
 
 
@@ -2614,7 +2671,7 @@ class TpuSequencerLambda(IPartitionLambda):
                  storage=None, client_timeout_s: float = 300.0,
                  send_system=None, config=None,
                  paged_lanes: bool = False,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         """storage: optional callable doc_id -> summary tree or None (the
         historian's latest summary). Enables snapshot seeding: merge lanes
         for channels whose base content shipped in a summary bootstrap
@@ -2628,8 +2685,24 @@ class TpuSequencerLambda(IPartitionLambda):
 
         device: where the ticket table and every lane live. None is the
         card and raises without CUDA; the tests pass "cpu". A merge_store
-        given by the caller must live on the same device."""
+        given by the caller must live on the same device.
+
+        mesh: a parallel.mesh.Mesh to serve on. The ticket lanes and the
+        merge / LWW channel lanes shard over its 'dp' axis (lanes are
+        independent, so each shard's window runs on its own device; the
+        reference's one deli consumer per partition, partitionManager.ts:22,
+        collapsed onto one mesh), the paged pool by the partition rules.
+        The lambda then dispatches from the mesh's home device, which
+        `device` must name (None: the home device)."""
+        if mesh is not None:
+            home = mesh.home
+            if device is not None and \
+                    resolve_device(device).type != home.type:
+                raise ValueError(f"device {device} is not the mesh's home "
+                                 f"device {home}")
+            device = home
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.context = context
         self.emit = emit
         self.nack = nack
@@ -2660,10 +2733,15 @@ class TpuSequencerLambda(IPartitionLambda):
         # replay of the new one (DeliLambda fresh_log semantics).
         self.fresh_log = fresh_log
         self.t_buckets = tuple(t_buckets)
+        if mesh is not None:
+            # Lane counts must divide over dp to shard; doubling growth
+            # keeps them so.
+            dp = mesh.shape["dp"]
+            lanes = -(-max(lanes, dp) // dp) * dp
         self.lanes = lanes
         self.k = clients_capacity
-        self.tstate: tk.TicketState = tk.make_ticket_state(
-            self.k, batch=lanes, device=self.device)
+        self.tstate: tk.TicketState = self._place(tk.make_ticket_state(
+            self.k, batch=lanes, device=self.device))
         self.docs: Dict[str, _DocLane] = {}
         self.pending: Dict[str, List[_Pending]] = {}
         self.materialize = materialize
@@ -2673,8 +2751,28 @@ class TpuSequencerLambda(IPartitionLambda):
                 f"{self.device}")
         self.merge = merge_store if merge_store is not None else \
             MergeLaneStore(t_buckets=t_buckets, paged=paged_lanes,
-                           device=self.device)
+                           device=self.device, mesh=mesh)
         self.lww = LwwLaneStore(t_buckets=t_buckets, device=self.device)
+        if getattr(self.merge, "paged", False) and mesh is not None \
+                and getattr(self.merge.pages, "mesh", None) is None:
+            # A caller's paged store must carry the mesh placement: its
+            # pool's placement and dispatch choice (keep, not donate) are
+            # fixed when it is built.
+            raise ValueError(
+                "paged merge_store was constructed without the mesh: "
+                "pass mesh= to MergeLaneStore/PagedMergeStore so the "
+                "pool places via partition_rules.POOL_PARTITION_RULES "
+                "and dispatches through the non-donating variants "
+                "(docs/serving_pipeline.md R6).")
+        if mesh is not None:
+            dp = mesh.shape["dp"]
+            for bucket in self.merge.buckets + self.lww.buckets:
+                # Grow to a dp multiple BEFORE placing (a mesh wider than
+                # the default 8 lanes cannot shard them).
+                while bucket.lanes % dp != 0 or bucket.lanes < dp:
+                    bucket.grow()
+                bucket.placer = self._place
+                bucket.state = self._place(bucket.state)
         self._pending_offset: Optional[int] = None
         # Fast-path (raw wire bytes) ingest state: the native pump + its
         # ordinal mirrors. emit_window, when set, receives ONE
@@ -2754,6 +2852,28 @@ class TpuSequencerLambda(IPartitionLambda):
         """A host staging array on the lambda's device."""
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    @property
+    def donate_lane_states(self) -> bool:
+        """Whether a window may drop its pre lane states (JAX donates
+        them). A rule, not a setting: never on a mesh, where JAX keeps
+        every window's states (serve_window_keep), so a recovery always
+        has its rollback rows and fused bursts stay off."""
+        return self.mesh is None
+
+    @property
+    def fused_serve(self) -> bool:
+        """Whether the fast windows take the fused apply. The fused kernel
+        serves one device's lanes: on a mesh the windows take the scan
+        apply, as JAX's `_fused_serve` is off there."""
+        return self.mesh is None
+
+    def _place(self, tree):
+        """A batched tree with its leading (lane) axis sharded over 'dp';
+        as it is without a mesh."""
+        if self.mesh is None:
+            return tree
+        return shard_docs(self.mesh, tree)
+
     # -- checkpoint/restore ------------------------------------------------
     def _restore(self) -> None:
         if self.checkpoints is None:
@@ -2771,10 +2891,10 @@ class TpuSequencerLambda(IPartitionLambda):
         cols = dump["tstate"]
         self.lanes = len(cols["next_seq"])
         self.k = len(cols["client_ids"][0]) if cols["client_ids"] else self.k
-        self.tstate = interop.ticket_state_from_numpy(
+        self.tstate = self._place(interop.ticket_state_from_numpy(
             {name: np.asarray(cols[name],
                               np.bool_ if name == "overflow" else np.int32)
-             for name in tk.TicketState._fields}, self.device)
+             for name in tk.TicketState._fields}, self.device))
         # Re-arm ghost eviction for members restored into the device
         # client table (last_seen is not persisted): a ghost present at
         # the crash still ages out after restart.
@@ -2889,7 +3009,8 @@ class TpuSequencerLambda(IPartitionLambda):
             return
         if self.checkpoints is not None:
             t = {name: col.tolist()
-                 for name, col in interop.to_numpy(self.tstate).items()}
+                 for name, col in interop.to_numpy(
+                     _gathered(self.tstate)).items()}
             self.checkpoints.upsert(
                 lambda d: d.get("kind") == "tpu-sequencer",
                 {"kind": "tpu-sequencer", "state": {
@@ -2981,24 +3102,25 @@ class TpuSequencerLambda(IPartitionLambda):
         old = self.lanes
         grown = tk.make_ticket_state(self.k, batch=old * 2,
                                      device=self.device)
-        self.tstate = _tree_map(lambda g, s: torch.cat([s, g[old:]]),
-                                grown, self.tstate)
+        self.tstate = self._place(_tree_map(
+            lambda g, s: torch.cat([s, g[old:]]), grown,
+            _gathered(self.tstate)))
         self.lanes = old * 2
 
     def _grow_clients(self) -> None:
         k2 = self.k * 2
-        t = self.tstate
+        t = _gathered(self.tstate)
 
         def widen(col, fill):
             pad = torch.full((self.lanes, k2 - self.k), fill,
                              dtype=col.dtype, device=col.device)
             return torch.cat([col, pad], dim=1)
 
-        self.tstate = t._replace(
+        self.tstate = self._place(t._replace(
             client_ids=widen(t.client_ids, -1),
             client_ref=widen(t.client_ref, tk.INT32_MAX),
             client_cseq=widen(t.client_cseq, 0),
-        )
+        ))
         self.k = k2
 
     def _parse(self, dl: _DocLane, client_id: Optional[str],
@@ -3345,7 +3467,8 @@ class TpuSequencerLambda(IPartitionLambda):
                     parsed, rows[sel], lanes_r[sel], slot[sel], T,
                     mbase, chan_ok, chan_b, chan_l,
                     vbase, lchan_ok, lchan_b, lchan_l,
-                    row_seq, sel, row_msn, donate=not risky[w])
+                    row_seq, sel, row_msn,
+                    donate=self.donate_lane_states and not risky[w])
                 # A risky window's ring rolls back from the pre views, so
                 # it dispatches through serve_megakernel_keep.
                 wd["risky"] = bool(risky[w])
@@ -3368,7 +3491,8 @@ class TpuSequencerLambda(IPartitionLambda):
                             lchan_l, start_w=w + 1)
                 w += 1
             n_windows = 0  # staging done; the bucketed loop must not run
-        burst_on = defer_ok and self.fused_bursts
+        burst_on = defer_ok and self.fused_bursts \
+            and self.donate_lane_states
         w = 0
         while w < n_windows:
             burst_w = (burst_on and not risky[w]
@@ -3419,7 +3543,7 @@ class TpuSequencerLambda(IPartitionLambda):
                 mbase, chan_ok, chan_b, chan_l,
                 vbase, lchan_ok, lchan_b, lchan_l,
                 row_seq, sel, row_msn,
-                donate=bool(donate_ok[w]))
+                donate=self.donate_lane_states and bool(donate_ok[w]))
             if burst_w:
                 self._staged.append(wd)
                 increment("serving.ring_windows_deferred")
@@ -4015,7 +4139,7 @@ class TpuSequencerLambda(IPartitionLambda):
                     [self._cols(j["cols"]) for j in lww_jobs],
                     [None if j["runs"] is None else self._cols(j["runs"])
                      for j in merge_jobs],
-                    stats_on)
+                    stats_on, fused=self.fused_serve)
         for j, post in zip(merge_jobs, new_merge):
             self.merge.buckets[j["bucket"]].state = post
             if donate:
@@ -4274,7 +4398,8 @@ class TpuSequencerLambda(IPartitionLambda):
                 seqs_l.append(self._cols(seqs))
 
         stats_on = device_stats.enabled()
-        keep = any(wd.get("risky") for wd in wins)
+        keep = any(wd.get("risky") for wd in wins) \
+            or not self.donate_lane_states
         fn = serve_step.serve_megakernel_keep if keep \
             else serve_step.serve_megakernel
         name = "serve.megakernel_keep" if keep else "serve.megakernel"
@@ -4290,7 +4415,7 @@ class TpuSequencerLambda(IPartitionLambda):
                     tuple(self._cols(x) for x in lww_xs),
                     tuple(None if r is None else self._cols(r)
                           for r in runs_xs),
-                    stats_on)
+                    stats_on, fused=self.fused_serve)
 
         pg.adopt_pool(pool2)
         for b, post in zip(l_ids, new_lww):
@@ -5249,8 +5374,8 @@ class TpuSequencerLambda(IPartitionLambda):
                             kind=self._cols(kind))
         with tracing.span("serving.dispatch", hist="serving.dispatch",
                           stage="ticket"):
-            self.tstate, ticketed = tk.sequence_batched_strict(self.tstate,
-                                                               raw)
+            self.tstate, ticketed = _dispatch(tk.sequence_batched_strict,
+                                              self.tstate, raw)
 
         with tracing.span("serving.readback", hist="serving.readback",
                           stage="ticket"):

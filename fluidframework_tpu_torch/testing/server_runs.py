@@ -62,13 +62,16 @@ class ServerPackage(NamedTuple):
     kwargs: dict           # extra TpuLocalServer arguments (device=...)
 
 
-def port_package(device) -> ServerPackage:
-    """The port's ServerPackage on `device` (its modules import torch, so
-    they load here, on the first call)."""
+def port_package(device, mesh=None) -> ServerPackage:
+    """The port's ServerPackage on `device`, its sequencer's lanes sharded
+    over `mesh` when one is given (its modules import torch, so they load
+    here, on the first call)."""
     from ..protocol import messages, summary
     from ..server import local_server, storage
-    return ServerPackage(local_server, storage, messages, summary,
-                         {"device": device})
+    kwargs = {"device": device}
+    if mesh is not None:
+        kwargs["mesh"] = mesh
+    return ServerPackage(local_server, storage, messages, summary, kwargs)
 
 
 class Spec(NamedTuple):

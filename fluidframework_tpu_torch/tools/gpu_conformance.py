@@ -12,11 +12,10 @@ JAX tool's shapes. Run it before trusting a new card, toolchain or torch:
     python -m fluidframework_tpu_torch.tools.gpu_conformance --heavy  # +cap-1024
 
 Exits 2 without a card, 1 on any mismatch. Times are CUDA events around
-three chained applies (mean per apply).
-
-The JAX tool's check_fused_sp (the fused apply with the capacity axis
-sharded over a mesh) is multi-device and waits with the port's mesh
-(ROADMAP Queue 1 item 5).
+three chained applies (mean per apply). `check_fused_sp` holds the fused
+apply with the capacity axis sharded (mergetree/fused_sp.py: the explicit
+form over a mesh of four entries of the card, and the one-device
+two-level form) against the scan kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ SHAPES = ((512, 64, 256, 0), (2048, 100, 256, 1), (128, 48, 512, 2))
 HEAVY_SHAPE = (512, 128, 1024, 3)   # the capacity-1,024 tables
 RUNS_SHAPE = (256, 64, 256, 7)
 HEAVY_RUNS_SHAPE = (512, 96, 512, 8)
+FUSED_SP_SHAPE = (64, 48, 256, 11)
 
 
 def _traces(b: int, t: int, seed: int, removes: bool = True):
@@ -181,6 +181,40 @@ def check_runs(b: int, t_ops: int, cap: int, seed: int,
     return not bad
 
 
+def check_fused_sp(b: int, t: int, cap: int, seed: int, device=None,
+                   sp: int = 4) -> bool:
+    """The fused apply with the capacity axis over sp=4 (the twin of the
+    JAX tool's check): apply_ops_fused_shardmap over a mesh of `sp`
+    entries of `device` (each shard's tile on the card) and
+    apply_ops_fused_sp on the device, both held against the scan apply
+    (kernels/csrc/scan_apply.cu on the card)."""
+    from .. import interop
+    from ..core.device import resolve_device
+    from ..mergetree import fused_sp, kernel
+    from ..mergetree.oppack import pack_ops
+    from ..mergetree.state import make_state
+    from ..parallel.mesh import gather_tree, make_mesh
+
+    dev = resolve_device(device)
+    packed = interop.packed_ops_from_numpy(pack_ops(_traces(b, t, seed)),
+                                           device=dev)
+    ref = kernel.apply_ops_batched_keep(
+        make_state(cap, 2, batch=b, device=dev), packed)
+    mesh = make_mesh(dp=1, sp=sp, devices=[dev] * sp)
+    shard = gather_tree(fused_sp.apply_ops_fused_shardmap(
+        make_state(cap, 2, batch=b, device=dev), packed, mesh))
+    one = fused_sp.apply_ops_fused_sp(
+        make_state(cap, 2, batch=b, device=dev), packed, sp)
+    bad = _mismatches(ref, shard) + [f"{f} (one device)"
+                                     for f in _mismatches(ref, one)]
+    for f in bad:
+        print(f"  FUSED_SP MISMATCH in {f} (b={b} t={t} cap={cap} "
+              f"seed={seed})")
+    print(f"  fused_sp b={b} t={t} cap={cap} sp={sp}: "
+          f"{'FAIL' if bad else 'OK'}", flush=True)
+    return not bad
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--heavy", action="store_true")
@@ -196,6 +230,7 @@ def main(argv=None) -> int:
     results.append(check_runs(*RUNS_SHAPE))
     if args.heavy:
         results.append(check_runs(*HEAVY_RUNS_SHAPE))
+    results.append(check_fused_sp(*FUSED_SP_SHAPE))
     ok = all(results)
     print("CONFORMANCE", "OK" if ok else "FAILED", flush=True)
     return 0 if ok else 1

@@ -458,3 +458,16 @@ class TestFuzzConformance:
             runs=_port_runs(runs)))
         assert_fields_equal(got, want)
         assert got["overflow"].any()
+
+
+def test_chip_smoke_live_slots_steps_the_plain_body():
+    """chip_smoke.live_slots replays the plain body (with its whole-axis
+    lane context) to count each op's slots for the fused apply's bound:
+    the rows in use plus the two an op may add, capped at C."""
+    import chip_smoke
+    cols = gen_traces(4, 6, seed=3)
+    state = interop.doc_state_from_numpy(fresh_state_np(64, 1, 4), "cpu")
+    ops = interop.packed_ops_from_numpy(cols, "cpu")
+    slots = chip_smoke.live_slots(state, ops)
+    assert slots.shape == (4, 6)
+    assert (slots[:, 0] == 2).all() and (slots <= 64).all()

@@ -232,10 +232,10 @@ SLICE_ELEVEN_MODULES = (
 def test_slice_eleven_local_server_is_covered_and_defaults_to_the_card(
         monkeypatch):
     """The local server's modules are walked by the checks above.
-    TpuLocalServer defaults to the card and raises without CUDA; what the
-    port does not have yet (a device mesh, the native message log) is
-    refused, naming the ROADMAP item that owes it; the native message log
-    is built and used."""
+    TpuLocalServer defaults to the card and raises without CUDA; a device
+    mesh, like the device, defaults to the card (make_mesh() raises
+    without CUDA) and a mesh of CPU entries builds; the native message
+    log is built and used."""
     assert set(SLICE_ELEVEN_MODULES) <= set(_port_modules())
     from fluidframework_tpu_torch.server import local_server
 
@@ -245,8 +245,15 @@ def test_slice_eleven_local_server_is_covered_and_defaults_to_the_card(
     server = local_server.TpuLocalServer(device="cpu", partitions=2)
     assert [s.device.type for s in server.ingest.sequencers()] == \
         ["cpu", "cpu"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        local_server.TpuLocalServer(device="cpu", mesh=object())
+    from fluidframework_tpu_torch.parallel.mesh import Sharded, make_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    mesh = make_mesh(dp=2, devices=["cpu", "cpu"])
+    on_mesh = local_server.TpuLocalServer(device="cpu", mesh=mesh,
+                                          partitions=2)
+    for lam in on_mesh.ingest.sequencers():
+        assert lam.mesh is mesh and isinstance(lam.tstate.next_seq,
+                                               Sharded)
     from fluidframework_tpu_torch.native.oplog import NativeMessageLog
     assert isinstance(local_server.LocalServer(native_log=True).log,
                       NativeMessageLog)
@@ -449,3 +456,38 @@ def test_slice_sixteen_is_covered_and_defaults_to_the_card(monkeypatch):
                  historian_smoke.main):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+
+
+SLICE_SEVENTEEN_MODULES = tuple(
+    f"fluidframework_tpu_torch.{m}" for m in (
+        "parallel", "parallel.mesh", "parallel.seq_scan",
+        "mergetree.fused_sp", "mergetree.partition_rules",
+        "testing.shardcheck"))
+
+
+def test_slice_seventeen_is_covered_and_defaults_to_the_card(monkeypatch):
+    """The multi-device modules keep the JAX modules' names and are walked
+    by the checks above. A mesh defaults to every visible CUDA device and
+    raises without one; the mesh entry points take a mesh of CPU entries
+    when the caller names them."""
+    assert set(SLICE_SEVENTEEN_MODULES) <= set(_port_modules())
+    for module in SLICE_SEVENTEEN_MODULES:
+        rel = module.split(".", 1)[1].replace(".", "/")
+        assert (REPO / "fluidframework_tpu" / f"{rel}.py").exists() or \
+            (REPO / "fluidframework_tpu" / rel / "__init__.py").exists(), rel
+    from fluidframework_tpu_torch.parallel import make_mesh
+    from fluidframework_tpu_torch.server.tpu_sequencer import \
+        TpuSequencerLambda
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(sp=1)
+
+    class Ctx:
+        def checkpoint(self, *_):
+            pass
+
+    mesh = make_mesh(dp=2, devices=["cpu", "cpu"])
+    lam = TpuSequencerLambda(Ctx(), emit=lambda *a: None,
+                             nack=lambda *a: None, mesh=mesh)
+    assert lam.device.type == "cpu" and lam.mesh is mesh

@@ -26,8 +26,9 @@ The randomized soaks stay opt-in behind the reference's gate (SOAK=1;
 SOAK_TRIALS scales them), on the port: the bulk catch-up against the
 scalar replay, the sequencer lambda's raw path against its object path,
 the matrix, directory, items and interval sessions on TpuLocalServer,
-the wire fuzz and the maintenance knobs. Not mirrored:
-TestMeshPlacementSoak needs a device mesh (ROADMAP Queue 1 item 5), and
+the wire fuzz, the maintenance knobs, and TestMeshPlacementSoak (a paged
+TpuLocalServer on a mesh of eight CPU entries, testing/shardcheck.py
+checking every plane mid-traffic). Not mirrored:
 TestAsyncSummaryLockDiscipline and TestServingSoak's runtime lockset
 check need testing/lockcheck.py, whose guard map comes from the static
 analysis (Queue 1 item 4.4).
@@ -682,6 +683,39 @@ def _soak_session(channel_type, server_cls=None, n_clients=2):
         channels.append(c.runtime.get_datastore("default")
                         .get_channel("ch"))
     return server, loader, channels
+
+
+@soak
+class TestMeshPlacementSoak:
+    """The runtime shardcheck on the real serving path: random sessions
+    against a paged sequencer on a dp mesh, every device plane held to
+    the partition-rule table mid-traffic."""
+
+    @pytest.mark.parametrize("trial", range(max(1, TRIALS // 5)))
+    def test_paged_mesh_placements_hold_under_traffic(self, trial):
+        from fluidframework_tpu_torch.dds.sequence import SharedString
+        from fluidframework_tpu_torch.parallel.mesh import make_mesh
+        from fluidframework_tpu_torch.server.local_server import \
+            TpuLocalServer
+        from fluidframework_tpu_torch.testing import shardcheck
+
+        rng = random.Random(91_000 + trial)
+        mesh = make_mesh(sp=1, devices=["cpu"] * 8)
+        server, _, chans = _soak_session(
+            SharedString.TYPE,
+            server_cls=lambda: TpuLocalServer(device="cpu", mesh=mesh,
+                                              paged_lanes=True))
+        checked = 0
+        for _ in range(20):
+            ch = rng.choice(chans)
+            pos = rng.randrange(ch.get_length() + 1)
+            ch.insert_text(pos, rng.choice("abcdef") * rng.randint(1, 3))
+            if rng.random() < 0.3:
+                checked += shardcheck.verify_store(
+                    server.sequencer().merge, mesh)
+        checked += shardcheck.verify_store(server.sequencer().merge, mesh)
+        assert checked > 0
+        assert len({c.get_text() for c in chans}) == 1
 
 
 @soak

@@ -213,6 +213,15 @@ class TestGpuConformance:
         out = capsys.readouterr().out
         assert "OK" in out and "not measured" in out
 
+    def test_check_fused_sp_holds_the_sharded_apply_to_scan(self, capsys):
+        """check_fused_sp on a mesh of CPU entries: the explicit form
+        and the one-device two-level form against the scan apply, at the
+        JAX tool's shape."""
+        assert gpu_conformance.check_fused_sp(
+            *gpu_conformance.FUSED_SP_SHAPE, device="cpu")
+        assert "fused_sp b=64 t=48 cap=256 sp=4: OK" in \
+            capsys.readouterr().out
+
     def test_check_reports_a_mismatch(self, monkeypatch, capsys):
         from fluidframework_tpu_torch.mergetree import pallas_apply
 
@@ -244,18 +253,21 @@ class TestGpuConformance:
                             s[-1] != 1)
         monkeypatch.setattr(gpu_conformance, "check_runs",
                             lambda *s: calls.append(("runs", s)) or True)
+        monkeypatch.setattr(gpu_conformance, "check_fused_sp",
+                            lambda *s: calls.append(("fused_sp", s)) or True)
         assert gpu_conformance.main(["--heavy"]) == 1
         assert calls == [
             ("plain", (512, 64, 256, 0)), ("plain", (2048, 100, 256, 1)),
             ("plain", (128, 48, 512, 2)), ("plain", (512, 128, 1024, 3)),
-            ("runs", (256, 64, 256, 7)), ("runs", (512, 96, 512, 8))]
+            ("runs", (256, 64, 256, 7)), ("runs", (512, 96, 512, 8)),
+            ("fused_sp", (64, 48, 256, 11))]
         calls.clear()
         monkeypatch.setattr(gpu_conformance, "check",
                             lambda *s: calls.append(("plain", s)) or True)
         assert gpu_conformance.main([]) == 0
         assert [c[1] for c in calls] == [
             (512, 64, 256, 0), (2048, 100, 256, 1), (128, 48, 512, 2),
-            (256, 64, 256, 7)]
+            (256, 64, 256, 7), (64, 48, 256, 11)]
         assert "CONFORMANCE OK" in capsys.readouterr().out
 
 

@@ -209,6 +209,22 @@ through apply_ops_fused_shardmap over dp=1 x sp=8 and dp=2 x sp=4,
 bit-exact to scan_apply.cu, with the boundary exchanges per op, and
 gpu_conformance.check_fused_sp; the phase's wall printed against
 PHASE23_BUDGET_S.
+Phase 24 runs the port's static gates and its runtime lockset check: (a)
+the port's fluidlint (python -m fluidframework_tpu_torch.analysis over
+fluidframework_tpu_torch/, its baseline applied) and its layer check, in
+a child process started beside the kernel build (host work): the wall,
+the files, the findings, the suppressed and baselined counts and the
+layer check's verdict, failing on any unbaselined finding, layer
+violation or import cycle; (b) the async-summary overlap
+(testing/lambda_runs.summary_overlap_run: SUMMARY_DOCS documents x
+SUMMARY_WAVES waves, summaries assembling while the next wave flushes) on
+TpuSequencerLambda(device="cuda"), its MergeLaneStore wrapped by
+testing/lockcheck.instrument with static_guards, which must map the
+summarize state to _guard_lock; assert_clean() holds, the texts equal
+those of the same seed run unwrapped on the card and on the CPU (in the
+gates' process), and the ticket scan and the scan apply launch in the
+wrapped run (counts reset just before it); the phase's wall printed
+against PHASE24_BUDGET_S.
 Prints one {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Any mismatch or exception exits nonzero
 before that line. Exits nonzero when CUDA is not available.
@@ -972,6 +988,7 @@ def main(north_star_only: bool = False) -> int:
     harness_gc()
     capacity_twin = None if north_star_only else start_capacity_twin()
     scalar_twin = None if north_star_only else start_scalar_twin()
+    gates_twin = None if north_star_only else start_gates_twin()
     clock = PhaseClock(t_start, "the kernel build and the set-up")
     set_up_pool = ThreadPoolExecutor(max_workers=2)
     set_up = None if north_star_only else start_set_up(set_up_pool)
@@ -1357,6 +1374,8 @@ def main(north_star_only: bool = False) -> int:
         rows += capacity_phase(dev, card, capacity_twin)
         clock.mark("phase 23")
         mesh_phase(dev, card, north, fig17)
+        clock.mark("phase 24")
+        lint_lock_phase(dev, card, gates_twin)
     del north
     clock.mark("the kernels' line")
     clock.close()
@@ -6846,6 +6865,141 @@ def mesh_phase(dev, card: str, north: dict, fig17: dict) -> None:
           f"{sum(f['seconds'] for f in figures['b'].values()):.1f}; "
           f"{'within' if took <= PHASE23_BUDGET_S else 'OVER'} its "
           f"{PHASE23_BUDGET_S:.0f} s); card {card}", flush=True)
+
+
+# -- phase 24: the static gates and the runtime lockset check -------------
+
+# Phase 24 (b): the async-summary overlap's documents and waves (each wave
+# three ops a document, testing/ingest.summary_waves), and the phase's
+# wall budget.
+SUMMARY_DOCS, SUMMARY_WAVES = 64, 6
+PHASE24_BUDGET_S = 20.0
+GATES_TIMEOUT_S = 600
+
+
+def gates_main() -> int:
+    """Phase 24 (a) in a process of its own: the port's fluidlint over
+    fluidframework_tpu_torch/ (its baseline applied, no result cache) and
+    its layer check; then (b)'s overlap on the CPU, whose texts the card's
+    are held to. Prints one JSON line."""
+    from fluidframework_tpu_torch.analysis import Baseline, analyze_paths
+    from fluidframework_tpu_torch.tools import layer_check
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(root, "fluidframework_tpu_torch")
+    t0 = time.perf_counter()
+    res = analyze_paths([pkg], baseline=Baseline.load())
+    lint_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    violations = layer_check.check(pkg)
+    cycles = layer_check.find_cycles(layer_check.import_graph(pkg))
+    layer_s = time.perf_counter() - t0
+    from fluidframework_tpu_torch.testing import lambda_runs
+    torch.set_num_threads(1)
+    cpu = lambda_runs.summary_overlap_run(
+        lambda_runs.port_package("cpu"), SUMMARY_DOCS, SUMMARY_WAVES,
+        3 * SUMMARY_DOCS)
+    print(json.dumps({
+        "lint_s": lint_s, "files": res.files,
+        "findings": [v.render() for v in res.violations],
+        "suppressed": res.suppressed, "baselined": len(res.baselined),
+        "race_ms": res.race_rules_wall_ms,
+        "placement_ms": res.placement_rules_wall_ms,
+        "layer_violations": [str(v) for v in violations],
+        "cycles": [" -> ".join(c) for c in cycles],
+        "layer_s": layer_s, "cpu_texts": cpu["texts"]}), flush=True)
+    return 0
+
+
+def start_gates_twin() -> subprocess.Popen:
+    """gates_main, started before the kernel build: host work alone, so it
+    runs in the build's wall and phase 24 reads it. It is killed at exit
+    if it is still running."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
+         "gates_main())"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+    atexit.register(stop_twins, [proc])
+    return proc
+
+
+def lint_lock_phase(dev, card: str, twin: subprocess.Popen) -> None:
+    """Phase 24: (a) the gates' child process read back and held; (b) the
+    async-summary overlap on the card under the runtime lockset check."""
+    from fluidframework_tpu_torch.server.tpu_sequencer import MergeLaneStore
+    from fluidframework_tpu_torch.testing import lambda_runs
+    from fluidframework_tpu_torch.testing.lockcheck import (instrument,
+                                                            static_guards)
+
+    t_phase = time.perf_counter()
+    text, _ = twin.communicate(timeout=GATES_TIMEOUT_S)
+    require(twin.returncode == 0,
+            f"phase 24 (a): the gates' process exited {twin.returncode}")
+    g = json.loads(text.strip().splitlines()[-1])
+    print(f"phase 24 (a): fluidlint over fluidframework_tpu_torch/: "
+          f"{g['lint_s']:.3f} s host wall (race model "
+          f"{g['race_ms']:.1f} ms, placement model "
+          f"{g['placement_ms']:.1f} ms) beside the kernel build, "
+          f"{g['files']} files, {len(g['findings'])} unbaselined "
+          f"finding(s), {g['suppressed']} suppressed inline, "
+          f"{g['baselined']} baselined; layer check "
+          f"{len(g['layer_violations'])} violation(s), "
+          f"{len(g['cycles'])} import cycle(s) in {g['layer_s']:.3f} s; "
+          f"card {card}", flush=True)
+    require(not g["findings"], f"phase 24 (a): unbaselined fluidlint "
+            f"findings: {g['findings']}")
+    require(not g["layer_violations"] and not g["cycles"],
+            f"phase 24 (a): layer check: {g['layer_violations']} "
+            f"{g['cycles']}")
+
+    guards = static_guards(MergeLaneStore)
+    want = {"_snap_cache": "_guard_lock", "_extract_guards": "_guard_lock",
+            "last_summarized_gen": "_guard_lock"}
+    require({k: guards.get(k) for k in want} == want,
+            f"phase 24 (b): static_guards(MergeLaneStore) is {guards}")
+    guards["_deferred_frees"] = "_guard_lock"
+    checks = []
+
+    def check(store):
+        checks.append(instrument(store, guards))
+        return checks[-1]
+
+    pkg = lambda_runs.port_package(dev)
+    ops_per_wave = 3 * SUMMARY_DOCS
+    reset_lambda_counts()
+    wrapped = lambda_runs.summary_overlap_run(
+        pkg, SUMMARY_DOCS, SUMMARY_WAVES, ops_per_wave, check=check)
+    torch.cuda.synchronize()
+    launched = lambda_counts()
+    plain = lambda_runs.summary_overlap_run(
+        pkg, SUMMARY_DOCS, SUMMARY_WAVES, ops_per_wave)
+    require(len(checks) == 1 and not checks[0].violations,
+            "phase 24 (b): the lockcheck recorded violations")
+    require(launched["ticket_scan"] > 0 and launched["scan_apply"] > 0,
+            f"phase 24 (b): the lambda did not launch the ticket scan and "
+            f"the scan apply: {launched}")
+    require(wrapped["overlapped_flushes"] > 0,
+            "phase 24 (b): no flush overlapped a summary worker")
+    require(wrapped["texts"] == plain["texts"] == g["cpu_texts"],
+            f"phase 24 (b): the texts of the wrapped run, the unwrapped "
+            f"run and the CPU run differ: {wrapped['texts']}, "
+            f"{plain['texts']}, {g['cpu_texts']}")
+    require(len(wrapped["summaries"]) == SUMMARY_WAVES,
+            f"phase 24 (b): {wrapped['summaries']} summaries")
+    took = time.perf_counter() - t_phase
+    print(f"phase 24 (b): {SUMMARY_DOCS} documents x {SUMMARY_WAVES} "
+          f"waves of {ops_per_wave} ops on TpuSequencerLambda(cuda), the "
+          f"MergeLaneStore under lockcheck with {sorted(guards.items())}: "
+          f"assert_clean() held; {wrapped['overlapped_flushes']} flushes "
+          f"overlapped a summary worker, summaries {wrapped['summaries']}; "
+          f"texts {wrapped['texts']} equal the unwrapped run's and the "
+          f"CPU run's; launches "
+          f"{launched}; wrapped {wrapped['seconds']:.3f} s, unwrapped "
+          f"{plain['seconds']:.3f} s host wall; card {card}", flush=True)
+    print(f"phase 24: {took:.1f} s "
+          f"({'within' if took <= PHASE24_BUDGET_S else 'OVER'} its "
+          f"{PHASE24_BUDGET_S:.0f} s); card {card}", flush=True)
 
 
 if __name__ == "__main__":

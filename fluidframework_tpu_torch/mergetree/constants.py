@@ -33,3 +33,13 @@ TEXT_SEGMENT_GRANULARITY = 256
 
 # Summary body chunk size in characters (reference snapshotV1.ts:40).
 SNAPSHOT_CHUNK_SIZE = 10000
+
+# The device schema's dtypes, by torch's names: int32 columns and bool
+# masks, and int64 for the index tensors that torch's gather, scatter and
+# index_select take (they require int64 indices, so an index built for one
+# is canonical; the state itself stays int32). int16 is not canonical: the
+# narrow wire (serve_step's flat16, kernel._narrow_pack) is deliberate
+# packing, and its casts on the device path carry inline suppressions.
+# fluidlint's DTYPE_DRIFT rule flags any other dtype literal on the device
+# path.
+CANONICAL_DEVICE_DTYPES = ("int32", "bool", "int64")

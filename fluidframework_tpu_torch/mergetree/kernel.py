@@ -43,6 +43,7 @@ per-shard form of mergetree/fused_sp.py instead.
 from __future__ import annotations
 
 import ctypes
+from types import MappingProxyType
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -448,8 +449,10 @@ MAX_CLUSTER = 16   # 8 portable; 16 with the non-portable attribute
 _MAX_OVERLAP_SLOTS = 8
 # scan_apply.cu enum ScanPath. global_chunked is the first design (one
 # thread per slot, every pass over all C, three view passes per range op),
-# kept to be measured against; the rule never takes it.
-_SCAN_PATHS = {"global_chunked": 0, "global": 1, "smem": 2, "cluster": 3}
+# kept to be measured against; the rule never takes it. Read-only: every
+# launch reads it.
+_SCAN_PATHS = MappingProxyType(
+    {"global_chunked": 0, "global": 1, "smem": 2, "cluster": 3})
 SCAN_PATHS = tuple(_SCAN_PATHS)
 # The rule (scan_geometry), measured on the H100 by
 # `calibrate_fused_apply.py --scan` (PERF.md §6):
@@ -853,19 +856,26 @@ def gather_pages(pool: DocState, page_ids: torch.Tensor, counts: torch.Tensor,
     blank page 0) -> a [B, P * PAGE_ROWS, ...] DocState view with the
     per-document scalars given and a fresh overflow plane. In JAX an XLA
     gather, so plain torch indexing is the port."""
-    gidx = torch.clamp(page_ids, min=0).to(torch.int64)
     b, p = page_ids.shape
     r = pool.capacity
     if isinstance(pool.length, Sharded):
         # A pool on a mesh: each page comes from its owning shard to the
-        # dispatching device (the counts' device).
-        ids = gidx.reshape(-1).cpu().numpy()
-        gather_pages.page_copies += int((page_ids >= 0).sum())
+        # dispatching device (the counts' device), routed by host ids.
+        # fluidlint: disable=HOST_SYNC — the mesh routes each page to its
+        # owning shard by host row ids (parallel/mesh.take_rows), one read
+        host = page_ids.reshape(-1).cpu().numpy()
+        # fluidlint: disable=PAGE_ID_DTYPE — host row ids for take_rows
+        ids = np.maximum(host, 0).astype(np.int64)
+        gather_pages.page_copies += int((host >= 0).sum())
 
         def g(col):
             x = take_rows(col, ids, device=counts.device)
             return x.reshape((b, p * r) + tuple(x.shape[2:]))
     else:
+        # fluidlint: disable=PAGE_ID_DTYPE — the transient index of the
+        # gather (torch's indexing takes int64); the table stays int32
+        gidx = torch.clamp(page_ids, min=0).to(torch.int64)
+
         def g(col):
             x = col[gidx]  # [B, P, R, ...]
             return x.reshape((b, p * r) + tuple(x.shape[3:]))
@@ -892,6 +902,8 @@ def scatter_pages(pool: DocState, page_ids: torch.Tensor,
     if isinstance(pool.length, Sharded):
         # A pool on a mesh: each real page is written back into its owning
         # shard; padding ids are dropped, as JAX's mode="drop" does.
+        # fluidlint: disable=HOST_SYNC — the mesh routes each page to its
+        # owning shard by host row ids (parallel/mesh.write_rows), one read
         ids = page_ids.reshape(-1).cpu().numpy()
         keep = np.nonzero(ids >= 0)[0]
         scatter_pages.page_copies += len(keep)
@@ -902,8 +914,10 @@ def scatter_pages(pool: DocState, page_ids: torch.Tensor,
                 write_rows(getattr(pool, name), ids[keep],
                            v[torch.as_tensor(keep, device=v.device)])
         return pool
-    dst = torch.where(page_ids >= 0, page_ids,
-                      BLANK_PAGE).to(torch.int64).reshape(-1)
+    dst = torch.where(page_ids >= 0, page_ids, BLANK_PAGE)
+    # fluidlint: disable=PAGE_ID_DTYPE — the transient index of the
+    # scatter (torch's indexing takes int64); the table stays int32
+    dst = dst.to(torch.int64).reshape(-1)
     for name in _ROW_FIELDS:
         col = getattr(pool, name)
         blank = col[BLANK_PAGE].clone()
@@ -921,6 +935,13 @@ def scatter_pages(pool: DocState, page_ids: torch.Tensor,
 # pool updates in place. Here the plain forms scatter into the given pool's
 # tensors in place and return it; the `_keep` forms copy the pool first and
 # leave every input as it was (JAX's non-donating twins).
+
+#: The in-place forms: function -> the argument positions whose tensors it
+#: writes in place (JAX's donate_argnums). fluidlint's lifecycle rules read
+#: this table; nothing reads it at run time.
+IN_PLACE_ARGS = {"apply_ops_paged": (0,), "rollback_pages": (0,),
+                 "compact_pages": (0,), "compact_extract_paged": (0,)}
+
 
 def _copy_pool(pool: DocState) -> DocState:
     return DocState(*(clone(t) if isinstance(t, Sharded) else t.clone()
@@ -1015,6 +1036,8 @@ def apply_ops_paged_keep(pool: DocState, page_ids: torch.Tensor, counts,
                          min_seqs, seqs, ops: PackedOps,
                          stats: bool = False, plain: bool = False):
     """apply_ops_paged on a copy of the pool: no input changes."""
+    # fluidlint: disable=MISSING_DONATE — the non-mutating twin: a mesh
+    # pool and a risky window's retry keep the pre-window pool
     return _apply_ops_paged(_copy_pool(pool), page_ids, counts, min_seqs,
                             seqs, ops, stats, plain)
 

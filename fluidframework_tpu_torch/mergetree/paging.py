@@ -47,6 +47,11 @@ from .state import DEFAULT_ANNO_SLOTS, DocState, make_state
 
 BLANK_PAGE = 0  # reserved, never allocated, always blank
 
+#: The in-place page writes: function -> the argument positions whose
+#: tensors it writes in place (JAX's donate_argnums). fluidlint's lifecycle
+#: rules read this table; nothing reads it at run time.
+IN_PLACE_ARGS = {"_zero_pool_pages": (0,), "_put_pool_pages": (0,)}
+
 
 def _zero_pool_pages(pool: DocState, idx: torch.Tensor,
                      blank: DocState) -> DocState:
@@ -246,6 +251,8 @@ class PagedMergeStore:
         padding through the blank page) reads canonical make_state rows."""
         if not pids:
             return
+        # fluidlint: disable=PAGE_ID_DTYPE — the transient index of the
+        # blanking write (torch's indexing takes int64); tables stay int32
         idx = torch.as_tensor(pids, dtype=torch.int64, device=self.device)
         _zero_pool_pages(self.pool, idx, self._blank())
 

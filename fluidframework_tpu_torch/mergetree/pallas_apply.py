@@ -21,6 +21,7 @@ min_seq, seq) that the serving megakernel reads).
 from __future__ import annotations
 
 import ctypes
+from types import MappingProxyType
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -53,7 +54,8 @@ WARP_MIN_DOCS = 512
 # 3% of the fastest of 1, 2, 4 and 8 at every main-path shape, and the
 # fastest at C = 512 (calibrate_fused_apply.py, PERF.md §6).
 WARP_DOCS_PER_BLOCK = 1
-_PATHS = {"block": 0, "warp": 1}  # fused_apply.cu enum Path
+# fused_apply.cu enum Path (read-only: every launch reads it)
+_PATHS = MappingProxyType({"block": 0, "warp": 1})
 
 _SEG_PLANES = ("length", "ins_seq", "ins_client", "local_seq", "rem_seq",
                "rem_local_seq", "origin_op", "origin_off")
@@ -469,6 +471,7 @@ Narrow = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 def narrow_of(state: DocState) -> Narrow:
     """The narrow tuple the extract variant writes: (overflow int16,
     count, min_seq, seq), each [B]."""
+    # fluidlint: disable=DTYPE_DRIFT — the narrow tuple's int16 overflow
     return (state.overflow.to(torch.int16), state.count.clone(),
             state.min_seq.clone(), state.seq.clone())
 
@@ -564,6 +567,7 @@ def _launch(state: DocState, ops: PackedOps, runs: Optional[RunCols],
     k, a = state.overlap_slots, state.anno_slots
     dev = state.length.device
     out = DocState(*(torch.empty_like(t) for t in state))
+    # fluidlint: disable=DTYPE_DRIFT — the narrow tuple's int16 overflow
     narrow = (torch.empty(b, dtype=torch.int16, device=dev),
               *(torch.empty(b, dtype=torch.int32, device=dev)
                 for _ in range(3))) if extract else ()

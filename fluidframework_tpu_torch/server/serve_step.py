@@ -75,6 +75,12 @@ class RingArgs(NamedTuple):
     runs_xs: Tuple      # per group [K, 4, n_pad, Tm, RUN_K] or None
 
 
+#: The in-place forms: callable -> the argument positions whose tensors it
+#: writes in place (JAX's donate_argnums; the `_keep` twins write nothing).
+#: fluidlint's lifecycle rules read this table; nothing reads it at run
+#: time.
+IN_PLACE_ARGS = {"serve_paged_burst": (0,), "serve_megakernel": (1,)}
+
 _MERGE_KINDS = (OpKind.INSERT, OpKind.REMOVE, OpKind.ANNOTATE,
                 OpKind.ACK_INSERT, OpKind.ACK_REMOVE, OpKind.INSERT_RUN)
 
@@ -84,6 +90,7 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _i16(x: torch.Tensor) -> torch.Tensor:
+    # fluidlint: disable=DTYPE_DRIFT — the narrow int16 wire (flat16)
     return x.to(torch.int16)
 
 
@@ -428,6 +435,8 @@ def serve_paged_burst(pool, page_ids, counts, min_seqs, seqs,
 def serve_paged_burst_keep(pool, page_ids, counts, min_seqs, seqs,
                            ops_xs: PackedOps, stats=False, plain=False):
     """serve_paged_burst on a copy of the pool: no input changes."""
+    # fluidlint: disable=MISSING_DONATE — the non-mutating twin: a mesh
+    # pool and a risky burst's retry keep the pre-burst pool
     return _serve_paged_burst(kernel._copy_pool(pool), page_ids, counts,
                               min_seqs, seqs, ops_xs, stats, plain)
 
@@ -490,6 +499,8 @@ def make_serve_megakernel(keep: bool, plain: bool = False):
               min_seqs, seqs, merge_xs, lww_xs, runs_xs, stats=False,
               stage: Stage = None, fused=True):
         if keep:
+            # fluidlint: disable=MISSING_DONATE — the non-mutating twin:
+            # a mesh pool and a ring holding a risky window keep the pool
             pool = kernel._copy_pool(pool)
         return _serve_megakernel(tstate, pool, lww_states, ticket_xs,
                                  page_ids, counts, min_seqs, seqs, merge_xs,

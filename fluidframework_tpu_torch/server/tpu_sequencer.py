@@ -1666,6 +1666,11 @@ class MergeLaneStore:
         every payload free while it resolves the shared table."""
         from ..mergetree.host import assemble_snapshot
 
+        # The worker's payload-table read rides the extract-guard protocol,
+        # not a lock: while it runs, the sequencing thread defers every
+        # free (free_payloads) instead of recycling an id it resolves.
+        # fluidlint: disable=SHARED_STATE_NO_LOCK — worker read
+        # protected by the _extract_guards deferred-free protocol
         table = self.payloads
         out: Dict[tuple, dict] = dict(cached or {})
         for packed, lanes, seq_dev, min_seq_dev, gens, *tail in jobs:
@@ -1695,6 +1700,10 @@ class MergeLaneStore:
                 # worker never clobbers a newer entry, nor resurrects one
                 # for a lane drop() evicted.
                 with self._guard_lock:
+                    # fluidlint: disable=SHARED_STATE_NO_LOCK — a
+                    # GIL-atomic membership probe: drop() evicts the cache
+                    # under _guard_lock strictly after popping `where`, so
+                    # a stale read only skips an adoption it would undo
                     if key not in self.where:
                         continue
                     prev = self._snap_cache.get(key)

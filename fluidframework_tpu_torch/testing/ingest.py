@@ -13,6 +13,10 @@ Only json and random are used, so the traffic does not depend on torch.
   between), refs advancing per wave.
 - `storm_waves`: the ragged fleet. One storm document typing 128-op waves
   atop 63 keystroke documents typing two ops a wave.
+- `summary_waves`: the async-summary overlap. One client per document,
+  then waves of one-character inserts on random documents, each marked to
+  flush after it or not; the caller starts an async summary after each
+  wave while the next wave sequences.
 - `mixed_waves`: every family the lambda materializes (SharedString
   text, markers, removes and annotates; SharedMap sets, deletes and
   clears; SharedCell; SharedCounter; SharedMatrix axes and cells;
@@ -70,6 +74,37 @@ def boxcar(tenant: str, doc: str, client: Optional[str],
     return json.dumps({"tenantId": tenant, "documentId": doc,
                        "clientId": client,
                        "contents": messages}).encode("utf-8")
+
+
+def summary_waves(docs: int, waves: int, ops_per_wave: int,
+                  seed: int = 909_090, flush_p: float = 0.4):
+    """(joins, waves): the join frames of documents d0..d{docs-1} (client
+    c-<doc>), and `waves` lists of (frame, flush) pairs: `ops_per_wave`
+    one-character inserts at position 0 of a random document, each
+    followed by a flush with probability `flush_p`."""
+    rng = random.Random(seed)
+    names = [f"d{i}" for i in range(docs)]
+    off = 0
+    joins: List[Frame] = []
+    for doc in names:
+        joins.append((off, doc, boxcar("t", doc, f"c-{doc}",
+                                       [join(f"c-{doc}")])))
+        off += 1
+    out = []
+    csn = dict.fromkeys(names, 0)
+    for _ in range(waves):
+        wave = []
+        for _ in range(ops_per_wave):
+            doc = rng.choice(names)
+            csn[doc] += 1
+            op = {"type": OP_INSERT, "pos1": 0,
+                  "seg": {"text": chr(97 + off % 26)}}
+            frame = (off, doc, boxcar("t", doc, f"c-{doc}", [
+                channel_op(csn[doc], 0, "t", op)]))
+            off += 1
+            wave.append((frame, rng.random() < flush_p))
+        out.append(wave)
+    return joins, out
 
 
 def warm_waves(ops_per_doc: int) -> int:

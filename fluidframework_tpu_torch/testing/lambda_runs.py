@@ -18,6 +18,10 @@ port's modules, this module needs neither torch nor JAX.
 - `storm_run`: the ragged storm fleet (ingest.storm_waves) on paged
   lanes, "sync" (each window dispatched and read back alone) or "mega"
   (pipelined: each flush's windows leave as megakernel rings).
+- `summary_overlap_run`: async summaries in flight while the sequencing
+  thread keeps flushing (ingest.summary_waves through `handler`), the
+  overlap the MergeLaneStore summarize guard exists for; a `check` hook
+  wraps the merge store (testing/lockcheck.instrument).
 - `mixed_run`: the mixed-family stream (ingest.mixed_waves) with a share
   of heavy typists: the first half through `handler` (decoded boxcars),
   a checkpoint and a restart from the checkpoint and the delta store,
@@ -154,6 +158,68 @@ def _feed_object(pkg: Package, lam, frames) -> None:
 
 def _nothing(_lam, fn):
     fn()
+
+
+# Seconds a summary worker may take after the last wave before the run
+# fails.
+SUMMARY_JOIN_S = 60.0
+
+
+def summary_overlap_run(pkg: Package, docs: int = 4, waves: int = 6,
+                        ops_per_wave: int = 12, seed: int = 909_090,
+                        check: Optional[Callable] = None) -> dict:
+    """ingest.summary_waves through `handler`: after each wave a flush, a
+    drain and summarize_documents_async, whose worker assembles while the
+    next wave sequences. `check(lam.merge)`, when given, returns a
+    lockcheck (instrument(...)): it wraps the store for the whole run and
+    its assert_clean() runs after every worker has joined, before it is
+    uninstrumented. Returns {"workers", "summaries" (each worker's
+    document count), "overlapped_flushes" (flushes issued while a worker
+    was still assembling), "texts" (texts_digest), "seconds"}."""
+    import threading
+
+    joins, schedule = ingest.summary_waves(docs, waves, ops_per_wave, seed)
+    lam = pkg.Lambda(_Ctx(), emit=lambda d, m: None,
+                     nack=lambda d, c, n: None, client_timeout_s=0.0,
+                     **pkg.kwargs)
+    t0 = time.perf_counter()
+    lc = check(lam.merge) if check is not None else None
+    done: List[int] = []
+    lock = threading.Lock()
+
+    def on_done(out):
+        with lock:
+            done.append(len(out))
+
+    workers = []
+    overlapped = 0
+    try:
+        _feed_object(pkg, lam, joins)
+        for wave in schedule:
+            for frame, flush in wave:
+                _feed_object(pkg, lam, [frame])
+                if flush:
+                    overlapped += any(th.is_alive() for th in workers)
+                    lam.flush()
+            lam.flush()
+            lam.drain()
+            workers.append(lam.summarize_documents_async(on_done))
+        for th in workers:
+            th.join(SUMMARY_JOIN_S)
+        alive = sum(th.is_alive() for th in workers)
+        if alive:
+            raise RuntimeError(f"{alive} summary worker(s) still running "
+                               f"after {SUMMARY_JOIN_S} s")
+        if lc is not None:
+            lc.assert_clean()
+    finally:
+        if lc is not None:
+            lc.uninstrument()
+    names = [f"d{i}" for i in range(docs)]
+    return {"workers": len(workers), "summaries": sorted(done),
+            "overlapped_flushes": overlapped,
+            "texts": texts_digest(lam, names),
+            "seconds": time.perf_counter() - t0}
 
 
 def serving_run(pkg: Package, docs: int, ops: int, measured: int = 3,

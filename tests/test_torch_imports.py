@@ -491,3 +491,50 @@ def test_slice_seventeen_is_covered_and_defaults_to_the_card(monkeypatch):
     lam = TpuSequencerLambda(Ctx(), emit=lambda *a: None,
                              nack=lambda *a: None, mesh=mesh)
     assert lam.device.type == "cpu" and lam.mesh is mesh
+
+
+SLICE_EIGHTEEN_MODULES = tuple(
+    f"fluidframework_tpu_torch.{m}" for m in (
+        "analysis", "analysis.__main__", "analysis.baseline",
+        "analysis.cache", "analysis.callgraph", "analysis.concurrency_model",
+        "analysis.concurrency_rules", "analysis.dataflow", "analysis.engine",
+        "analysis.lifecycle_rules", "analysis.placement_model",
+        "analysis.placement_rules", "analysis.race_rules",
+        "analysis.registry", "analysis.reporters", "testing.lockcheck",
+        "tools.layer_check"))
+
+
+def test_slice_eighteen_is_covered_and_runs_without_cuda():
+    """fluidlint, the runtime lockset verifier and the layer check keep the
+    JAX modules' names (torch_rules.py is jax_rules.py's counterpart) and
+    are walked by the checks above. They are host tools: the analyzer and
+    the layer check start and pass on the port's tree in a process that
+    sees no CUDA device, and each module imports neither jax nor the JAX
+    package."""
+    import subprocess
+    import sys
+    assert set(SLICE_EIGHTEEN_MODULES) | {
+        "fluidframework_tpu_torch.analysis.torch_rules"} <= \
+        set(_port_modules())
+    for module in SLICE_EIGHTEEN_MODULES:
+        rel = module.split(".", 1)[1].replace(".", "/")
+        assert (REPO / "fluidframework_tpu" / f"{rel}.py").exists() or \
+            (REPO / "fluidframework_tpu" / rel / "__init__.py").exists(), rel
+    assert (REPO / "fluidframework_tpu" / "analysis" / "jax_rules.py"
+            ).exists()
+    for path in sorted((PORT / "analysis").glob("*.py")) + [
+            PORT / "testing" / "lockcheck.py",
+            PORT / "tools" / "layer_check.py"]:
+        assert not set(_imported_roots(path)) & set(FORBIDDEN), path
+    env = {"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
+           "CUDA_VISIBLE_DEVICES": "", "HOME": str(REPO)}
+    for module in ("fluidframework_tpu_torch.analysis",
+                   "fluidframework_tpu_torch.tools.layer_check"):
+        proc = subprocess.run([sys.executable, "-m", module], cwd=REPO,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        assert proc.returncode == 0, (module, proc.stdout[-2000:],
+                                      proc.stderr[-2000:])
+    from fluidframework_tpu_torch.mergetree.constants import \
+        CANONICAL_DEVICE_DTYPES
+    assert "int32" in CANONICAL_DEVICE_DTYPES

@@ -28,10 +28,15 @@ scalar replay, the sequencer lambda's raw path against its object path,
 the matrix, directory, items and interval sessions on TpuLocalServer,
 the wire fuzz, the maintenance knobs, and TestMeshPlacementSoak (a paged
 TpuLocalServer on a mesh of eight CPU entries, testing/shardcheck.py
-checking every plane mid-traffic). Not mirrored:
-TestAsyncSummaryLockDiscipline and TestServingSoak's runtime lockset
-check need testing/lockcheck.py, whose guard map comes from the static
-analysis (Queue 1 item 4.4).
+checking every plane mid-traffic); TestServingSoak runs its pipelined
+lambda's merge store under testing/lockcheck.py, with the guard map the
+port's static analysis infers.
+
+TestAsyncSummaryLockDiscipline is tier-1, as the reference's is: async
+summaries in flight while the sequencing thread keeps flushing
+(testing/lambda_runs.summary_overlap_run on the port's lambda), the
+MergeLaneStore instrumented with the locksets the port's fluidlint
+infers; the texts equal those of the same run uninstrumented.
 """
 
 from __future__ import annotations
@@ -645,23 +650,95 @@ class TestServingSoak:
         B.pipelined = trial % 2 == 1
         if B.pipelined and rng.random() < 0.25:
             B.defer_risky_windows = True
-        tr = _serving_traffic(rng)
-        for i, (doc, box) in enumerate(tr):
-            A.handler(QueuedMessage("rawdeltas", 0, i, doc, box))
-            B.handler_raw(QueuedMessage("rawdeltas", 0, i, doc,
-                                        boxcar_to_wire(box)))
-            if rng.random() < 0.3:
-                A.flush()
-                B.flush()
-        A.flush()
-        B.flush()
-        A.drain()
-        B.drain()
+        # The runtime lockset check: the pipelined store runs the soak with
+        # the statically inferred summarize-guard discipline asserted on
+        # every access.
+        from fluidframework_tpu_torch.testing.lockcheck import (
+            instrument, static_guards)
+        guards = static_guards(type(B.merge))
+        guards["_deferred_frees"] = "_guard_lock"
+        lockcheck = instrument(B.merge, guards)
+        try:
+            tr = _serving_traffic(rng)
+            for i, (doc, box) in enumerate(tr):
+                A.handler(QueuedMessage("rawdeltas", 0, i, doc, box))
+                B.handler_raw(QueuedMessage("rawdeltas", 0, i, doc,
+                                            boxcar_to_wire(box)))
+                if rng.random() < 0.3:
+                    A.flush()
+                    B.flush()
+            A.flush()
+            B.flush()
+            A.drain()
+            B.drain()
+            lockcheck.assert_clean()
+        finally:
+            lockcheck.uninstrument()
         assert sorted(ea) == sorted(eb)
         assert sorted(na) == sorted(nb)
         for d in {t[0] for t in tr}:
             assert A.channel_text(d, "s", "t") == \
                 B.channel_text(d, "s", "t"), d
+
+
+class TestAsyncSummaryLockDiscipline:
+    """Fixed-seed serving traffic with async summaries in flight while the
+    sequencing thread keeps flushing: the overlap the MergeLaneStore
+    summarize guard exists for. The store runs instrumented with the
+    locksets the port's fluidlint statically infers
+    (testing/lockcheck.static_guards), so the model and the code cannot
+    drift apart. Deterministic (fixed seed, joined workers): tier-1."""
+
+    def test_inferred_locksets_hold_under_async_summaries(self):
+        from fluidframework_tpu_torch.server.tpu_sequencer import (
+            MergeLaneStore)
+        from fluidframework_tpu_torch.testing import lambda_runs
+        from fluidframework_tpu_torch.testing.lockcheck import (
+            instrument, static_guards)
+
+        guards = static_guards(MergeLaneStore)
+        # The inferred map must cover the summarize epoch state: if the
+        # model stops seeing the discipline, this catches the drift.
+        assert guards.get("_snap_cache") == "_guard_lock"
+        assert guards.get("_extract_guards") == "_guard_lock"
+        assert guards.get("last_summarized_gen") == "_guard_lock"
+        guards["_deferred_frees"] = "_guard_lock"
+        checks = []
+
+        def check(store):
+            checks.append(instrument(store, guards))
+            return checks[-1]
+
+        pkg = lambda_runs.port_package("cpu")
+        got = lambda_runs.summary_overlap_run(pkg, check=check)
+        assert len(checks) == 1 and checks[0].violations == []
+        assert got["workers"] == 6 and len(got["summaries"]) == 6
+        assert got["overlapped_flushes"] > 0
+        assert got["texts"]["chars"] == 72
+        plain = lambda_runs.summary_overlap_run(pkg)
+        assert plain["texts"] == got["texts"]
+
+    def test_an_unguarded_access_fails_the_run(self, monkeypatch):
+        """The wrap is live during the run: a seeded unguarded read of the
+        blob cache from the summary worker fails assert_clean."""
+        from fluidframework_tpu_torch.server.tpu_sequencer import (
+            MergeLaneStore)
+        from fluidframework_tpu_torch.testing import lambda_runs
+        from fluidframework_tpu_torch.testing.lockcheck import (
+            LockDisciplineError, instrument, static_guards)
+
+        assemble = MergeLaneStore.extract_assemble
+
+        def seeded(self, *args, **kwargs):
+            len(self._snap_cache)  # unguarded, on the worker thread
+            return assemble(self, *args, **kwargs)
+
+        monkeypatch.setattr(MergeLaneStore, "extract_assemble", seeded)
+        with pytest.raises(LockDisciplineError, match="_snap_cache"):
+            lambda_runs.summary_overlap_run(
+                lambda_runs.port_package("cpu"), waves=2,
+                check=lambda store: instrument(
+                    store, static_guards(MergeLaneStore)))
 
 
 def _soak_session(channel_type, server_cls=None, n_clients=2):

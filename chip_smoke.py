@@ -19,7 +19,16 @@ and times it with CUDA events:
     variants (phase 6), the golden ring (phase 7), and two rings back to
     back of a 10,000-document partition (testing/serving.py FULL_RING:
     8 windows x 16 ticket steps, ~214k merge ops per ring in three page
-    groups, 1,000 LWW lanes), the second one timed (phase 8).
+    groups, 1,000 LWW lanes), the second one timed (phase 8). Each
+    window of a ring launches the window's kernels: the merge admission
+    (kernels/csrc/window_admit.cu) once a page group, the LWW lane scan
+    (kernels/csrc/lww_scan.cu, its admit mode) once an LWW bucket and the
+    flat16 pack (kernels/csrc/window_pack.cu) once; the counts must be
+    exactly those, and the plain LWW scan may not run on the card's
+    tensors. Each of the three is held bit-exact against its plain
+    version at ring 2's window 0 and timed by the profiler against its
+    bound, and so is the LWW scan on one lane-store bucket of 16,384
+    slots.
 The fused apply has two paths (one warp or one block per document) that
 mergetree/pallas_apply.launch_geometry chooses from the shape: the main
 paths must take the path the rule names, both paths are timed at the main
@@ -57,7 +66,8 @@ applier stages it, skipping the ring's flagged documents
 (apply_ops_paged per group, serve_paged_burst for the
 hot documents' 700 ops each at C = 8,192), a rollback_pages round trip
 and compact_pages; every output held to the plain composition, the scan
-launches per kernel held to the rule, the ring and the burst timed.
+launches per kernel held to the rule, the window's kernels counted as in
+phase 8, the ring and the burst timed.
 Phase 13 replays the 100,000-op keystroke trace op by op through the
 port's MergeTreeClient (a prefix, within SCALAR_BUDGET_S), holds its
 text to the device catch-up's, and fits the cost model
@@ -85,7 +95,8 @@ dirty extract_all) through a bucketed store with the LWW store and a
 paged store on the card, held to the same stores on the CPU and to each
 other, each launch checked against the scan rule, window applies and
 extractions timed, and every scan path timed at the stores' largest
-shapes.
+shapes; the LWW store must launch the lane scan and never run its plain
+version on the card's tensors.
 Phase 16 drives the sequencer lambda (server/tpu_sequencer.
 TpuSequencerLambda, testing/lambda_runs.py scenarios) on the card: the
 serving-ingest fleet at its full width (4,096 documents x 32 ops a wave)
@@ -97,7 +108,10 @@ must be order-identical to the per-window stream at fewer than 0.25
 dispatches per window; and the mixed-family stream of 1,024 documents
 through handler and handler_raw with a restart from the checkpoint, its
 summaries and catch-up artifacts held to the JAX golden (the LWW apply
-timed per call).
+timed per launch; its largest lane-store launch held bit-exact against
+the plain version and timed against its bound). The lambda must launch
+the window's kernels and never run the plain LWW scan on the card's
+tensors.
 Phase 17 drives the local server (server/local_server.TpuLocalServer over
 the sequencer lambda, with the scriptorium, scribe, broadcaster and
 copier, 2 ingest partitions and 2 broadcaster shards) through
@@ -156,8 +170,10 @@ two snapshot points (deterministic, no mismatch, every straight load
 launching), and its first 5,000 ops through MergeTreeReplayer; the texts
 held to the catch-up golden; each step's wall, the file load's split and
 the storage checks' lazy replay per deferred op printed; the phase within
-PHASE20_BUDGET_S. Phase 15's CPU twins start right after phase 5 and run
-beside phases 6-14; the twins of phase 19 (a) and phase 20 (b) start with
+PHASE20_BUDGET_S. Phase 15's CPU twins start right after the kernel build and run
+beside phases 1-14; phase 16's start when phase 15's card run ends,
+phase 17's when phase 16's card part ends (each beside the wait for the
+twins before it); the twins of phase 19 (a) and phase 20 (b) start with
 phase 18 and run beside it.
 Phase 21 drives the server services on the card: (b) a cluster takeover
 (testing/cluster_runs at golden.CLUSTER_CARD: TpuLocalServer cores on
@@ -334,8 +350,8 @@ LANE_BACKLOG = 700
 LANE_DIRTY_STRIDE = 100
 LANE_ROW_SHAPES = 4
 # The CPU composition of phase 15 runs in a process per store, started
-# after phase 5 (CPU threads each may use; seconds each may take once
-# phase 15 reads it).
+# after the kernel build (CPU threads each may use; seconds each may take
+# once phase 15 reads it).
 LANE_CPU_THREADS = 3
 LANE_CPU_TIMEOUT = 600
 # Phase 16, the sequencer lambda: the serving-ingest fleet's measured
@@ -998,6 +1014,10 @@ def main(north_star_only: bool = False) -> int:
     build.library()
     print(f"setup: kernel build {time.perf_counter() - t0:.2f} s "
           f"({build.source_hash()})", flush=True)
+    # Phase 15's CPU twins run beside phases 1-14 (the paged store's is
+    # the longest twin of the script).
+    lane_twins = None if north_star_only else start_lane_twins()
+    twins_from = time.perf_counter()
     if set_up is not None:
         t0 = time.perf_counter()
         early = finish_set_up(set_up)
@@ -1030,7 +1050,11 @@ def main(north_star_only: bool = False) -> int:
                      "ticket_scan_kernel<3>", "ticket_scan_kernel<4>"],
             f"expected the summary-length kernel and 4 ticket-scan "
             f"kernels, ptxas reports {mine}")
-    checked = {*apply_kernels, *scan_kernels, *mine}
+    window = sorted(k for k in report if k in WINDOW_KERNELS)
+    require(window == sorted(WINDOW_KERNELS), f"expected the serving "
+            f"window's kernels {sorted(WINDOW_KERNELS)}, ptxas reports "
+            f"{window}")
+    checked = {*apply_kernels, *scan_kernels, *mine, *window}
     spilled = sorted(k for k in checked  # refused after the timings
                      if any(report[k].get(key) for key in
                             ("stack", "spill_stores", "spill_loads")))
@@ -1299,8 +1323,6 @@ def main(north_star_only: bool = False) -> int:
     del admitted, p_plain
 
     if not north_star_only:
-        lane_twins = start_lane_twins()
-        twins_from = time.perf_counter()
         try:
             clock.mark("phases 6-8")
             rows += serving_phases(dev, card)
@@ -1324,7 +1346,7 @@ def main(north_star_only: bool = False) -> int:
         except BaseException:
             stop_twins(lane_twins.values())
             raise
-        print(f"phases 6-14 ({time.perf_counter() - twins_from:.1f} s) ran "
+        print(f"phases 1-14 ({time.perf_counter() - twins_from:.1f} s) ran "
               f"beside phase 15's CPU twins (two processes of "
               f"{LANE_CPU_THREADS} threads) and phase 22's (one process of "
               f"{CAPACITY_CPU_THREADS}, from the build on): their "
@@ -1332,17 +1354,24 @@ def main(north_star_only: bool = False) -> int:
               f"and host ms, the summarize passes) shared the host with "
               f"them", flush=True)
         clock.mark("phase 15")
-        rows += lane_store_phase(dev, card, lane_twins)
+        # Each of phases 16 and 17 starts its CPU twins while the phase
+        # before waits for its own.
+        lambda_twins, server_twins = {}, {}
+        rows += lane_store_phase(
+            dev, card, lane_twins,
+            after_card=lambda: lambda_twins.update(start_lambda_twins()))
         clock.mark("phase 16")
         state = "was still running" if capacity_twin.poll() is None \
             else "had finished"
         print(f"phase 22 (a)'s CPU twin {state} when phase 16 began",
               flush=True)
-        lambda_phase(dev, card)
+        rows += lambda_phase(
+            dev, card, lambda_twins,
+            after_card=lambda: server_twins.update(start_server_twins()))
         clock.mark("phase 17")
         decay_twin = start_operator_twin("decay")
         try:
-            server_rows, fig17 = server_phase(dev, card)
+            server_rows, fig17 = server_phase(dev, card, server_twins)
             rows += server_rows
         except BaseException:
             stop_twins([decay_twin])
@@ -1381,6 +1410,12 @@ def main(north_star_only: bool = False) -> int:
     clock.close()
 
     require(not spilled, f"kernels use stack or spill: {spilled}")
+    if not north_star_only:
+        sources = {r["source"] for r in rows}
+        every = {f"fluidframework_tpu_torch/kernels/csrc/{p.name}"
+                 for p in build.CSRC.glob("*.cu")}
+        require(sources == every, f"the kernels line lacks the sources "
+                f"{sorted(every - sources)}")
     out = []
     for r in rows:
         b_ms = r["bytes"] / PEAK_BYTES_PER_S * 1e3
@@ -1590,16 +1625,21 @@ def serving_phases(dev, card: str) -> list:
         torch.cuda.synchronize()
         pa.reset_launches()
         tk.scan_tickets.launches = 0
-        got = serve_step.serve_megakernel(ts, store.pool, lww, *args,
-                                          stats=True)
-        torch.cuda.synchronize()
+        reset_window_counts()
+        with PlainLwwGuard() as guard:
+            got = serve_step.serve_megakernel(ts, store.pool, lww, *args,
+                                              stats=True)
+            torch.cuda.synchronize()
         counts = dict(wrappers[0].variant_launches)
         counts["ticket_scan"] = tk.scan_tickets.launches
+        counts.update(window_counts())
         paths = dict(wrappers[0].path_launches)
         assert_trees_equal(got, want, "ring vs the plain composition")
         require(counts["ticket_scan"] == spec.windows,
                 f"ring: {counts['ticket_scan']} ticket_scan launches for "
                 f"{spec.windows} windows")
+        require_window_launches("phase 8 ring", counts, guard, spec.windows,
+                                len(args.merge_xs), len(args.lww_xs))
         expect = dict.fromkeys(paths, 0)
         for gi, view in enumerate(got[5]):
             b, c = view.length.shape
@@ -1753,6 +1793,188 @@ def serving_phases(dev, card: str) -> list:
         mine = [r for r in per_group if r["variant"] == variant]
         require(bool(mine), f"no page group runs the {variant} variant")
         rows.append(max(mine, key=lambda r: r["cells"]))
+    return rows + window_rows(dev, card, ts1, got[5], lww1, args, ticketed,
+                              counts)
+
+
+WINDOW_SOURCES = {
+    "lww_scan": ("fluidframework_tpu_torch/kernels/csrc/lww_scan.cu",
+                 "fluidframework_tpu/server/lww_kernel.py:102"),
+    "window_admit": ("fluidframework_tpu_torch/kernels/csrc/window_admit.cu",
+                     "fluidframework_tpu/server/serve_step.py:39"),
+    "window_pack": ("fluidframework_tpu_torch/kernels/csrc/window_pack.cu",
+                    "fluidframework_tpu/server/serve_step.py:39"),
+}
+WINDOW_KERNELS = ("lww_scan_kernel", "window_admit_kernel",
+                  "window_pack_kernel")
+LWW_BUCKET_C = 16_384   # the lane store's last key-capacity bucket
+LWW_BUCKET_T = 4
+
+
+def require_window_launches(what: str, counts: dict, guard, windows: int,
+                            groups: int, buckets: int) -> None:
+    """A window path's launches of the window's kernels: one pack a
+    window, one admission a group a window, one LWW scan a bucket a
+    window; and no plain LWW call on the card's tensors."""
+    want = {"window_pack": windows, "window_admit": windows * groups,
+            "lww_scan": windows * buckets}
+    got = {k: counts.get(k, 0) for k in want}
+    require(got == want, f"{what}: the window's kernels launched {got}, "
+            f"expected {want}")
+    require(guard.cuda_calls == 0, f"{what}: the plain LWW scan ran "
+            f"{guard.cuda_calls} times on the card's tensors")
+
+
+def lww_work(state, kinds) -> tuple:
+    """(bytes, operations) of one LWW scan: the table read and written
+    once, and per real op a sweep of its C slots (two compares a slot for
+    SET, one for DELETE and CLEAR; one add for ADD)."""
+    b, c = state.key.shape
+    k = kinds.cpu().numpy()
+    table = b * (c * 12 + 9)
+    ops = c * (2 * int((k == 1).sum()) + int(((k == 2) | (k == 3)).sum())) \
+        + int((k == 4).sum())
+    return 2 * table, ops
+
+
+def window_row(name: str, variant: str, card: str, launches: int, fn, plain,
+               flat, kernel: str, shape: str, nbytes: int, ops: int) -> dict:
+    """A kernel row of the serving window's kernels: bit-exact against the
+    plain version on the same inputs, timed back to back and by the
+    profiler, printed beside its bound."""
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(flat(got), flat(want))
+    r = dict(name=name, variant=variant, source=WINDOW_SOURCES[name][0],
+             replaces=WINDOW_SOURCES[name][1], on_main_path=True,
+             launches=launches, err=err, ms=ms_of(fn, 20),
+             device_ms=one_kernel_ms(fn, 20, kernel),
+             plain_ms=ms_of(plain, 1), library_ms=None, shape=shape,
+             bytes=nbytes, ops=ops)
+    bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S) * 1e3
+    dev_ms = r["device_ms"]
+    share = f"{bound / dev_ms:.1%}" if dev_ms else "not measured"
+    print(f"  {name}[{variant}] {shape}: {fmt_ms(dev_ms)} kernel device "
+          f"time, {r['ms']:.4f} ms back to back, plain {r['plain_ms']:.3f} "
+          f"ms; bound {bound:.5f} ms ({nbytes} bytes, {ops} operations): "
+          f"{share} of the bound; max_abs_err {err}; launches on the main "
+          f"path {launches}; card {card}", flush=True)
+    require(err == 0, f"{name}[{variant}] {shape}: kernel vs plain differ")
+    return r
+
+
+def flat_tree(x) -> list:
+    """The tensors of a (nested) tuple, None dropped."""
+    if x is None:
+        return []
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for part in x for t in flat_tree(part)]
+
+
+def window_rows(dev, card: str, ts, views, lww, args, ticketed,
+                counts: dict) -> list:
+    """The serving window's kernels at ring 2's window 0 (the admission of
+    every group, the row its largest; the LWW bucket in the admit mode;
+    the pack of the whole window) and the LWW scan on one lane-store
+    bucket of LWW_BUCKET_C slots, each bit-exact against its plain
+    version and timed against its bound."""
+    from fluidframework_tpu_torch.server import lww_kernel as lk
+    from fluidframework_tpu_torch.server import serve_step as ss
+    seq, msn = ticketed.seq, ticketed.min_seq
+    b, t = seq.shape
+    admit_rows = []
+    for gi, mc in enumerate(args.merge_xs):
+        mc0 = mc[0]
+        mr0 = None if args.runs_xs[gi] is None else args.runs_xs[gi][0]
+        lanes, tm = mc0.shape[1:]
+        k = 0 if mr0 is None else mr0.shape[-1]
+        # read: the kind, doc and step columns, each op's two gathers (and
+        # each member's length, doc, step and gather); written: kind, seq,
+        # msn (and each member's seq, each lane's flag)
+        nbytes = lanes * tm * (3 * 4 + 2 * 4 + 3 * 4) + \
+            lanes * tm * k * (4 * 4 + 4) + (lanes if k else 0)
+        admit_rows.append(window_row(
+            "window_admit", "runs" if k else "plain", card,
+            counts["window_admit"],
+            lambda mc0=mc0, mr0=mr0: ss.admit_merge_ops(seq, msn, mc0, mr0),
+            lambda mc0=mc0, mr0=mr0: ss.admit_merge_ops_plain(seq, msn, mc0,
+                                                              mr0),
+            flat_tree, "window_admit_kernel",
+            f"group {gi} [{lanes} lanes x Tm {tm}, RUN_K {k}] (ring 2, "
+            f"window 0)", nbytes, lanes * tm * (2 + 2 * k)))
+    rows = [max(admit_rows, key=lambda r: r["bytes"])]
+
+    lc0 = args.lww_xs[0][0]
+    lanes, tm = lc0.shape[1:]
+    window = lk.apply_lww_window_plain(lww[0], lc0, seq)
+    table, ops = lww_work(lww[0], window[1])
+    rows.append(window_row(
+        "lww_scan", "window", card, counts["lww_scan"],
+        lambda: lk.apply_lww_window(lww[0], lc0, seq),
+        lambda: lk.apply_lww_window_plain(lww[0], lc0, seq), flat_tree,
+        "lww_scan_kernel",
+        f"[{lanes} lanes x C {lww[0].key.shape[1]}] x Tm {tm} (ring 2, "
+        "window 0)", table + lanes * tm * (6 * 4 + 4 + 4) + lanes * 4, ops))
+
+    captured = {}
+    real = ss._pack_launch
+
+    def capture(*a):
+        captured["args"] = a
+        return real(*a)
+    ss._pack_launch = capture
+    try:
+        ss._serve_window_impl(
+            ts, args.ticket_xs[0], list(views), [m[0] for m in args.merge_xs],
+            list(lww), [x[0] for x in args.lww_xs],
+            [None if r is None else r[0] for r in args.runs_xs],
+            noop_skip=True, stats=True, paged_scalars=True)
+        torch.cuda.synchronize()
+    finally:
+        ss._pack_launch = real
+    pack_args = captured["args"]
+    nbytes = b * (4 + 1) + b * t * (4 + 4 + 1 + 1)
+    for over, count, kinds in pack_args[2] + pack_args[4]:
+        nbytes += over.numel() * (1 + 4) + kinds.numel() * 4
+    nbytes += sum(x.numel() * x.element_size() for nr in pack_args[3]
+                  for x in nr)
+    out = ss._pack_window_plain(*pack_args)
+    rows.append(window_row(
+        "window_pack", "paged_stats", card, counts["window_pack"],
+        lambda: ss._pack_window(*pack_args),
+        lambda: ss._pack_window_plain(*pack_args), flat_tree,
+        "window_pack_kernel",
+        f"[{b} x T {t}], {len(pack_args[2])} groups, {len(pack_args[4])} "
+        f"LWW buckets, {out.numel()} int16 (ring 2, window 0)",
+        nbytes + out.numel() * 2, b * t * 8))
+
+    rng = np.random.default_rng(19)
+    c = LWW_BUCKET_C
+    key = rng.integers(0, 2 * c, (1, c)).astype(np.int32)
+    key[rng.random((1, c)) < 0.5] = -1
+    state = lk.LwwState(
+        key=torch.from_numpy(key).to(dev),
+        val=torch.from_numpy(np.where(key >= 0, 7, -1).astype(np.int32)
+                             ).to(dev),
+        seq=torch.ones((1, c), dtype=torch.int32, device=dev),
+        counter=torch.zeros(1, dtype=torch.int32, device=dev),
+        last_seq=torch.zeros(1, dtype=torch.int32, device=dev),
+        overflow=torch.zeros(1, dtype=torch.bool, device=dev))
+    present = key[key >= 0]
+    ops = lk.LwwOps(*(torch.tensor([col], dtype=torch.int32, device=dev)
+                      for col in ([1, 1, 2, 4],
+                                  [int(present[-1]), 3 * c, int(present[0]),
+                                   0], [70, 71, 72, 73], [0, 0, 0, -4],
+                                  [10, 11, 12, 13])))
+    table, n_ops = lww_work(state, ops.kind)
+    rows.append(window_row(
+        "lww_scan", "bucket", card, counts["lww_scan"],
+        lambda: lk.apply_lww_batched(state, ops),
+        lambda: lk.apply_lww_batched_plain(state, ops), flat_tree,
+        "lww_scan_kernel",
+        f"[1 lane x C {c}] x T {LWW_BUCKET_T} (the lane store's last "
+        "bucket)", table + LWW_BUCKET_T * 20, n_ops))
     return rows
 
 
@@ -2384,12 +2606,21 @@ def paged_phase(dev, card: str) -> list:
     pa.reset_launches()
     kernel.reset_launches()
     tk.scan_tickets.launches = 0
-    got = serve_step.serve_megakernel(ts0, store.pool, lww0, *args,
-                                      stats=True)
-    torch.cuda.synchronize()
+    reset_window_counts()
+    with PlainLwwGuard() as guard:
+        got = serve_step.serve_megakernel(ts0, store.pool, lww0, *args,
+                                          stats=True)
+        torch.cuda.synchronize()
     require(tk.scan_tickets.launches == spec.windows,
             f"phase 12 ring: {tk.scan_tickets.launches} ticket_scan "
             f"launches for {spec.windows} windows")
+    window_n = window_counts()
+    require_window_launches("phase 12 ring", window_n, guard, spec.windows,
+                            len(args.merge_xs), len(args.lww_xs))
+    print(f"phase 12: the ring's window kernels launched {window_n} "
+          f"({spec.windows} windows, {len(args.merge_xs)} groups, "
+          f"{len(args.lww_xs)} LWW buckets); no plain LWW call on the "
+          f"card's tensors", flush=True)
     fused_n = pa.apply_ops_fused.launches
     fused_by = {v: n for v, n in pa.apply_ops_fused.variant_launches.items()
                 if n}
@@ -3219,17 +3450,48 @@ def lane_cpu_main(args: str, store: str) -> int:
 
 def start_lane_twins() -> dict:
     """Phase 15's CPU composition, a child process per store, started
-    right after phase 5 so that it runs beside phases 6-14 and is done,
-    or nearly, when phase 15 reads it."""
+    right after the kernel build so that it runs beside phases 1-14 and
+    is done, or nearly, when phase 15 reads it (the paged store's takes
+    the longest). Killed at exit if still running."""
     from fluidframework_tpu_torch.testing import serving
     spec = getattr(serving, LANE_SPEC)
-    return {store: subprocess.Popen(
+    procs = {store: subprocess.Popen(
         [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
          "lane_cpu_main(sys.argv[1], sys.argv[2]))",
          json.dumps([spec, LANE_SEED, LANE_BACKLOG, LANE_DIRTY_STRIDE]),
          store], cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=subprocess.PIPE, text=True)
         for store in ("bucketed", "paged")}
+    atexit.register(stop_twins, list(procs.values()))
+    return procs
+
+
+def start_lambda_twins() -> dict:
+    """Phase 16's CPU twins (lambda_cpu_main), a child process per
+    layout, started when phase 15's card run ends, while phase 15 waits
+    for its own twins. Killed at exit if still running."""
+    procs = {layout: subprocess.Popen(
+        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
+         "lambda_cpu_main(sys.argv[1]))", layout],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+        for layout in ("bucketed", "paged")}
+    atexit.register(stop_twins, list(procs.values()))
+    return procs
+
+
+def start_server_twins() -> dict:
+    """Phase 17's CPU twins (server_cpu_main), a child process per
+    layout, started when phase 16's card part ends, while phase 16 waits
+    for its own twins. Killed at exit if still running."""
+    procs = {layout: subprocess.Popen(
+        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
+         "server_cpu_main(sys.argv[1]))", layout],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+        for layout in ("bucketed", "paged")}
+    atexit.register(stop_twins, list(procs.values()))
+    return procs
 
 
 def stop_twins(procs) -> None:
@@ -3239,7 +3501,8 @@ def stop_twins(procs) -> None:
             proc.wait()
 
 
-def lane_store_phase(dev, card: str, cpu_procs: dict) -> list:
+def lane_store_phase(dev, card: str, cpu_procs: dict,
+                     after_card=None) -> list:
     """Phase 15, the sequencer's lane stores (server/tpu_sequencer.py).
     (a) testing/lanes.golden_run on the card against the committed JAX
     golden (states, results, extracts). (b) The partition: LANE_SPEC's
@@ -3253,14 +3516,16 @@ def lane_store_phase(dev, card: str, cpu_procs: dict) -> list:
     take the rule's geometry, each store call timed by the host clock
     around a synced call. (c) The same stores on the CPU over the same
     schedules, in the child processes `cpu_procs` (start_lane_twins,
-    started after phase 5): equal results (placements, texts, entries, recovery
+    started after the kernel build): equal results (placements, texts, entries, recovery
     counts, extracts, LWW snapshots). (d) The bucketed and the paged
     store agree (testing/lanes.cross_store_mismatches); promotions, folds,
     rescues, page compactions and the paged burst happened; every launch
     shape is a power of two and a replay of the windows through fresh
     stores adds no apply signature.
     Returns the scan kernel's rows at the LANE_ROW_SHAPES largest store
-    shapes (every path timed; the rule's within PATH_MARGIN)."""
+    shapes (every path timed; the rule's within PATH_MARGIN).
+    `after_card`, if given, is called when the card's run ends, before
+    the wait for the CPU composition (it starts the next phase's twins)."""
     from fluidframework_tpu_torch.mergetree import kernel
     from fluidframework_tpu_torch.server import tpu_sequencer as seq
     from fluidframework_tpu_torch.telemetry import counters
@@ -3337,17 +3602,23 @@ def lane_store_phase(dev, card: str, cpu_procs: dict) -> list:
 
     ledger.reset()
     kernel.reset_launches()
+    reset_window_counts()
     kernel._launch = counted_launch
     t0 = time.perf_counter()
     try:
-        card_res = run_lane_stores(steps, dev, timer, after)
-        torch.cuda.synchronize()
+        with PlainLwwGuard() as guard:
+            card_res = run_lane_stores(steps, dev, timer, after)
+            torch.cuda.synchronize()
     except BaseException:
         stop_twins(cpu_procs.values())
         raise
     finally:
         kernel._launch = launch
     card_s = split["card"] = time.perf_counter() - t0
+    lww_n = window_counts()["lww_scan"]
+    require(lww_n > 0 and guard.cuda_calls == 0, f"phase 15: the LWW store "
+            f"launched the lane scan {lww_n} times and ran its plain "
+            f"version {guard.cuda_calls} times on the card's tensors")
     launches = {k: n for k, n in kernel.scan_apply.kernel_launches.items()
                 if n}
     syms = ledger.snapshot()["symbols"]
@@ -3357,6 +3628,8 @@ def lane_store_phase(dev, card: str, cpu_procs: dict) -> list:
     # -- (c) the CPU composition, from the process started above -------------
     warm_sigs = (seq._apply_keep_batched._cache_size(),
                  seq._apply_paged_probe._cache_size())
+    if after_card is not None:
+        after_card()
     t0 = time.perf_counter()
     cpu_dig, cpu_secs = {}, {}
     try:
@@ -3382,8 +3655,9 @@ def lane_store_phase(dev, card: str, cpu_procs: dict) -> list:
         shapes[key] = shapes.get(key, 0) + 1
     print(f"phase 15 (b): {LANE_SPEC} ({spec.docs} documents) scenario "
           f"generated in {gen_s:.2f} s; the card's run {card_s:.1f} s, the "
-          f"CPU's {cpu_secs} s in a process per store, started after phase "
-          f"5 (waited {waited_s:.1f} s after the card's); scan launches "
+          f"CPU's {cpu_secs} s in a process per store, started after the "
+          f"kernel build (waited {waited_s:.1f} s after the card's); scan "
+          f"launches "
           f"{launches}; by path (count, "
           f"event ms) {path_ms}; shapes (B, C, T, variant): launches "
           f"{dict(sorted(shapes.items()))}; serve.paged_burst calls "
@@ -3409,7 +3683,8 @@ def lane_store_phase(dev, card: str, cpu_procs: dict) -> list:
               if lb.startswith("lww")]
     lww_where = card_res["bucketed"]["lww"]["where"]
     lww_p50 = float(np.median(lww_ms))
-    print(f"phase 15 LWW: {len(lww_where)} channels, apply ms per window "
+    print(f"phase 15 LWW: {len(lww_where)} channels, {lww_n} lww_scan "
+          f"launches, apply ms per window "
           f"{[round(x, 3) for x in lww_ms]} (p50 {lww_p50:.3f} ms, "
           f"{ops_of['window0'][1] / (lww_p50 / 1e3):.0f} ops/s); the wide "
           f"map at {lww_where['|'.join(lanes.WIDE_MAP_KEY)]}; card {card}",
@@ -3517,6 +3792,7 @@ def lambda_counts():
     got = {"ticket_scan": tk.scan_tickets.launches,
            "fused_apply": pa.apply_ops_fused.launches,
            "scan_apply": kernel.scan_apply.launches}
+    got.update(window_counts())
     got.update({f"fused_apply[{v}]": n for v, n in
                 pa.apply_ops_fused.variant_launches.items() if n})
     got.update({f"fused_apply<{p}>": n for p, n in
@@ -3524,6 +3800,50 @@ def lambda_counts():
     got.update({f"scan_apply:{k}": n for k, n in
                 kernel.scan_apply.kernel_launches.items() if n})
     return got
+
+
+def window_counts() -> dict:
+    """The serving window's kernels' counts: the LWW lane scan (both
+    modes), the merge admission and the flat16 pack."""
+    from fluidframework_tpu_torch.server import lww_kernel as lk
+    from fluidframework_tpu_torch.server import serve_step as ss
+    return {"lww_scan": lk.apply_lww_batched.launches,
+            "window_admit": ss.admit_merge_ops.launches,
+            "window_pack": ss._pack_window.launches}
+
+
+def reset_window_counts() -> None:
+    from fluidframework_tpu_torch.server import lww_kernel as lk
+    from fluidframework_tpu_torch.server import serve_step as ss
+    lk.apply_lww_batched.launches = 0
+    ss.admit_merge_ops.launches = 0
+    ss._pack_window.launches = 0
+
+
+class PlainLwwGuard:
+    """While on, counts the calls of the LWW lane scan's plain versions
+    (lww_kernel.apply_lww_batched_plain and apply_lww_window_plain) whose
+    state lies on the card: the main path must make none."""
+
+    def __enter__(self):
+        from fluidframework_tpu_torch.server import lww_kernel as lk
+        self.lk, self.cuda_calls = lk, 0
+        self.saved = {n: getattr(lk, n) for n in (
+            "apply_lww_batched_plain", "apply_lww_window_plain")}
+
+        def counted(fn):
+            def call(state, *args):
+                self.cuda_calls += state.key.device.type == "cuda"
+                return fn(state, *args)
+            return call
+        for n, fn in self.saved.items():
+            setattr(lk, n, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.lk, n, fn)
+        return False
 
 
 def counts_since(before: dict) -> dict:
@@ -3539,6 +3859,7 @@ def reset_lambda_counts() -> None:
     tk.scan_tickets.launches = 0
     pa.reset_launches()
     kernel.reset_launches()
+    reset_window_counts()
 
 
 SERVING_COUNTERS = ("serving.window_dispatches", "serving.bursts",
@@ -3631,7 +3952,8 @@ def lambda_serving(dev, card: str, layout: str, want: dict) -> dict:
     return res
 
 
-def lambda_phase(dev, card: str) -> None:
+def lambda_phase(dev, card: str, twins: dict = None,
+                 after_card=None) -> list:
     """Phase 16, the sequencer lambda (server/tpu_sequencer.
     TpuSequencerLambda) on the card, client_timeout_s=0.0, through the
     scenarios of testing/lambda_runs.py. The kernel counts are set to 0
@@ -3643,15 +3965,19 @@ def lambda_phase(dev, card: str) -> None:
     and profiled, LAMBDA_EXTRA more), bucketed and paged: warm ops/s, flush p50,
     dispatches and kernel launches per window, the device's busy share;
     the emitted stream and the texts held to the JAX golden and to the
-    port's CPU twin (a child process per layout, started first).
+    port's CPU twin (a child process per layout, started while phase 15
+    waited for its own).
     (b) The ragged storm fleet on paged lanes: the megakernel stream
     order-identical to the per-window (sync) stream, fewer than 0.25
     dispatches per served window, both equal to the JAX golden.
     (c) The mixed-family stream (LAMBDA_MIXED: 1,024 documents), half
     through handler, a restart from the checkpoint and the delta store,
     half through handler_raw; summaries and catch-up artifacts; equal to
-    the JAX golden. The LWW apply (plain PyTorch) is timed per call with
-    CUDA events: its stage time, calls and bytes."""
+    the JAX golden. Each launch of the LWW lane scan is timed with CUDA
+    events (its stage time, launches and bytes), and the largest
+    lane-store launch is held to the plain version and timed (the
+    returned kernel row). No plain LWW call may touch the card's tensors
+    in the phase, and the window's kernels must launch."""
     from fluidframework_tpu_torch.server import lww_kernel
     from fluidframework_tpu_torch.server import tpu_sequencer as seq
     from fluidframework_tpu_torch.testing import golden, lambda_runs
@@ -3660,12 +3986,10 @@ def lambda_phase(dev, card: str) -> None:
     g = golden.load_lambda()
     # The CPU twins (LAMBDA_CPU_THREADS threads each) run beside the
     # card's run, as phase 15's do: the host's other cores are theirs.
-    twins = {layout: subprocess.Popen(
-        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
-         "lambda_cpu_main(sys.argv[1]))", layout],
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        stdout=subprocess.PIPE, text=True)
-        for layout in ("bucketed", "paged")}
+    # main starts them while phase 15 waits for its own (`twins`).
+    if not twins:
+        twins = start_lambda_twins()
+    guard = PlainLwwGuard().__enter__()
     try:
         reset_lambda_counts()
         # Each part's launches, counted from where the last part ended.
@@ -3714,21 +4038,33 @@ def lambda_phase(dev, card: str) -> None:
               f"card {card}", flush=True)
 
         # -- (c) the mixed-family stream, the LWW apply timed --------------
-        apply_lww = lww_kernel.apply_lww_batched
-        lww_calls = []
+        # Every launch of the LWW lane scan (the lane store's and the
+        # window's), timed by CUDA events; the largest lane-store launch
+        # is kept for the kernel row.
+        launch_lww = lww_kernel._launch
+        lww_calls, largest = [], {}
 
-        def timed_lww(state, ops):
+        def timed_lww(state, ops, *window):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            out = apply_lww(state, ops)
+            out = launch_lww(state, ops, *window)
             e1.record()
             nbytes = sum(t.numel() * t.element_size()
-                         for t in (*state, *ops, *out))
-            lww_calls.append((e0, e1, nbytes, tuple(ops.kind.shape)))
+                         for t in (*state, *out[0]))
+            if ops is not None:
+                nbytes += sum(t.numel() * t.element_size() for t in ops)
+                if state.key.numel() > largest.get("cells", -1):
+                    largest.update(cells=state.key.numel(),
+                                   state=clone_state(state),
+                                   ops=clone_state(ops))
+            shape = tuple(state.key.shape) + (
+                (ops.kind.shape[-1],) if ops is not None
+                else (window[0].shape[-1],))
+            lww_calls.append((e0, e1, nbytes, shape))
             return out
 
-        lww_kernel.apply_lww_batched = timed_lww
+        lww_kernel._launch = timed_lww
         # The stream's undecodable frames are counted (mixed["poison"]);
         # their one warning each stays off the output.
         log = logging.getLogger(seq.__name__)
@@ -3740,7 +4076,7 @@ def lambda_phase(dev, card: str) -> None:
             mixed = lambda_runs.mixed_run(pkg, *golden.LAMBDA_MIXED)
             torch.cuda.synchronize()
         finally:
-            lww_kernel.apply_lww_batched = apply_lww
+            lww_kernel._launch = launch_lww
             log.setLevel(level)
         parts["(c)"] = counts_since(launched)
         mixed_s = time.perf_counter() - t0
@@ -3758,16 +4094,20 @@ def lambda_phase(dev, card: str) -> None:
               f"equals the JAX golden: stream, nacks, views, summaries, "
               f"catch-up; {mixed_s:.1f} s; card {card}", flush=True)
         shapes = sorted({s for _a, _b, _n, s in lww_calls})
-        print(f"phase 16 LWW apply (lww_kernel.apply_lww_batched, plain "
-              f"PyTorch): {len(lww_calls)} calls, {lww_ms:.3f} ms by CUDA "
+        print(f"phase 16 LWW apply (lww_kernel._launch, the lww_scan.cu "
+              f"kernel): {len(lww_calls)} launches, {lww_ms:.3f} ms by CUDA "
               f"events in all ({lww_ms / max(1, len(lww_calls)):.4f} ms a "
-              f"call), {lww_bytes} bytes read and written: bound "
+              f"launch), {lww_bytes} bytes read and written: bound "
               f"{lww_bytes / PEAK_BYTES_PER_S * 1e3:.5f} ms at 3.35 TB/s; "
-              f"op shapes [B, T] {shapes[:8]}; card {card}", flush=True)
+              f"shapes [B, C, T] {shapes[:8]}; card {card}", flush=True)
         counts = lambda_counts()
         require(counts["ticket_scan"] > 0 and counts["fused_apply"] > 0
-                and counts["scan_apply"] > 0, f"phase 16: the lambda did "
+                and counts["scan_apply"] > 0 and counts["lww_scan"] > 0
+                and counts["window_admit"] > 0
+                and counts["window_pack"] > 0, f"phase 16: the lambda did "
                 f"not launch every kernel of its path: {counts}")
+        require(guard.cuda_calls == 0, f"phase 16: the plain LWW scan ran "
+                f"{guard.cuda_calls} times on the card's tensors")
         summed = {k: sum(p.get(k, 0) for p in parts.values())
                   for k in counts}
         require(summed == counts, f"phase 16: the parts' launches {parts} "
@@ -3776,8 +4116,23 @@ def lambda_phase(dev, card: str) -> None:
             print(f"phase 16 {name}: kernel launches {part}", flush=True)
         print(f"phase 16: the lambda's kernel launches, all parts (counts "
               f"from 0 at the phase's start) {counts}", flush=True)
+        # The row's own launches come after the phase's counts.
+        require(bool(largest), "phase 16 (c): the LWW store launched no "
+                "lane scan")
+        st, ops = largest["state"], largest["ops"]
+        table, n_ops = lww_work(st, ops.kind)
+        b, t = ops.kind.shape
+        rows = [window_row(
+            "lww_scan", "lane_store", card, parts["(c)"].get("lww_scan", 0),
+            lambda: lww_kernel.apply_lww_batched(st, ops),
+            lambda: lww_kernel.apply_lww_batched_plain(st, ops), flat_tree,
+            "lww_scan_kernel",
+            f"[{b} lanes x C {st.key.shape[1]}] x T {t} (phase 16 (c)'s "
+            "largest lane-store launch)", table + b * t * 20, n_ops)]
 
         # -- (a) the CPU twin -------------------------------------------------
+        if after_card is not None:
+            after_card()
         t0 = time.perf_counter()
         for layout, proc in twins.items():
             text, _ = proc.communicate(timeout=LAMBDA_CPU_TIMEOUT)
@@ -3793,8 +4148,10 @@ def lambda_phase(dev, card: str) -> None:
                   f"{time.perf_counter() - t0:.1f} s after the card)",
                   flush=True)
     finally:
+        guard.__exit__(None, None, None)
         stop_twins(twins.values())
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
 
 
 def server_cpu_main(layout: str) -> int:
@@ -4144,7 +4501,7 @@ def kernel_rows(captured: dict, counts: dict, card: str,
     return rows
 
 
-def server_phase(dev, card: str) -> list:
+def server_phase(dev, card: str, twins: dict = None) -> list:
     """Phase 17, the local server (server/local_server.TpuLocalServer) on
     the card through testing/server_runs.py at golden.SERVER_CARD (512
     documents x 32 inserts a wave in boxcars of 8, map and counter
@@ -4154,17 +4511,14 @@ def server_phase(dev, card: str) -> list:
     0 at the start; the server must launch the ticket scan and the scan
     apply, each layout's launches are printed and must add up to the
     phase's; both layouts are held to the JAX golden and to the port's
-    CPU twin (a child process per layout, started first)."""
+    CPU twin (a child process per layout, started while phase 16 waited
+    for its own)."""
     from fluidframework_tpu_torch.testing import golden
 
     t_phase = time.perf_counter()
     g = golden.load_server()["card"]
-    twins = {layout: subprocess.Popen(
-        [sys.executable, "-c", TWIN_PRELUDE + "sys.exit(chip_smoke."
-         "server_cpu_main(sys.argv[1]))", layout],
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        stdout=subprocess.PIPE, text=True)
-        for layout in ("bucketed", "paged")}
+    if not twins:  # main starts them while phase 16 waits
+        twins = start_server_twins()
     captured, restore = capture_largest_launches()
     try:
         reset_lambda_counts()

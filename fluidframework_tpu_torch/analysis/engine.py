@@ -14,7 +14,10 @@ scope is a declared root table, DEVICE_PATH_ROOTS: pipeline.full_step
 (as its factory make_full_step), the serve_step window, burst, paged
 burst and megakernel entry points, the kernel.apply_ops* scan apply and
 the paged ops (each with its _keep twin), ticket_kernel.scan_tickets,
-the pallas_apply / pallas_ops wrappers, and lww_kernel._scan. The call
+the pallas_apply / pallas_ops wrappers, the LWW lane scan's two entry
+points (lww_kernel.apply_lww_batched and apply_lww_window) and the
+window's admission and pack wrappers (serve_step.admit_merge_ops and
+_pack_window). The call
 graph (callgraph.py) closes the table over resolved callees in the
 analyzed package; the closure does not enter a function named *_plain
 (the plain references the kernels are held to, run on CPU tensors) or
@@ -128,7 +131,10 @@ DEVICE_PATH_ROOTS = (
     "fluidframework_tpu_torch.server.ticket_kernel:scan_tickets",
     "fluidframework_tpu_torch.mergetree.pallas_apply:apply_ops_fused",
     "fluidframework_tpu_torch.mergetree.pallas_ops:summary_lengths",
-    "fluidframework_tpu_torch.server.lww_kernel:_scan",
+    "fluidframework_tpu_torch.server.lww_kernel:apply_lww_batched",
+    "fluidframework_tpu_torch.server.lww_kernel:apply_lww_window",
+    "fluidframework_tpu_torch.server.serve_step:admit_merge_ops",
+    "fluidframework_tpu_torch.server.serve_step:_pack_window",
 )
 
 #: The closure does not enter these: the plain references the kernels are

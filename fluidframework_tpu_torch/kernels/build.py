@@ -148,6 +148,22 @@ def library() -> ctypes.CDLL:
                                          i32, i32, i32, i32, i32, i32,
                                          ctypes.c_longlong, vp]
         lib.fluid_scan_apply.restype = i32
+        # ptrs, batch, capacity, steps, plane rows, plane cols, stream
+        lib.fluid_lww_scan.argtypes = [ctypes.POINTER(vp), i32, i32, i32,
+                                       i32, i32, vp]
+        lib.fluid_lww_scan.restype = i32
+        # ptrs, lanes, steps, run_k, plane rows, plane cols, stream
+        lib.fluid_window_admit.argtypes = [ctypes.POINTER(vp), i32, i32,
+                                           i32, i32, i32, vp]
+        lib.fluid_window_admit.restype = i32
+        lib.fluid_window_pack_scratch_words.argtypes = []
+        lib.fluid_window_pack_scratch_words.restype = i32
+        # ptrs, ints, batch, steps, entries, bits_at, stats_at, noop_skip,
+        # stream
+        lib.fluid_window_pack.argtypes = [ctypes.POINTER(vp),
+                                          ctypes.POINTER(i32), i32, i32,
+                                          i32, i32, i32, i32, vp]
+        lib.fluid_window_pack.restype = i32
         _LIB = lib
     return _LIB
 

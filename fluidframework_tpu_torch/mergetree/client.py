@@ -289,6 +289,10 @@ class MergeTreeClient(TypedEventEmitter):
             tree.pending_groups = [
                 (kind, by_key.get((kind, extra["local_seq"]), []), extra)
                 for kind, group, extra in pending]
+            # The kernel places the tail's inserts as the replicas do;
+            # the pending inserts then move where the replicas will put
+            # them (MergeTreeOracle._rebase_pending_inserts).
+            tree._rebase_pending_inserts()
         self.tree = tree
         self.emit("delta", {"op": "bulkCatchUp", "count": len(tail),
                             "seq": last_seq}, False)
@@ -335,7 +339,8 @@ class MergeTreeClient(TypedEventEmitter):
                 if kind == "insert":
                     seg.local_seq = new_local
                     tree.pending_groups.append(
-                        ("insert", [seg], {"local_seq": new_local}))
+                        ("insert", [seg], {"local_seq": new_local,
+                                           "ref_seq": tree.current_seq}))
                     if seg.kind == SEG_MARKER:
                         new_ops.append(make_insert_op(pos, marker_seg(seg.props)))
                     elif isinstance(seg.text, Items):

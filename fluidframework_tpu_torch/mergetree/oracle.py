@@ -354,11 +354,89 @@ class MergeTreeOracle:
         seg.ins_client = client
         seg.uid = self._next_uid()
         if seq == UNASSIGNED_SEQ:
-            self._new_pending_group("insert").append(seg)
+            self._new_pending_group("insert", ref_seq=ref_seq).append(seg)
             seg.local_seq = self.local_seq_counter
         self.segments.insert(idx, seg)
         self._local_len += seg.length  # new segments are never removed
+        if seq != UNASSIGNED_SEQ and self.pending_groups:
+            self._rebase_pending_inserts(idx + 1)
         return seg
+
+    def _rebase_pending_inserts(self, start: int = 0) -> None:
+        """Move each pending local insert to where the sequenced replicas
+        will put it.
+
+        A local insert skips the tombstones at its boundary (every acked
+        remove is at or before its refSeq). A remote insert sequenced
+        before it, but made at an older refSeq, may land in front of those
+        tombstones. The replicas apply the local insert after that remote
+        one, by the same rule, and it stops in front of the remote segment:
+        so here it moves there too, past the tombstones, which are
+        invisible to every perspective that can still reach them. Without
+        the move the two replicas keep the two segments in opposite
+        orders. Scans the pending inserts from `start` on while they sit
+        in a run of acked tombstones and pending inserts (after a remote
+        insert: the run right after it); start=0 checks every one."""
+        refs = {extra["local_seq"]: extra.get("ref_seq")
+                for kind, _, extra in self.pending_groups
+                if kind == "insert"}
+        if not refs:
+            return
+        segs, me = self.segments, self.local_client
+        i = start
+        while i < len(segs):
+            seg = segs[i]
+            own = seg.ins_seq == UNASSIGNED_SEQ and seg.ins_client == me
+            if not own:
+                if start and (seg.rem_seq is None
+                              or seg.rem_seq == UNASSIGNED_SEQ):
+                    return  # the run after the remote insert ends
+                i += 1
+                continue
+            ref, local = refs.get(seg.local_seq), seg.local_seq
+            target = i
+            if ref is not None:
+                j = i - 1
+                while j >= 0 and not self._seen_by_pending(segs[j], ref,
+                                                           local):
+                    prev = segs[j]
+                    skippable = (
+                        prev.rem_seq is not None
+                        and prev.rem_seq != UNASSIGNED_SEQ
+                        and prev.rem_seq <= ref
+                        and prev.ins_seq != UNASSIGNED_SEQ) or (
+                        prev.ins_seq == UNASSIGNED_SEQ
+                        and prev.ins_client == me
+                        and prev.local_seq is not None
+                        and prev.local_seq > local)
+                    if not skippable:
+                        target = j
+                    j -= 1
+            if target != i:
+                segs.insert(target, segs.pop(i))
+            i += 1
+
+    def _seen_by_pending(self, seg: Segment, ref: int, local: int) -> bool:
+        """Whether `seg` was visible when this client made its pending
+        insert number `local` at refSeq `ref`. Unlike visible_length it
+        counts a segment whose remove was sequenced after `ref` as
+        visible: such a remove (even one of this client's own, overwritten
+        by a remote remove) came after the insert, since one that came
+        before would have stopped the insert in front of the segment."""
+        me = self.local_client
+        if seg.ins_client == me:
+            if seg.ins_seq == UNASSIGNED_SEQ and seg.local_seq is not None \
+                    and seg.local_seq > local:
+                return False
+        elif seg.ins_seq == UNASSIGNED_SEQ or seg.ins_seq > ref:
+            return False
+        if seg.rem_seq is None:
+            return True
+        if seg.rem_seq == UNASSIGNED_SEQ:
+            return not (seg.rem_client == me
+                        and seg.rem_local_seq is not None
+                        and seg.rem_local_seq < local)
+        return seg.rem_seq > ref
 
     def insert_text(self, pos: int, text: str, ref_seq: int, client: int,
                     seq: int, props: Optional[dict] = None) -> Segment:

@@ -14,7 +14,11 @@ chunks to one page group the same way, with no ticketing.
 Differences from the JAX program, none of which changes a result:
 - the ticketing is one launch of the ticket-scan kernel
   (kernels/csrc/ticket_scan.cu) for CUDA tensors, its plain version for
-  CPU tensors and under `plain`;
+  CPU tensors and under `plain`; so are each merge group's admission
+  (kernels/csrc/window_admit.cu, admit_merge_ops), each LWW bucket's
+  admission, apply and occupancy count (kernels/csrc/lww_scan.cu,
+  lww_kernel.apply_lww_window) and the flat16 pack
+  (kernels/csrc/window_pack.cu, _pack_window);
 - `fused` is a plain switch, not a probe. With it (the default) CUDA
   tensors launch the fused-apply kernel (kernels/csrc/fused_apply.cu, the
   runs= and extract=True variants where the megakernel needs them) and CPU
@@ -40,16 +44,18 @@ and no boolean-mask indexing.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels import build
 from ..mergetree import kernel
 from ..mergetree import pallas_apply as pa
 from ..mergetree.oppack import OpKind, PackedOps, RunCols
-from ..parallel.mesh import (P, Sharded, gather, gather_tree, map_dp, place,
-                             replicate)
+from ..parallel.mesh import (P, Sharded, gather, gather_tree, map_dp,
+                             note_launch, place, replicate)
 from ..telemetry.device_stats import N_SERVE
 from . import lww_kernel as lk
 from . import ticket_kernel as tk
@@ -100,9 +106,10 @@ def halves(x32: torch.Tensor) -> List[torch.Tensor]:
     return [_i16(x32 & 0xFFFF), _i16(x32 >> 16)]
 
 
-def admit_merge_ops(seq_bt: torch.Tensor, msn_bt: torch.Tensor,
-                    mc: torch.Tensor, mr: Optional[torch.Tensor]):
-    """One group's staged merge columns -> the ops its apply takes.
+def admit_merge_ops_plain(seq_bt: torch.Tensor, msn_bt: torch.Tensor,
+                          mc: torch.Tensor, mr: Optional[torch.Tensor]):
+    """Plain PyTorch version of one group's admission: staged merge
+    columns -> the ops its apply takes, on any device.
 
     mc is [12, lanes, Tm]: the 10 PackedOps columns, doc_idx, t_idx. Each
     op takes the seq/msn its ticket step was assigned; an op whose message
@@ -134,6 +141,92 @@ def admit_merge_ops(seq_bt: torch.Tensor, msn_bt: torch.Tensor,
         new_len=mc[7], local_seq=mc[8],
         msn=torch.where(ok, msn_g, 0))
     return ops, runs, over_extra
+
+
+def admit_merge_ops(seq_bt: torch.Tensor, msn_bt: torch.Tensor,
+                    mc: torch.Tensor, mr: Optional[torch.Tensor]):
+    """One group's admission (admit_merge_ops_plain's result): the plain
+    version for CPU tensors; for CUDA tensors one launch of
+    kernels/csrc/window_admit.cu, or ValueError for tensors it does not
+    take. An index into the ticket planes counts from its end when
+    negative and clamps into range (JAX's gather rule; the plain version's
+    indexing raises on an index out of range). The columns the admission
+    does not change are views of `mc` either way."""
+    if mc.device.type == "cpu":
+        return admit_merge_ops_plain(seq_bt, msn_bt, mc, mr)
+    return _admit_launch(seq_bt, msn_bt, mc, mr)
+
+
+def _on_card(device: torch.device) -> bool:
+    """Whether the kernel's tensors may lie on `device`: a CUDA device.
+    (The emulator tests, which run the CUDA sources on the CPU, stand in
+    for it.)"""
+    return device.type == "cuda"
+
+
+def _check_tensors(what: str, want, device) -> None:
+    """Raise ValueError unless each (name, tensor, dtype, shape) has that
+    type and shape, is contiguous and lies on `device`, a CUDA device."""
+    for name, x, dtype, shape in want:
+        if x.dtype != dtype:
+            raise ValueError(f"{what}: {name} is {x.dtype}, not {dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, "
+                             f"not {tuple(shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+    for name, x, _dtype, _shape in want:
+        if not _on_card(x.device) or x.device != device:
+            raise ValueError(f"{what}: {name} is on {x.device}, not the "
+                             f"CUDA device {device}")
+
+
+def _admit_launch(seq_bt, msn_bt, mc, mr):
+    """One window_admit.cu launch over CUDA tensors, counted in
+    admit_merge_ops.launches."""
+    if mc.dim() != 3 or seq_bt.dim() != 2 or 0 in mc.shape \
+            or 0 in seq_bt.shape:
+        raise ValueError(f"admit_merge_ops: the kernel takes [12, lanes, "
+                         f"Tm] columns and [B, T] planes, not "
+                         f"{tuple(mc.shape)} and {tuple(seq_bt.shape)}")
+    _, lanes, tm = mc.shape
+    want = [("seq_bt", seq_bt, torch.int32, seq_bt.shape),
+            ("msn_bt", msn_bt, torch.int32, seq_bt.shape),
+            ("mc", mc, torch.int32, (12, lanes, tm))]
+    run_k = 0
+    if mr is not None:
+        run_k = mr.shape[-1] if mr.dim() == 4 else 0
+        want.append(("mr", mr, torch.int32, (4, lanes, tm, max(run_k, 1))))
+    _check_tensors("admit_merge_ops", want, mc.device)
+    dev = mc.device
+    kind, seq, msn = (torch.empty((lanes, tm), dtype=torch.int32,
+                                  device=dev) for _ in range(3))
+    run_seq = over_extra = None
+    if mr is not None:
+        run_seq = torch.empty((lanes, tm, run_k), dtype=torch.int32,
+                              device=dev)
+        over_extra = torch.empty(lanes, dtype=torch.bool, device=dev)
+    ptrs = [seq_bt.data_ptr(), msn_bt.data_ptr(), mc.data_ptr(),
+            None if mr is None else mr.data_ptr(), kind.data_ptr(),
+            seq.data_ptr(), msn.data_ptr(),
+            None if run_seq is None else run_seq.data_ptr(),
+            None if over_extra is None else over_extra.data_ptr()]
+    lib = build.library()
+    build.check(lib.fluid_window_admit(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), lanes, tm, run_k,
+        seq_bt.shape[0], seq_bt.shape[1],
+        ctypes.c_void_p(build.stream_handle())), "admit_merge_ops")
+    admit_merge_ops.launches += 1
+    note_launch("window_admit")
+    runs = None if mr is None else RunCols(length=mr[0], seq=run_seq,
+                                           op_id=mr[1])
+    ops = PackedOps(kind=kind, seq=seq, ref_seq=mc[2], client=mc[3],
+                    pos1=mc[4], pos2=mc[5], op_id=mc[6], new_len=mc[7],
+                    local_seq=mc[8], msn=msn)
+    return ops, runs, over_extra
+
+
+admit_merge_ops.launches = 0
 
 
 def _mesh_of(tree):
@@ -202,7 +295,11 @@ def _serve_window_impl(tstate, ticket_cols, merge_states, merge_cols,
     mark("ticket")
 
     def merge_one(mstate, mc, mr, seq_g, msn_g, mark_admit=mark):
-        ops2, runs, over_extra = admit_merge_ops(seq_g, msn_g, mc, mr)
+        if plain:
+            ops2, runs, over_extra = admit_merge_ops_plain(seq_g, msn_g, mc,
+                                                           mr)
+        else:
+            ops2, runs, over_extra = admit_merge_ops(seq_g, msn_g, mc, mr)
         mark_admit("admit")
         limit = pa.max_fused_capacity(mstate.overlap_slots,
                                       mstate.anno_slots)
@@ -226,13 +323,11 @@ def _serve_window_impl(tstate, ticket_cols, merge_states, merge_cols,
         return out, nr, ops2.kind, name
 
     def lww_one(lstate, lc, seq_g):
-        seq_l = seq_g[lc[4].long(), lc[5].long()]
-        ok = (lc[0] != lk.LwwKind.NOOP) & (seq_l > 0)
-        ops = lk.LwwOps(kind=torch.where(ok, lc[0], lk.LwwKind.NOOP),
-                        key=lc[1], val=lc[2], delta=lc[3],
-                        seq=torch.where(ok, seq_l, 0))
-        out = lk.apply_lww_batched(lstate, ops)
-        return out, ops.kind, (out.key >= 0).sum(dim=-1)
+        # (state, admitted kinds, occupancy): one lww_scan.cu launch on
+        # the card.
+        if plain:
+            return lk.apply_lww_window_plain(lstate, lc, seq_g)
+        return lk.apply_lww_window(lstate, lc, seq_g)
 
     if merge_runs is None:
         merge_runs = [None] * len(merge_cols)
@@ -274,18 +369,23 @@ def _serve_window_impl(tstate, ticket_cols, merge_states, merge_cols,
     mark("lww")
 
     tstate_home = gather_tree(tstate) if mesh is not None else tstate
-    flat16 = _pack_window(tstate_home, ticketed, merge_sums, merge_narrow,
-                          lww_sums, noop_skip, stats, paged_scalars)
+    pack_args = (tstate_home, ticketed, merge_sums, merge_narrow, lww_sums,
+                 noop_skip, stats, paged_scalars)
+    if plain:
+        flat16 = _pack_window_plain(*pack_args)
+    else:
+        flat16 = _pack_window(*pack_args)
     mark("pack")
     return tstate, new_merge, new_lww, flat16, msn_bt
 
 
-def _pack_window(tstate, ticketed, merge_sums, merge_narrow, lww_sums,
-                 noop_skip, stats, paged_scalars) -> torch.Tensor:
-    """The window's flat16 (layout in _serve_window_impl) from the ticket
-    state and results and, per merge group (overflow, count, kind plane)
-    and per LWW bucket (overflow, occupancy, kind plane), all on one
-    device."""
+def _pack_window_plain(tstate, ticketed, merge_sums, merge_narrow,
+                       lww_sums, noop_skip, stats, paged_scalars
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of the window's flat16 (layout in
+    _serve_window_impl) from the ticket state and results and, per merge
+    group (overflow, count, kind plane) and per LWW bucket (overflow,
+    occupancy, kind plane), all on one device."""
     seq_bt, msn_bt = ticketed.seq, ticketed.min_seq
     zero = torch.zeros((), dtype=torch.int32, device=seq_bt.device)
     flags = _i32(ticketed.nacked) | (_i32(ticketed.not_joined) << 1)
@@ -358,6 +458,95 @@ def _pack_window(tstate, ticketed, merge_sums, merge_narrow, lww_sums,
         + halves(next32) + halves(msn_base)
         + [_i16(torch.cat([msn_ok[None]] + bits))]
         + planes + paged_tail + stats_tail)
+
+
+def _pack_window(tstate, ticketed, merge_sums, merge_narrow, lww_sums,
+                 noop_skip, stats, paged_scalars) -> torch.Tensor:
+    """The window's flat16 (_pack_window_plain's result): the plain
+    version for CPU tensors; for CUDA tensors one launch of
+    kernels/csrc/window_pack.cu, or ValueError for tensors it does not
+    take."""
+    if ticketed.seq.device.type == "cpu":
+        return _pack_window_plain(tstate, ticketed, merge_sums,
+                                  merge_narrow, lww_sums, noop_skip, stats,
+                                  paged_scalars)
+    return _pack_launch(tstate, ticketed, merge_sums, merge_narrow,
+                        lww_sums, noop_skip, stats, paged_scalars)
+
+
+#: The pack kernel takes at most this many merge groups and LWW buckets
+#: together (its pointer table rides in the kernel's parameters).
+PACK_MAX_ENTRIES = 32
+
+
+def _pack_launch(tstate, ticketed, merge_sums, merge_narrow, lww_sums,
+                 noop_skip, stats, paged_scalars) -> torch.Tensor:
+    """One window_pack.cu launch over CUDA tensors, counted in
+    _pack_window.launches."""
+    seq_bt = ticketed.seq
+    if seq_bt.dim() != 2 or 0 in seq_bt.shape:
+        raise ValueError(f"_pack_window: the kernel takes a non-empty "
+                         f"[B, T] window, not {tuple(seq_bt.shape)}")
+    entries = len(merge_sums) + len(lww_sums)
+    if entries > PACK_MAX_ENTRIES:
+        raise ValueError(f"_pack_window: the kernel takes at most "
+                         f"{PACK_MAX_ENTRIES} groups and buckets, not "
+                         f"{entries}")
+    b, t = seq_bt.shape
+    # fluidlint: disable=DTYPE_DRIFT — the narrow int16 wire (flat16)
+    i32, i16, boolean = torch.int32, torch.int16, torch.bool
+    want = [("next_seq", tstate.next_seq, i32, (b,)),
+            ("tstate.overflow", tstate.overflow, boolean, (b,)),
+            ("seq", seq_bt, i32, (b, t)),
+            ("min_seq", ticketed.min_seq, i32, (b, t)),
+            ("nacked", ticketed.nacked, boolean, (b, t)),
+            ("not_joined", ticketed.not_joined, boolean, (b, t))]
+    rows = [(over, count, kinds, nr if paged_scalars else None)
+            for (over, count, kinds), nr in zip(merge_sums, merge_narrow)]
+    rows += [(over, occ, kinds, None) for over, occ, kinds in lww_sums]
+    for e, (over, count, kinds, nr) in enumerate(rows):
+        n = over.shape[0] if over.dim() == 1 else -1
+        tm = kinds.shape[-1] if kinds.dim() == 2 else -1
+        want += [(f"entry {e} overflow", over, boolean, (n,)),
+                 (f"entry {e} count", count, i32, (n,)),
+                 (f"entry {e} kinds", kinds, i32, (n, tm))]
+        if nr is not None:
+            want += [(f"entry {e} narrow overflow", nr[0], i16, (n,))]
+            want += [(f"entry {e} narrow {j}", x, i32, (n,))
+                     for j, x in enumerate(nr[1:], 1)]
+    _check_tensors("_pack_window", want, seq_bt.device)
+    lanes = [over.shape[0] for over, _, _, _ in rows]
+    g = len(merge_sums)
+    layout = flat16_layout(b, t, lanes[:g], lanes[g:], paged_scalars, stats)
+    lib = build.library()
+    out = torch.empty(layout["total"][1], dtype=i16, device=seq_bt.device)
+    scratch = torch.zeros(lib.fluid_window_pack_scratch_words(), dtype=i32,
+                          device=seq_bt.device)
+    ptrs = [x.data_ptr() for x in (tstate.next_seq, tstate.overflow, seq_bt,
+                                   ticketed.min_seq, ticketed.nacked,
+                                   ticketed.not_joined, out, scratch)]
+    ints = []
+    over_at, occ_at = layout["overflow"][0], layout["occupancy"][0]
+    tail_at = layout["paged_tail"][0]
+    for e, (over, count, kinds, nr) in enumerate(rows):
+        ptrs += [over.data_ptr(), count.data_ptr(), kinds.data_ptr()]
+        ptrs += [None] * 4 if nr is None else [x.data_ptr() for x in nr]
+        n = lanes[e]
+        ints += [n, kinds.shape[-1], int(e >= g), over_at, occ_at, tail_at]
+        over_at, occ_at = over_at + n, occ_at + n
+        tail_at += 6 * n if nr is not None else 0
+    build.check(lib.fluid_window_pack(
+        (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_int * max(len(ints), 1))(*ints), b, t, entries,
+        layout["bits"][0], layout["stats"][0] if stats else -1,
+        int(bool(noop_skip)), ctypes.c_void_p(build.stream_handle())),
+        "_pack_window")
+    _pack_window.launches += 1
+    note_launch("window_pack")
+    return out
+
+
+_pack_window.launches = 0
 
 
 def serve_window(tstate, ticket_cols, merge_states, merge_cols, lww_states,

@@ -2021,8 +2021,9 @@ class LwwLaneStore:
     map/cell/counter half of server-side materialization. Lanes live in
     key-capacity buckets; a lane whose key set outgrows its bucket
     promotes to the next one and its window re-applies from the retained
-    pre-state. The apply is lww_kernel.apply_lww_batched (plain PyTorch on
-    either device)."""
+    pre-state. The apply is lww_kernel.apply_lww_batched: the lane-scan
+    kernel (kernels/csrc/lww_scan.cu) on the card, its plain version on
+    the CPU; it writes new tensors, so a retry starts from `pre`."""
 
     def __init__(self, capacities: Tuple[int, ...] = (64, 1024, 16384),
                  lanes_per_bucket: int = 8,

@@ -39,6 +39,9 @@ try:
         config.addinivalue_line(
             "markers", "slow: a test too long for the tier-1 run "
             "(deselected there with -m 'not slow')")
+        config.addinivalue_line(
+            "markers", "card: a test of a CUDA kernel that needs the card "
+            "(skips without one)")
 
     @pytest.fixture(autouse=True)
     def _isolate_stage_latency_histograms():

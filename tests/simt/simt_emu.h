@@ -1,10 +1,11 @@
 // A SIMT emulator that runs a CUDA C++ kernel source on the CPU, for the
 // conformance tests of the port's hand-written kernels
 // (tests/test_torch_fused_emu.py, tests/test_torch_scan_emu.py,
-// tests/test_torch_ticket_emu.py, tests/test_torch_summary_emu.py). It is
-// not a CUDA implementation: it provides only what fused_apply.cu,
-// scan_apply.cu, ticket_scan.cu and summary_len.cu use, and no timing
-// means anything. The device it reports has EMU_SMS multiprocessors, each
+// tests/test_torch_ticket_emu.py, tests/test_torch_summary_emu.py,
+// tests/test_torch_lww_emu.py, tests/test_torch_window_emu.py). It is
+// not a CUDA implementation: it provides only what the kernels of
+// fluidframework_tpu_torch/kernels/csrc/ use, and no timing means
+// anything. The device it reports has EMU_SMS multiprocessors, each
 // holding one block of any kernel.
 //
 // Every CUDA thread of a block is a ucontext coroutine; the blocks of one
@@ -173,6 +174,32 @@ inline int __reduce_min_sync(unsigned m, int v) {
 inline unsigned __reduce_add_sync(unsigned m, unsigned v) {
   return emu_reduce(m, v, [](unsigned a, unsigned b) { return a + b; });
 }
+inline int __reduce_max_sync(unsigned m, int v) {
+  return emu_reduce(m, v, [](int a, int b) { return max(a, b); });
+}
+// Atomics: the threads are coroutines of one host thread, and none yields
+// inside an atomic, so a plain read-modify-write is atomic. Each yields
+// after it, so the other threads' order around it stays shuffled.
+inline int atomicAdd(int* p, int v) {
+  const int old = *p;
+  *p = static_cast<int>(static_cast<unsigned>(old) +
+                        static_cast<unsigned>(v));
+  emu_yield();
+  return old;
+}
+inline int atomicOr(int* p, int v) {
+  const int old = *p;
+  *p = old | v;
+  emu_yield();
+  return old;
+}
+inline int atomicMax(int* p, int v) {
+  const int old = *p;
+  *p = max(old, v);
+  emu_yield();
+  return old;
+}
+inline void __threadfence() {}
 inline int __any_sync(unsigned m, int p) {
   return emu_reduce(m, p != 0, [](int a, int b) { return a | b; });
 }

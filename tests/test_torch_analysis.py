@@ -269,7 +269,9 @@ class TestDevicePath:
                   "mergetree.pallas_apply:_launch",
                   "mergetree.pallas_ops:_launch",
                   "server.ticket_kernel:_launch",
-                  "server.lww_kernel:_apply_one",
+                  "server.lww_kernel:_launch",
+                  "server.serve_step:_admit_launch",
+                  "server.serve_step:_pack_launch",
                   "server.serve_step:_serve_window_impl",
                   "mergetree.fused_sp:apply_ops_fused_sp"):
             assert p + q in reached, q

@@ -83,3 +83,61 @@ def test_make_and_grow_match_jax():
         np.testing.assert_array_equal(getattr(wide, f).numpy(),
                                       np.asarray(getattr(jwide, f)))
     assert tlk.grow_lane_capacity(got, 4) is got
+
+
+def test_edge_ops_match_jax():
+    """Kinds past ADD (no op), NOOPs, seq <= 0 (last_seq keeps its max),
+    DELETE of keys no slot holds and SET of the free key -1, on a table
+    that starts part full."""
+    rng = np.random.default_rng(11)
+    b, t, c = 6, 30, 8
+    state = _state_np(c, b)
+    state["key"] = np.where(rng.random((b, c)) < 0.5,
+                            rng.integers(0, 12, (b, c)), -1).astype(np.int32)
+    state["val"] = np.where(state["key"] >= 0, 3, -1).astype(np.int32)
+    state["last_seq"] = rng.integers(0, 9, b).astype(np.int32)
+    ops = _ops(rng, b, t, 16, kinds=(0, 1, 2, 2, 3, 4, 5, 7))
+    ops["key"][:, ::7] = -1
+    ops["seq"] = rng.integers(-3, 40, (b, t)).astype(np.int32)
+    got, _ = _compare(state, ops)
+    assert (got.last_seq.numpy() >= state["last_seq"]).all()
+
+
+def _jax_window(state, cols, plane):
+    """The JAX serving window's LWW bucket (fluidframework_tpu/server/
+    serve_step.py): the gather, the masks, the apply, the occupancy."""
+    lc, seq_bt = jnp.asarray(cols), jnp.asarray(plane)
+    seq_g = seq_bt[lc[4], lc[5]]
+    ok = (lc[0] != jlk.LwwKind.NOOP) & (seq_g > 0)
+    ops = jlk.LwwOps(kind=jnp.where(ok, lc[0], jlk.LwwKind.NOOP), key=lc[1],
+                     val=lc[2], delta=lc[3], seq=jnp.where(ok, seq_g, 0))
+    out = jlk.apply_lww_batched(
+        jlk.LwwState(**{f: jnp.asarray(v) for f, v in state.items()}), ops)
+    return out, ops.kind, (out.key >= 0).sum(-1)
+
+
+def test_window_plain_matches_jax():
+    """apply_lww_window_plain (the window's admission, apply and
+    occupancy) on staged columns against a ticket plane with unsequenced
+    (0) and nacked (-1) entries."""
+    rng = np.random.default_rng(5)
+    b, t, c, docs, steps = 7, 16, 8, 9, 12
+    state = _state_np(c, b)
+    ops = _ops(rng, b, t, 10)
+    cols = np.stack([ops["kind"], ops["key"], ops["val"], ops["delta"],
+                     rng.integers(0, docs, (b, t)),
+                     rng.integers(0, steps, (b, t))]).astype(np.int32)
+    plane = rng.integers(-1, 30, (docs, steps)).astype(np.int32)
+    plane[rng.random((docs, steps)) < 0.3] = 0
+    want, want_kinds, want_occ = _jax_window(state, cols, plane)
+    got, kinds, occ = tlk.apply_lww_window(
+        interop.lww_state_from_numpy(state, "cpu"), torch.from_numpy(cols),
+        torch.from_numpy(plane))
+    for f in jlk.LwwState._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    np.testing.assert_array_equal(kinds.numpy(), np.asarray(want_kinds))
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(want_occ))
+    assert occ.dtype == torch.int32
+    assert (kinds.numpy() == 0).sum() > (cols[0] == 0).sum()

@@ -280,3 +280,67 @@ def test_megakernel_hot_group_above_fused_capacity_matches_jax(
     np.testing.assert_array_equal(
         got[3][-1, lo:lo + sum(ring.merge_lanes)],
         np.concatenate(ring.expected_overflow))
+
+
+def _jax_admission(seq_bt, msn_bt, mc, mr):
+    """The admission block of the JAX _serve_window_impl
+    (fluidframework_tpu/server/serve_step.py) on numpy columns."""
+    seq_bt, msn_bt, mc = (jnp.asarray(x) for x in (seq_bt, msn_bt, mc))
+    seq_g, msn_g = seq_bt[mc[10], mc[11]], msn_bt[mc[10], mc[11]]
+    kind = mc[0]
+    ok = (kind != 0) & (seq_g > 0)
+    runs = over = None
+    if mr is not None:
+        mr = jnp.asarray(mr)
+        sub_seq = seq_bt[mr[2], mr[3]]
+        expected = mr[0] > 0
+        mispredict = (kind == 6) & jnp.any(expected & (sub_seq <= 0),
+                                           axis=-1)
+        ok = ok & ~mispredict
+        runs = (mr[0], jnp.where(expected, sub_seq, 0), mr[1])
+        over = jnp.any(mispredict, axis=-1)
+    ops = (jnp.where(ok, kind, 0), jnp.where(ok, seq_g, 0),
+           jnp.where(ok, msn_g, 0))
+    return to_np(ops), to_np(runs), to_np(over)
+
+
+@pytest.mark.parametrize("with_runs", [False, True])
+def test_admission_plain_matches_jax(with_runs):
+    """admit_merge_ops_plain's admitted columns, run seqs and mispredict
+    flags against the JAX window's admission block: unsequenced (0) and
+    nacked (-1) steps, INSERT_RUN slots with voided members."""
+    rng = np.random.default_rng(21 + with_runs)
+    lanes, tm, docs, steps, run_k = 9, 20, 6, 11, 8
+    mc = rng.integers(0, 40, (12, lanes, tm)).astype(np.int32)
+    mc[0] = rng.choice([0, 1, 2, 3, 4, 5, 6, 6], (lanes, tm))
+    mc[10] = rng.integers(0, docs, (lanes, tm))
+    mc[11] = rng.integers(0, steps, (lanes, tm))
+    seq = rng.integers(-1, 50, (docs, steps)).astype(np.int32)
+    seq[rng.random((docs, steps)) < 0.2] = 0
+    msn = rng.integers(0, 40, (docs, steps)).astype(np.int32)
+    mr = None
+    if with_runs:
+        mr = np.zeros((4, lanes, tm, run_k), np.int32)
+        mr[0] = rng.integers(1, 3, (lanes, tm, run_k)) * \
+            (rng.random((lanes, tm, run_k)) < 0.5)
+        mr[0, :lanes // 2] = 0
+        mr[1] = rng.integers(0, 99, (lanes, tm, run_k))
+        mr[2] = rng.integers(0, docs, (lanes, tm, run_k))
+        mr[3] = rng.integers(0, steps, (lanes, tm, run_k))
+    ops, runs, over = tss.admit_merge_ops_plain(
+        torch.from_numpy(seq), torch.from_numpy(msn), torch.from_numpy(mc),
+        None if mr is None else torch.from_numpy(mr))
+    (w_kind, w_seq, w_msn), w_runs, w_over = _jax_admission(seq, msn, mc, mr)
+    for name, g, w in (("kind", ops.kind, w_kind), ("seq", ops.seq, w_seq),
+                       ("msn", ops.msn, w_msn)):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    for i, name in ((2, "ref_seq"), (3, "client"), (4, "pos1"),
+                    (6, "op_id"), (8, "local_seq")):
+        np.testing.assert_array_equal(getattr(ops, name).numpy(), mc[i])
+    if with_runs:
+        for g, w in zip((runs.length, runs.seq, runs.op_id), w_runs):
+            np.testing.assert_array_equal(g.numpy(), w)
+        np.testing.assert_array_equal(over.numpy(), w_over)
+        assert over.any() and not over.all()
+    else:
+        assert runs is None and over is None

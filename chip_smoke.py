@@ -46,7 +46,9 @@ table) bit-exact against the plain scan on a fuzz grid up to C = 65,536,
 and against the fused kernel where that applies. Then one document's bulk
 catch-up runs at full size (phase 11): the 100,000-op keystroke trace of
 BASELINE.json config #2 through mergetree/catchup.device_apply_tail,
-every chunk on the rule's path, held to the JAX golden digest, its first
+every chunk on the rule's path and every fold's compaction one launch
+of kernels/csrc/zamboni.cu (no plain compaction on the card's tensors),
+held to the JAX golden digest, its first
 10,000 ops to the plain composition entry by entry, timed with a
 host/device split, and once more with every chunk forced onto
 global_chunked; and full_step above the fused capacity (1,024 docs x 100
@@ -81,11 +83,18 @@ assemble_snapshot of every dirty document, device_stats.fold_extract);
 compact_extract_paged(_keep) over phase 12's hot documents; the
 100,000-op catch-up again and its entries through the narrow catch-up
 wire; the counts read (fused apply, summary length, scan apply must have
-launched). Every output is held to the same function on CPU copies of its
-inputs (the paged form to compact_pages + extraction), the narrow fetch
-to the wide one (the wire must drop NARROW_MIN_DROP of the bytes), the
-blob to an exact round trip, then the card to the JAX extraction golden;
-the full and dirty passes and the paged form are timed.
+launched, and so must zamboni.cu in each of its three modes and
+narrow_pack.cu, with no plain compaction, extraction or narrow pack on the
+card's tensors). Every output is held to the same function on CPU copies
+of its inputs (the paged form to compact_pages + extraction), the narrow
+fetch to the wide one (the wire must drop NARROW_MIN_DROP of the bytes),
+the blob to an exact round trip, then the card to the JAX extraction
+golden; the full and dirty passes and the paged form are timed. Then
+zamboni.cu in each mode and narrow_pack.cu (on the fused mode's packed
+rows) are held bit-exact to their plain versions on CPU copies of their
+inputs at four shapes (the north-star state, the lane store's first
+bucket of 16,384 x 64, the paged view of (3), one document at C =
+4,096), each a row timed against its bound.
 Phase 15 drives the sequencer's lane stores (server/tpu_sequencer.py):
 first testing/lanes.golden_run against the committed JAX golden, then a
 partition of HOT_RING's size (10,000 merge channels over 8 windows,
@@ -96,7 +105,11 @@ paged store on the card, held to the same stores on the CPU and to each
 other, each launch checked against the scan rule, window applies and
 extractions timed, and every scan path timed at the stores' largest
 shapes; the LWW store must launch the lane scan and never run its plain
-version on the card's tensors.
+version on the card's tensors, and the merge stores must launch zamboni.cu
+(compaction and the fused compaction + extraction) and narrow_pack.cu and
+never run the plain compaction, extraction or narrow pack on the card's
+tensors. Phases 16, 17, 22, 23 and 24 each print zamboni.cu's launches by
+mode and narrow_pack.cu's.
 Phase 16 drives the sequencer lambda (server/tpu_sequencer.
 TpuSequencerLambda, testing/lambda_runs.py scenarios) on the card: the
 serving-ingest fleet at its full width (4,096 documents x 32 ops a wave)
@@ -340,6 +353,23 @@ CROSSOVER_SEGMENTS = (20, 100, 300, 1_000, 3_000)
 # snapshots are assembled on the full pass.
 DIRTY_STRIDE = 100
 NARROW_MIN_DROP = 0.40
+# Phase 14's rows of zamboni.cu and narrow_pack.cu: the sources, the JAX
+# functions each mode replaces, the kernels by name, and two of the four
+# shapes (the lane store's first bucket, lanes x C, and the catch-up
+# fold's one document's C; the others are the north-star state and phase
+# 14 (3)'s paged view).
+ZAMBONI_SOURCE = "fluidframework_tpu_torch/kernels/csrc/zamboni.cu"
+NARROW_SOURCE = "fluidframework_tpu_torch/kernels/csrc/narrow_pack.cu"
+ZAMBONI_REPLACES = {"compact": "fluidframework_tpu/mergetree/kernel.py:503",
+                    "compact_extract":
+                        "fluidframework_tpu/mergetree/kernel.py:710",
+                    "extract": "fluidframework_tpu/mergetree/kernel.py:697",
+                    "narrow_pack":
+                        "fluidframework_tpu/mergetree/kernel.py:817"}
+ZAMBONI_KERNELS = ("zamboni_kernel<0>", "zamboni_kernel<1>",
+                   "zamboni_kernel<2>", "narrow_pack_kernel")
+LANE_BUCKET0 = (16_384, 64)
+FOLD_C = 4_096
 # Phase 15: the sequencer's lane stores over a partition (testing/
 # serving.py HOT_RING: FULL_RING's 10,000 documents + 64 hot ones) from
 # testing/lanes.scenario: the seed, the backlog on each storm and hot
@@ -1054,7 +1084,11 @@ def main(north_star_only: bool = False) -> int:
     require(window == sorted(WINDOW_KERNELS), f"expected the serving "
             f"window's kernels {sorted(WINDOW_KERNELS)}, ptxas reports "
             f"{window}")
-    checked = {*apply_kernels, *scan_kernels, *mine, *window}
+    zamboni = sorted(k for k in report if k in ZAMBONI_KERNELS)
+    require(zamboni == sorted(ZAMBONI_KERNELS), f"expected the zamboni "
+            f"and narrow-pack kernels {sorted(ZAMBONI_KERNELS)}, ptxas "
+            f"reports {zamboni}")
+    checked = {*apply_kernels, *scan_kernels, *mine, *window, *zamboni}
     spilled = sorted(k for k in checked  # refused after the timings
                      if any(report[k].get(key) for key in
                             ("stack", "spill_stores", "spill_loads")))
@@ -1341,7 +1375,7 @@ def main(north_star_only: bool = False) -> int:
             clock.mark("phase 13")
             scalar_phase(dev, card, catchup_entries, scalar_twin)
             clock.mark("phase 14")
-            summarize_phase(dev, card, hot, catchup_entries)
+            rows += summarize_phase(dev, card, hot, catchup_entries)
             del hot
         except BaseException:
             stop_twins(lane_twins.values())
@@ -1365,14 +1399,18 @@ def main(north_star_only: bool = False) -> int:
             else "had finished"
         print(f"phase 22 (a)'s CPU twin {state} when phase 16 began",
               flush=True)
+        z0 = zamboni_counts()
         rows += lambda_phase(
             dev, card, lambda_twins,
             after_card=lambda: server_twins.update(start_server_twins()))
+        print_zamboni_launches("16", z0)
         clock.mark("phase 17")
         decay_twin = start_operator_twin("decay")
         try:
+            z0 = zamboni_counts()
             server_rows, fig17 = server_phase(dev, card, server_twins)
             rows += server_rows
+            print_zamboni_launches("17", z0)
         except BaseException:
             stop_twins([decay_twin])
             raise
@@ -1400,11 +1438,17 @@ def main(north_star_only: bool = False) -> int:
         clock.mark("phase 21")
         rows += services_phase(dev, card)
         clock.mark("phase 22")
+        z0 = zamboni_counts()
         rows += capacity_phase(dev, card, capacity_twin)
+        print_zamboni_launches("22", z0)
         clock.mark("phase 23")
+        z0 = zamboni_counts()
         mesh_phase(dev, card, north, fig17)
+        print_zamboni_launches("23", z0)
         clock.mark("phase 24")
+        z0 = zamboni_counts()
         lint_lock_phase(dev, card, gates_twin)
+        print_zamboni_launches("24", z0)
     del north
     clock.mark("the kernels' line")
     clock.close()
@@ -2335,21 +2379,32 @@ def catchup_phases(dev, card: str):
     kernel.apply_ops_keep = capture
     try:
         kernel.reset_launches()
+        kernel.reset_zamboni_launches()
         torch.cuda.synchronize()
         h0 = time.perf_counter()
-        entries = catchup.device_apply_tail([], tail, 0, 0, device=dev,
-                                            stats=stats)
-        torch.cuda.synchronize()
+        with PlainZamboniGuard() as zguard:
+            entries = catchup.device_apply_tail([], tail, 0, 0, device=dev,
+                                                stats=stats)
+            torch.cuda.synchronize()
         first_ms = (time.perf_counter() - h0) * 1e3
         launches = kernel.scan_apply.launches
         by_kernel = {k: n for k, n in
                      kernel.scan_apply.kernel_launches.items() if n}
+        folds = zamboni_counts()
     finally:
         kernel.apply_ops_keep = apply_keep
     applies = sum(stats["chunks"].values())
     require(launches > 0 and launches == applies,
             f"catch-up: {launches} scan_apply launches for {applies} chunk "
             "applies")
+    compacts = sum(stats["compacts"].values())
+    require(compacts > 0 and folds == {"compact": compacts,
+                                       "compact_extract": 0, "extract": 0,
+                                       "narrow_pack": 0},
+            f"catch-up: zamboni.cu launches {folds} for {compacts} fold "
+            "compactions")
+    require(zguard.cuda_calls == 0, f"catch-up: the plain compaction ran "
+            f"{zguard.cuda_calls} times on the card's tensors")
     require(by_kernel == expected,
             f"catch-up: launches by kernel {by_kernel}, the rule names "
             f"{expected}")
@@ -2361,8 +2416,9 @@ def catchup_phases(dev, card: str):
           f"on the card equals the JAX golden (entries {digest['count']}, "
           f"visible length {digest['visible_length']}, entries and text "
           f"sha256); scan_apply launches {launches} by kernel {by_kernel}, "
-          f"each on the rule's path; first run {first_ms:.1f} ms",
-          flush=True)
+          f"each on the rule's path; zamboni.cu launches {folds} (one a "
+          f"fold compaction, none plain on the card); first run "
+          f"{first_ms:.1f} ms", flush=True)
     small_n, small_seed, small_clients = g["small"]["trace"]
     small = catchup.device_apply_tail(
         [], keystroke_trace(small_n, seed=small_seed,
@@ -3108,7 +3164,7 @@ def extract_golden_check(dev) -> None:
           "blob", flush=True)
 
 
-def summarize_phase(dev, card: str, hot, catchup_entries) -> None:
+def summarize_phase(dev, card: str, hot, catchup_entries) -> list:
     """Phase 14, the summarize path at the north-star size (bench.py
     summarize). Counted run: full_step from fresh state (fused apply and
     summary length), then (1) extract_visible_batched -> fetch_extracted
@@ -3132,7 +3188,8 @@ def summarize_phase(dev, card: str, hot, catchup_entries) -> None:
     from fluidframework_tpu_torch.telemetry import counters, device_stats
     from fluidframework_tpu_torch.telemetry.compile_ledger import ledger
     from fluidframework_tpu_torch.testing import golden
-    from fluidframework_tpu_torch.testing.traces import (gen_traces,
+    from fluidframework_tpu_torch.testing.traces import (fuzz_tables,
+                                                         gen_traces,
                                                          gen_traces_payloads,
                                                          keystroke_trace)
 
@@ -3163,37 +3220,48 @@ def summarize_phase(dev, card: str, hot, catchup_entries) -> None:
         fn.launches = 0
     pallas_apply.reset_launches()
     kernel.reset_launches()
-    _tout, mout, _tkd, _total = pipeline.full_step(
-        tk.make_ticket_state(TICKET_K, DOCS, device=dev),
-        make_state(CAPACITY, ANNO, batch=DOCS, device=dev), raw, ops)
-    full_packed = kernel.extract_visible_batched(mout)
-    narrow, (n_bytes, n_refetch) = fetch_counted(kernel, full_packed, True)
-    wide, (w_bytes, _) = fetch_counted(kernel, full_packed, False)
-    sub, n_dirty, d_comp, d_packed, d_pre = dirty_pass(mout)
-    d_fetched, (d_bytes, _) = fetch_counted(kernel, d_packed, True)
-    t0 = time.perf_counter()
-    snaps = [host.assemble_snapshot(
-        d_fetched, payloads, j, min_seq=int(sub.min_seq[j]),
-        seq=int(sub.seq[j])) for j in range(n_dirty)]
-    assemble_ms = (time.perf_counter() - t0) * 1e3
-    pre_np, post_np = d_pre.cpu().numpy()[:n_dirty], d_fetched[-1][:n_dirty]
-    extract0 = {k: counters.get(f"device.extract.{k}")
-                for k in device_stats.EXTRACT_SLOTS}
-    device_stats.fold_extract([n_dirty, int(post_np.sum()),
-                               int((pre_np.astype(np.int64)
-                                    - post_np).sum())])
-    p_keep = kernel.compact_extract_paged_keep(store.pool, *p_args)
-    p_out = kernel.compact_extract_paged(store.pool, *p_args)
-    entries = catchup.device_apply_tail([], tail, 0, 0, device=dev)
-    torch.cuda.synchronize()
+    kernel.reset_zamboni_launches()
+    with PlainZamboniGuard() as zguard:
+        _tout, mout, _tkd, _total = pipeline.full_step(
+            tk.make_ticket_state(TICKET_K, DOCS, device=dev),
+            make_state(CAPACITY, ANNO, batch=DOCS, device=dev), raw, ops)
+        full_packed = kernel.extract_visible_batched(mout)
+        narrow, (n_bytes, n_refetch) = fetch_counted(kernel, full_packed,
+                                                     True)
+        wide, (w_bytes, _) = fetch_counted(kernel, full_packed, False)
+        sub, n_dirty, d_comp, d_packed, d_pre = dirty_pass(mout)
+        d_fetched, (d_bytes, _) = fetch_counted(kernel, d_packed, True)
+        t0 = time.perf_counter()
+        snaps = [host.assemble_snapshot(
+            d_fetched, payloads, j, min_seq=int(sub.min_seq[j]),
+            seq=int(sub.seq[j])) for j in range(n_dirty)]
+        assemble_ms = (time.perf_counter() - t0) * 1e3
+        pre_np = d_pre.cpu().numpy()[:n_dirty]
+        post_np = d_fetched[-1][:n_dirty]
+        extract0 = {k: counters.get(f"device.extract.{k}")
+                    for k in device_stats.EXTRACT_SLOTS}
+        device_stats.fold_extract([n_dirty, int(post_np.sum()),
+                                   int((pre_np.astype(np.int64)
+                                        - post_np).sum())])
+        p_keep = kernel.compact_extract_paged_keep(store.pool, *p_args)
+        p_out = kernel.compact_extract_paged(store.pool, *p_args)
+        entries = catchup.device_apply_tail([], tail, 0, 0, device=dev)
+        torch.cuda.synchronize()
     launches = {"selftest": kernels.selftest.launches,
                 "ticket_scan": tk.scan_tickets.launches,
                 "summary_len": pallas_ops.summary_lengths.launches,
                 "fused_apply": pallas_apply.apply_ops_fused.launches,
                 "scan_apply": kernel.scan_apply.launches}
+    z_counts = zamboni_counts()
+    launches.update({f"zamboni[{m}]": z_counts[m]
+                     for m in kernel.ZAMBONI_MODES})
+    launches["narrow_pack"] = z_counts["narrow_pack"]
     require(all(n > 0 for k, n in launches.items() if k != "selftest"),
             f"phase 14: the summarize path did not launch every kernel: "
             f"{launches}")
+    require(zguard.cuda_calls == 0, f"phase 14: the plain compaction, "
+            f"extraction or narrow pack ran {zguard.cuda_calls} times on "
+            f"the card's tensors")
     print(f"phase 14: the summarize path's counted run launched {launches}",
           flush=True)
 
@@ -3312,11 +3380,11 @@ def summarize_phase(dev, card: str, hot, catchup_entries) -> None:
     dirty_host, _ev, dirty_trials = host_and_device_ms(
         lambda: kernel.fetch_extracted(dirty_pass(mout)[3]))
     mx = narrow[0].shape[1]
-    _h, full_dev, _t = host_and_device_ms(lambda: kernel._narrow_pack(
+    _h, full_dev, _t = host_and_device_ms(lambda: kernel.narrow_pack(
         kernel.extract_visible_batched(mout), mx))
-    _h, fused_dev, _t = host_and_device_ms(lambda: kernel._narrow_pack(
+    _h, fused_dev, _t = host_and_device_ms(lambda: kernel.narrow_pack(
         kernel.compact_extract_batched(mout)[1], mx))
-    _h, dirty_dev, _t = host_and_device_ms(lambda: kernel._narrow_pack(
+    _h, dirty_dev, _t = host_and_device_ms(lambda: kernel.narrow_pack(
         dirty_pass(mout)[3], d_fetched[0].shape[1]))
     paged_ms = float(np.median([once_ms(
         lambda: kernel.compact_extract_paged(store.pool, *p_args))
@@ -3350,6 +3418,130 @@ def summarize_phase(dev, card: str, hot, catchup_entries) -> None:
     print(f"phase 14: kernel.extract_gather {gather}; device.extract "
           f"{device_stats.snapshot()}; compile ledger "
           f"{json.dumps(ledger.bench_stamp(), sort_keys=True)}", flush=True)
+
+    # -- the zamboni and narrow-pack kernels' rows ----------------------------
+    lanes_n, lane_c = LANE_BUCKET0
+    tab = fuzz_tables(lanes_n, lane_c, K_SLOTS, A_SLOTS, seed=20,
+                      free=lane_c // 4)
+    tab["min_seq"] = np.random.default_rng(20).integers(
+        0, 9, lanes_n).astype(np.int32)
+    fold = fuzz_tables(2, FOLD_C, 3, ANNO, seed=21, free=64)
+    fold = {f: v[1:] for f, v in fold.items()}
+    fold["min_seq"] = np.full(1, 4, np.int32)
+    shapes = {
+        f"north-star state [{DOCS} x C {CAPACITY}], A {ANNO}": mout,
+        f"lane store bucket 0 [{lanes_n} x C {lane_c}], A {A_SLOTS}":
+            interop.doc_state_from_numpy(tab, dev),
+        f"phase 14 (3) paged view [{p_args[0].shape[0]} x C "
+        f"{p_args[0].shape[1] * store.page_rows}], A "
+        f"{paged_pre.anno_slots}": kernel.gather_pages(paged_pre, *p_args),
+        f"catch-up fold [1 x C {FOLD_C}], A {ANNO}":
+            interop.doc_state_from_numpy(fold, dev)}
+    t0 = time.perf_counter()
+    rows = zamboni_rows(card, shapes, z_counts)
+    print(f"phase 14: the zamboni and narrow-pack rows took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def zamboni_rows(card: str, shapes: dict, counts: dict) -> list:
+    """Rows of zamboni.cu (each mode) and narrow_pack.cu (on the fused
+    mode's packed rows, at the width fetch_extracted picks) at `shapes`
+    ({label: a [B, C] state on the card}): each held bit-exact to its
+    plain version on CPU copies of its inputs, timed back to back, by the
+    profiler and, for the plain version, on the card's tensors, and
+    printed beside its bound. The bound counts the bytes this data needs:
+    count and min_seq, rem_seq of each live row (index below min(count,
+    C)), the other planes of each kept row (8 + K + A ints compacting, 7 +
+    A extracting, and the last row of a document with padding), and every
+    output written once; the narrow pack reads mx slots of 7 + A planes
+    and writes the wire. `counts` are phase 14's counted-run launches."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    modes = {
+        "compact": (kernel.compact_batched, kernel.compact_batched_plain),
+        "compact_extract": (
+            lambda s: kernel.compact_extract_batched(s, stats=True),
+            lambda s: kernel.compact_extract_batched_plain(s, stats=True)),
+        "extract": (kernel.extract_visible_batched,
+                    kernel.extract_visible_batched_plain)}
+    rows = []
+    for label, st in shapes.items():
+        cpu = type(st)(*(x.cpu() for x in st))
+        b, c = st.length.shape
+        k, a = st.overlap_slots, st.anno_slots
+        scanned = int(cpu.count.clamp(0, c).sum())
+        outs = {}
+        for mode, (fn, plain) in modes.items():
+            got, want = fn(st), plain(cpu)
+            torch.cuda.synchronize()
+            outs[mode] = (got, want)
+        kept_doc = outs["compact"][1].count
+        kept = int(kept_doc.sum())
+        padded = int((kept_doc < c).sum())
+        head = 8 * b + 4 * scanned
+        nbytes = {
+            "compact": head + 4 * kept * (7 + k + a)
+            + 4 * b * c * (8 + k + a) + 4 * b,
+            "compact_extract": head + 4 * kept * (7 + k + a)
+            + 4 * b * c * (9 + k + a) + 8 * b,
+            "extract": head + 4 * kept * (6 + a) + 4 * padded * (7 + a)
+            + 4 * b * c * (7 + a) + 4 * b}
+        packed = outs["compact_extract"][0][1]
+        cpu_packed = outs["compact_extract"][1][1]
+        mx = min((max(int(cpu_packed[-1].max()), 1) + 31) // 32 * 32, c)
+        outs["narrow_pack"] = (kernel.narrow_pack(packed, mx),
+                               kernel.narrow_pack_plain(cpu_packed, mx))
+        torch.cuda.synchronize()
+        nbytes["narrow_pack"] = 4 * b * mx * (7 + a) + 4 * b \
+            + 2 * b * mx * (6 + a) + 4 * b * mx + 16 * b
+        n_ops = {m: scanned for m in modes}
+        n_ops["narrow_pack"] = 4 * b * mx * (7 + a)
+        calls = {m: (lambda fn=fn: fn(st)) for m, (fn, _p) in modes.items()}
+        calls["narrow_pack"] = lambda: kernel.narrow_pack(packed, mx)
+        plains = {m: (lambda p=p: p(st)) for m, (_f, p) in modes.items()}
+        plains["narrow_pack"] = lambda: kernel.narrow_pack_plain(packed, mx)
+        trace = kernel_device_ms(lambda: [f() for f in calls.values()], 10)
+        for i, mode in enumerate(calls):
+            got, want = outs[mode]
+            g = [x.cpu() for x in flat_tree(got)]
+            w = flat_tree(want)
+            require(len(g) == len(w) and all(
+                x.dtype == y.dtype and x.shape == y.shape
+                for x, y in zip(g, w)), f"{mode} {label}: the kernel's "
+                "outputs differ in dtype or shape from the plain version's")
+            err = max_abs_err(g, w)
+            name = "narrow_pack" if mode == "narrow_pack" else "zamboni"
+            ident = ZAMBONI_KERNELS[i]
+            mangled = ident.replace("<", "ILi").replace(">", "E")
+            hits = [(ms, n) for key, (ms, n) in trace.items()
+                    if ident in key or mangled in key]
+            dev_ms = sum(ms for ms, _n in hits) / sum(n for _ms, n in hits) \
+                if hits else None
+            r = dict(name=name,
+                     variant="wire" if name == "narrow_pack" else mode,
+                     source=NARROW_SOURCE if name == "narrow_pack"
+                     else ZAMBONI_SOURCE,
+                     replaces=ZAMBONI_REPLACES[mode], on_main_path=True,
+                     launches=counts[mode], err=err,
+                     ms=ms_of(calls[mode], 10), device_ms=dev_ms,
+                     plain_ms=ms_of(plains[mode], 1), library_ms=None,
+                     shape=label + (f", mx {mx}" if name == "narrow_pack"
+                                    else ""),
+                     bytes=nbytes[mode], ops=n_ops[mode])
+            bound = max(r["bytes"] / PEAK_BYTES_PER_S,
+                        r["ops"] / PEAK_OPS_PER_S) * 1e3
+            share = f"{bound / dev_ms:.1%}" if dev_ms else "not measured"
+            print(f"  {name}[{mode}] {r['shape']}: {fmt_ms(dev_ms)} kernel "
+                  f"device time, {r['ms']:.4f} ms back to back, plain "
+                  f"{r['plain_ms']:.3f} ms on the card; bound {bound:.5f} ms "
+                  f"({r['bytes']} bytes, {r['ops']} operations): {share} of "
+                  f"the bound; max_abs_err {err} against the plain version "
+                  f"on CPU copies; launches in phase 14's counted run "
+                  f"{r['launches']}; card {card}", flush=True)
+            require(err == 0, f"{name}[{mode}] {label}: kernel vs plain "
+                    "differ")
+            rows.append(r)
+    return rows
 
 
 def lane_step_ops(step) -> tuple:
@@ -3602,11 +3794,12 @@ def lane_store_phase(dev, card: str, cpu_procs: dict,
 
     ledger.reset()
     kernel.reset_launches()
+    kernel.reset_zamboni_launches()
     reset_window_counts()
     kernel._launch = counted_launch
     t0 = time.perf_counter()
     try:
-        with PlainLwwGuard() as guard:
+        with PlainLwwGuard() as guard, PlainZamboniGuard() as zguard:
             card_res = run_lane_stores(steps, dev, timer, after)
             torch.cuda.synchronize()
     except BaseException:
@@ -3619,6 +3812,13 @@ def lane_store_phase(dev, card: str, cpu_procs: dict,
     require(lww_n > 0 and guard.cuda_calls == 0, f"phase 15: the LWW store "
             f"launched the lane scan {lww_n} times and ran its plain "
             f"version {guard.cuda_calls} times on the card's tensors")
+    z_counts = zamboni_counts()
+    require(z_counts["compact"] > 0 and z_counts["compact_extract"] > 0
+            and z_counts["narrow_pack"] > 0 and zguard.cuda_calls == 0,
+            f"phase 15: the lane stores launched zamboni.cu and "
+            f"narrow_pack.cu {z_counts} times and ran the plain compaction, "
+            f"extraction or narrow pack {zguard.cuda_calls} times on the "
+            f"card's tensors")
     launches = {k: n for k, n in kernel.scan_apply.kernel_launches.items()
                 if n}
     syms = ledger.snapshot()["symbols"]
@@ -3661,7 +3861,8 @@ def lane_store_phase(dev, card: str, cpu_procs: dict,
           f"{launches}; by path (count, "
           f"event ms) {path_ms}; shapes (B, C, T, variant): launches "
           f"{dict(sorted(shapes.items()))}; serve.paged_burst calls "
-          f"{n_bursts}; card {card}", flush=True)
+          f"{n_bursts}; zamboni.cu launches by mode and narrow_pack.cu "
+          f"launches {z_counts}; card {card}", flush=True)
     for store in ("bucketed", "paged"):
         t = times[store]
         wins = [(lb, t[lb]) for lb, _ in labels if lb.startswith("window")]
@@ -3820,30 +4021,69 @@ def reset_window_counts() -> None:
     ss._pack_window.launches = 0
 
 
-class PlainLwwGuard:
-    """While on, counts the calls of the LWW lane scan's plain versions
-    (lww_kernel.apply_lww_batched_plain and apply_lww_window_plain) whose
-    state lies on the card: the main path must make none."""
+class PlainGuard:
+    """While on, counts the calls of a module's plain versions (`names`)
+    whose first argument's first tensor lies on the card: the main path
+    must make none."""
+
+    module: str = ""
+    names: tuple = ()
 
     def __enter__(self):
-        from fluidframework_tpu_torch.server import lww_kernel as lk
-        self.lk, self.cuda_calls = lk, 0
-        self.saved = {n: getattr(lk, n) for n in (
-            "apply_lww_batched_plain", "apply_lww_window_plain")}
+        import importlib
+        self.mod, self.cuda_calls = importlib.import_module(self.module), 0
+        self.saved = {n: getattr(self.mod, n) for n in self.names}
 
         def counted(fn):
-            def call(state, *args):
-                self.cuda_calls += state.key.device.type == "cuda"
-                return fn(state, *args)
+            def call(first, *args, **kwargs):
+                self.cuda_calls += first[0].device.type == "cuda"
+                return fn(first, *args, **kwargs)
             return call
         for n, fn in self.saved.items():
-            setattr(lk, n, counted(fn))
+            setattr(self.mod, n, counted(fn))
         return self
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
-            setattr(self.lk, n, fn)
+            setattr(self.mod, n, fn)
         return False
+
+
+class PlainLwwGuard(PlainGuard):
+    """The LWW lane scan's plain versions (lww_kernel.
+    apply_lww_batched_plain and apply_lww_window_plain) on the card's
+    tensors."""
+
+    module = "fluidframework_tpu_torch.server.lww_kernel"
+    names = ("apply_lww_batched_plain", "apply_lww_window_plain")
+
+
+class PlainZamboniGuard(PlainGuard):
+    """The plain compaction, extraction and narrow pack (kernel.
+    compact_batched_plain, extract_visible_batched_plain,
+    compact_extract_batched_plain, narrow_pack_plain) on the card's
+    tensors."""
+
+    module = "fluidframework_tpu_torch.mergetree.kernel"
+    names = ("compact_batched_plain", "extract_visible_batched_plain",
+             "compact_extract_batched_plain", "narrow_pack_plain")
+
+
+def zamboni_counts() -> dict:
+    """The zamboni kernel's launches by mode and the narrow pack's."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    got = dict(kernel.zamboni.mode_launches)
+    got["narrow_pack"] = kernel.narrow_pack.launches
+    return got
+
+
+def zamboni_since(before: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in zamboni_counts().items()}
+
+
+def print_zamboni_launches(phase: str, before: dict) -> None:
+    print(f"phase {phase}: zamboni.cu launches by mode and narrow_pack.cu "
+          f"launches in the phase {zamboni_since(before)}", flush=True)
 
 
 def counts_since(before: dict) -> dict:

@@ -26,8 +26,10 @@ is easy to find:
                           compact_pages, paged_stats_vec), summary
                           extraction (extract_visible_batched, the fused
                           compact_extract_batched / _paged,
-                          gather_rows_pow2) and the narrow device-to-host
-                          wire (fetch_extracted)
+                          gather_rows_pow2; compaction and extraction are
+                          the zamboni CUDA kernel's modes) and the narrow
+                          device-to-host wire (fetch_extracted, its pack
+                          a CUDA kernel)
   mergetree/host.py       payload tables, OpBuilder, host extraction,
                           snapshot assembly (assemble_snapshot)
   mergetree/runs.py       stable-id Run payloads and their wire encoding

@@ -15,9 +15,11 @@ scope is a declared root table, DEVICE_PATH_ROOTS: pipeline.full_step
 burst and megakernel entry points, the kernel.apply_ops* scan apply and
 the paged ops (each with its _keep twin), ticket_kernel.scan_tickets,
 the pallas_apply / pallas_ops wrappers, the LWW lane scan's two entry
-points (lww_kernel.apply_lww_batched and apply_lww_window) and the
+points (lww_kernel.apply_lww_batched and apply_lww_window), the
 window's admission and pack wrappers (serve_step.admit_merge_ops and
-_pack_window). The call
+_pack_window), and the zamboni and narrow-wire wrappers
+(kernel.compact, compact_batched, extract_visible_batched,
+compact_extract_batched and narrow_pack). The call
 graph (callgraph.py) closes the table over resolved callees in the
 analyzed package; the closure does not enter a function named *_plain
 (the plain references the kernels are held to, run on CPU tensors) or
@@ -128,6 +130,11 @@ DEVICE_PATH_ROOTS = (
     "fluidframework_tpu_torch.mergetree.kernel:compact_pages_keep",
     "fluidframework_tpu_torch.mergetree.kernel:compact_extract_paged",
     "fluidframework_tpu_torch.mergetree.kernel:compact_extract_paged_keep",
+    "fluidframework_tpu_torch.mergetree.kernel:compact",
+    "fluidframework_tpu_torch.mergetree.kernel:compact_batched",
+    "fluidframework_tpu_torch.mergetree.kernel:extract_visible_batched",
+    "fluidframework_tpu_torch.mergetree.kernel:compact_extract_batched",
+    "fluidframework_tpu_torch.mergetree.kernel:narrow_pack",
     "fluidframework_tpu_torch.server.ticket_kernel:scan_tickets",
     "fluidframework_tpu_torch.mergetree.pallas_apply:apply_ops_fused",
     "fluidframework_tpu_torch.mergetree.pallas_ops:summary_lengths",

@@ -555,9 +555,10 @@ def apply_host_ops(entries: Sequence[dict], host_ops: Sequence[HostOp],
     capacity/ring escalation on overflow. Shared by client bulk catch-up
     (device_apply_tail) and the server lane stores' last-resort overflow
     rescue. device defaults to "cuda". Each chunk runs kernel.apply_ops_keep
-    (the scan-apply kernel for a state on the card); plain=True runs the
-    plain PyTorch scan on any device instead, the reference the kernel
-    run is held to. Raises CapacityExceeded when the rows outgrow the
+    (the scan-apply kernel for a state on the card) and each fold
+    kernel.compact (the zamboni kernel there); plain=True runs the plain
+    PyTorch scan and compaction on any device instead, the reference the
+    kernel run is held to. Raises CapacityExceeded when the rows outgrow the
     largest capacity bucket, and EscalationExhausted when a chunk still
     overflows after escalation.
 
@@ -610,6 +611,9 @@ def apply_host_ops(entries: Sequence[dict], host_ops: Sequence[HostOp],
 
     def compact(st):
         _count(stats, "compacts", st.capacity)
+        if plain:
+            return kernel._drop(kernel.compact_batched_plain(
+                kernel._lift(st)))
         return kernel.compact(st)
 
     def fold(st):

@@ -16,20 +16,24 @@ exact identity.
 None of them writes its input: JAX's apply_ops and apply_ops_batched
 donate it, and the port hands back a new state in every case.
 
-Compaction (`compact`, `compact_batched`), `apply_if_any`, `visible_mask`
-and `doc_length` are gathers, prefix sums and reductions with no op loop:
-plain PyTorch on both devices. `gather_pages` / `scatter_pages` move
-documents in and out of a page pool (mergetree/paging.py). The paged ops
-(`apply_ops_paged`, `rollback_pages`, `compact_pages`, each with a `_keep`
-form, and `paged_stats_vec`) compose them with the scan apply and
-compaction: `apply_ops_paged` launches scan_apply.cu for CUDA tensors, as
-JAX's runs `_scan_ops` there.
-
-Summary extraction (`extract_visible_batched`, the fused zamboni +
-extraction `compact_extract_batched` and its paged form
-`compact_extract_paged`, `gather_rows_pow2`) and the narrow device-to-host
-wire (`fetch_extracted`) are XLA code in JAX, not Pallas: plain PyTorch
-on both devices here.
+Zamboni (`compact`, `compact_batched`) and summary extraction
+(`extract_visible_batched`, the fused `compact_extract_batched`) launch
+kernels/csrc/zamboni.cu for CUDA tensors (one launch a call, in the
+mode the function names; `zamboni`) and run their plain versions
+(`compact_batched_plain`, `extract_visible_batched_plain`,
+`compact_extract_batched_plain`) for CPU tensors; the narrow
+device-to-host wire (`fetch_extracted`) packs through
+kernels/csrc/narrow_pack.cu (`narrow_pack`, plain version
+`narrow_pack_plain`) the same way. In JAX these are XLA programs of the
+summarize path. `apply_if_any`, `visible_mask` and `doc_length` are
+reductions with no op loop: plain PyTorch on both devices.
+`gather_pages` / `scatter_pages` move documents in and out of a page pool
+(mergetree/paging.py); they are XLA gathers and scatters in JAX and
+torch indexing here, as are `gather_rows_pow2` and the exact-plane
+refetch. The paged ops (`apply_ops_paged`, `rollback_pages`,
+`compact_pages`, `compact_extract_paged`, each with a `_keep` form, and
+`paged_stats_vec`) compose them with the scan apply and the zamboni
+kernel: each runs its kernel on the gathered view.
 
 The sequence-parallel formulation (`sp_shards`): the visibility prefix sum
 as `sp_shards` block-local cumsums plus an exclusive scan of the block
@@ -42,6 +46,7 @@ per-shard form of mergetree/fused_sp.py instead.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from types import MappingProxyType
 from typing import NamedTuple, Optional
@@ -745,8 +750,32 @@ def apply_if_any(apply_fn, state: DocState, active) -> DocState:
 
 
 # ---------------------------------------------------------------------------
-# zamboni: compaction
+# zamboni: compaction and extraction (kernels/csrc/zamboni.cu)
 # ---------------------------------------------------------------------------
+
+# The kernel's modes, by the code fluid_zamboni takes.
+ZAMBONI_MODES = ("compact", "compact_extract", "extract")
+
+
+def _on_card(device: torch.device) -> bool:
+    """Whether the zamboni and narrow-pack kernels' tensors may lie on
+    `device`: a CUDA device. (The emulator tests, which run the CUDA
+    sources on the CPU, stand in for it.)"""
+    return device.type == "cuda"
+
+
+def _takes_plain(t: torch.Tensor) -> bool:
+    """The plain version runs for a tensor on the CPU, and only there."""
+    return t.device.type == "cpu" and not _on_card(t.device)
+
+
+def _on_device(dev: torch.device):
+    """The launch's device as the current CUDA device (a mesh shard's
+    tensors need not lie on the current one)."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
 
 def _gather_segments(s: DocState, src: torch.Tensor) -> DocState:
     """Reindex all segment columns of a [B, C] state by src [B, C]
@@ -778,10 +807,11 @@ def _pack_src(s: DocState):
     return src[:, :c], n
 
 
-def _compact_batched(s: DocState) -> DocState:
-    """Free segments removed at-or-before min_seq (reference zamboni,
-    mergeTree.ts:1422): stable-partition the live segments to the front
-    and reset the rows past them to make_state's padding."""
+def compact_batched_plain(s: DocState) -> DocState:
+    """Plain PyTorch version of compact_batched: free segments removed
+    at-or-before min_seq (reference zamboni, mergeTree.ts:1422):
+    stable-partition the live segments to the front and reset the rows
+    past them to make_state's padding."""
     src, new_count = _pack_src(s)
     g = _gather_segments(s, src)
     pad = _lanes(s) >= new_count[:, None]
@@ -800,14 +830,114 @@ def _compact_batched(s: DocState) -> DocState:
         count=new_count)
 
 
-def compact(state: DocState) -> DocState:
-    """Zamboni compaction of one document."""
-    return _drop(_compact_batched(_lift(state)))
+def _check_zamboni(state: DocState, mode: str) -> None:
+    """Raise ValueError unless zamboni.cu takes this state in this mode:
+    the types, contiguity and shapes first, the CUDA device last. seq and
+    overflow are not read (they pass through)."""
+    if mode not in ZAMBONI_MODES:
+        raise ValueError(f"zamboni: unknown mode {mode!r} (one of "
+                         f"{ZAMBONI_MODES})")
+    if state.length.dim() != 2 or state.rem_clients.dim() != 3 \
+            or state.anno.dim() != 3:
+        raise ValueError("zamboni: the state is not a [B, C] batch")
+    b, c = state.length.shape
+    k, a = state.overlap_slots, state.anno_slots
+    if c < 1 or k < 1:
+        raise ValueError(f"zamboni: the kernel takes C >= 1 slots and K >= "
+                         f"1 overlap slots, not C={c}, K={k}")
+    want = {"rem_clients": (b, c, k), "anno": (b, c, a),
+            "count": (b,), "min_seq": (b,)}
+    fields = (*_ROW_FIELDS, "count", "min_seq")
+    for name in fields:
+        x = getattr(state, name)
+        shape = want.get(name, (b, c))
+        if x.dtype != _I32:
+            raise ValueError(f"zamboni: state.{name} is {x.dtype}, not "
+                             "torch.int32")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"zamboni: state.{name} has shape "
+                             f"{tuple(x.shape)}, not {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"zamboni: state.{name} is not contiguous")
+    for name in fields:
+        x = getattr(state, name)
+        if not _on_card(x.device) or x.device != state.length.device:
+            raise ValueError(f"zamboni: state.{name} is on {x.device}, not "
+                             "the CUDA device of the state")
+
+
+def zamboni(state: DocState, mode: str, stats: bool = False) -> tuple:
+    """One launch of kernels/csrc/zamboni.cu over a [B, C] batch of CUDA
+    tensors in `mode` ("compact", "compact_extract" or "extract"), into
+    new tensors; the input is left as it was. Returns (compacted state or
+    None, packed rows or None, pre-compaction counts or None): the
+    compacted state keeps the input's min_seq, seq and overflow tensors,
+    as the plain version does, and the fused mode's packed rows are the
+    compacted state's planes plus a rem_client plane. stats=True also
+    writes the pre-compaction counts. Tensors the kernel does not take
+    raise ValueError, a launch error RuntimeError. A batch of zero
+    documents launches nothing. Counted in zamboni.launches and
+    zamboni.mode_launches[mode]."""
+    _check_zamboni(state, mode)
+    b, c = state.length.shape
+    dev = state.length.device
+
+    def plane():
+        return torch.empty((b, c), dtype=_I32, device=dev)
+
+    comp = packed = None
+    if mode != "extract":
+        comp = state._replace(
+            **{name: torch.empty_like(getattr(state, name))
+               for name in _ROW_FIELDS},
+            count=torch.empty((b,), dtype=_I32, device=dev))
+    if mode == "compact_extract":
+        packed = (comp.origin_op, comp.origin_off, comp.length, comp.anno,
+                  comp.ins_seq, comp.ins_client, comp.rem_seq, plane(),
+                  comp.count)
+    elif mode == "extract":
+        packed = (plane(), plane(), plane(), torch.empty_like(state.anno),
+                  plane(), plane(), plane(), plane(),
+                  torch.empty((b,), dtype=_I32, device=dev))
+    pre = torch.empty((b,), dtype=_I32, device=dev) if stats else None
+    if b == 0:  # a grid of no blocks is an invalid launch
+        return comp, packed, pre
+    ptrs = [getattr(state, name).data_ptr()
+            for name in (*_ROW_FIELDS, "count", "min_seq")]
+    ptrs += [None] * 11 if comp is None else \
+        [getattr(comp, name).data_ptr() for name in (*_ROW_FIELDS, "count")]
+    packed_ptrs = [None] * 9
+    if mode == "extract":
+        packed_ptrs = [x.data_ptr() for x in packed]
+    elif mode == "compact_extract":  # the kernel writes rem_client alone
+        packed_ptrs[7] = packed[7].data_ptr()
+    ptrs += packed_ptrs
+    ptrs.append(None if pre is None else pre.data_ptr())
+    lib = build.library()
+    zamboni.launches += 1
+    zamboni.mode_launches[mode] += 1
+    note_launch("zamboni")
+    with _on_device(dev):
+        build.check(lib.fluid_zamboni(
+            (ctypes.c_void_p * len(ptrs))(*ptrs),
+            ZAMBONI_MODES.index(mode), b, c, state.overlap_slots,
+            state.anno_slots, ctypes.c_void_p(build.stream_handle())),
+            "zamboni")
+    return comp, packed, pre
 
 
 def compact_batched(state: DocState) -> DocState:
-    """Zamboni compaction of a [B, C] batch."""
-    return _compact_batched(state)
+    """Zamboni compaction of a [B, C] batch: compact_batched_plain for CPU
+    tensors; for CUDA tensors one launch of zamboni.cu, or ValueError for
+    tensors it does not take. The input is not written."""
+    if _takes_plain(state.length):
+        return compact_batched_plain(state)
+    return zamboni(state, "compact")[0]
+
+
+def compact(state: DocState) -> DocState:
+    """Zamboni compaction of one document."""
+    return _drop(compact_batched(_lift(state)))
 
 
 # ---------------------------------------------------------------------------
@@ -1058,7 +1188,7 @@ def rollback_pages_keep(pool: DocState, page_ids: torch.Tensor,
 
 def _compact_pages(pool, page_ids, counts, min_seqs, seqs):
     view = gather_pages(pool, page_ids, counts, min_seqs, seqs)
-    g = _compact_batched(view)
+    g = compact_batched(view)
     return scatter_pages(pool, page_ids, g), page_ids, g.count
 
 
@@ -1087,7 +1217,7 @@ def compact_extract_paged(pool: DocState, page_ids: torch.Tensor, counts,
     in the extract_visible_batched layout, so host.assemble_snapshot runs
     unchanged."""
     view = gather_pages(pool, page_ids, counts, min_seqs, seqs)
-    g, packed = _compact_extract_batched(view)
+    g, packed = compact_extract_batched(view)
     return scatter_pages(pool, page_ids, g), page_ids, g.count, packed
 
 
@@ -1102,13 +1232,14 @@ def compact_extract_paged_keep(pool: DocState, page_ids: torch.Tensor,
 # batched summary extraction
 # ---------------------------------------------------------------------------
 
-def _extract_batched(s: DocState) -> tuple:
-    """Left-pack the snapshot-relevant segment rows of a [B, C] batch:
-    everything not yet zambonied (removed at-or-before min_seq), i.e.
-    visible text plus contended collab-window metadata, through
-    compaction's own keep-mask + prefix-sum addressing (_pack_src), so the
-    host reads exactly the live rows (reference snapshotV1.ts:33). Rows
-    past each count repeat the last slot, as JAX's gather does."""
+def extract_visible_batched_plain(s: DocState) -> tuple:
+    """Plain PyTorch version of extract_visible_batched: left-pack the
+    snapshot-relevant segment rows of a [B, C] batch, everything not yet
+    zambonied (removed at-or-before min_seq), i.e. visible text plus
+    contended collab-window metadata, through compaction's own keep-mask +
+    prefix-sum addressing (_pack_src), so the host reads exactly the live
+    rows (reference snapshotV1.ts:33). Rows past each count repeat the
+    last slot, as JAX's gather does."""
     src, n = _pack_src(s)
     src = src.long()
 
@@ -1121,15 +1252,18 @@ def _extract_batched(s: DocState) -> tuple:
             g(s.rem_clients[..., 0]), n)
 
 
-def _compact_extract_batched(s: DocState) -> tuple:
-    """Fused zamboni + extraction: compaction's left-pack is exactly what
-    extraction keeps, so one pass gives both the compacted state and the
-    packed rows; the columns are read from the compacted rows, so padding
-    slots carry clean blanks, not stale data."""
-    g = _compact_batched(s)
-    return g, (g.origin_op, g.origin_off, g.length, g.anno, g.ins_seq,
+def compact_extract_batched_plain(s: DocState, stats: bool = False) -> tuple:
+    """Plain PyTorch version of compact_extract_batched: compaction's
+    left-pack is exactly what extraction keeps, so one pass gives both the
+    compacted state and the packed rows; the columns are read from the
+    compacted rows, so padding slots carry clean blanks, not stale data."""
+    g = compact_batched_plain(s)
+    out = (g, (g.origin_op, g.origin_off, g.length, g.anno, g.ins_seq,
                g.ins_client, g.rem_seq, g.rem_clients[..., 0].contiguous(),
-               g.count)
+               g.count))
+    if stats:
+        return out + (s.count.to(_I32, copy=True),)
+    return out
 
 
 def extract_visible_batched(state: DocState) -> tuple:
@@ -1137,8 +1271,11 @@ def extract_visible_batched(state: DocState) -> tuple:
     (origin_op, origin_off, length, anno, ins_seq, ins_client, rem_seq,
     rem_client) each [B, C] (anno [B, C, A]; rows >= counts[b] are
     padding) + counts [B]. Only the first overlap client of a removed row
-    is extracted."""
-    return _extract_batched(state)
+    is extracted. extract_visible_batched_plain for CPU tensors; for CUDA
+    tensors one launch of zamboni.cu, or ValueError."""
+    if _takes_plain(state.length):
+        return extract_visible_batched_plain(state)
+    return zamboni(state, "extract")[1]
 
 
 def compact_extract_batched(state: DocState, stats: bool = False) -> tuple:
@@ -1147,11 +1284,13 @@ def compact_extract_batched(state: DocState, stats: bool = False) -> tuple:
     compact_batched(state) and packed in the extract_visible_batched
     layout. The input is left as it was. stats=True appends the
     pre-compaction per-document live-row counts (int32 [B]) as a third
-    element, from which the host derives the rows zamboni reclaimed."""
-    out = _compact_extract_batched(state)
-    if stats:
-        return out + (state.count.to(_I32, copy=True),)
-    return out
+    element, from which the host derives the rows zamboni reclaimed.
+    compact_extract_batched_plain for CPU tensors; for CUDA tensors one
+    launch of zamboni.cu, or ValueError."""
+    if _takes_plain(state.length):
+        return compact_extract_batched_plain(state, stats)
+    comp, packed, pre = zamboni(state, "compact_extract", stats)
+    return (comp, packed, pre) if stats else (comp, packed)
 
 
 def _gather_rows(state: DocState, idx: torch.Tensor) -> DocState:
@@ -1193,8 +1332,8 @@ def gather_rows_pow2(state: DocState, rows):
 _NARROW_MAX = 32000
 
 
-def _narrow_pack(packed: tuple, mx: int) -> tuple:
-    """Narrow delta packing of an extraction result, on its device: the
+def narrow_pack_plain(packed: tuple, mx: int) -> tuple:
+    """Plain PyTorch version of narrow_pack: narrow delta packing of an extraction result, on its device: the
     bounded columns (length, origin_off, ins_client, rem_client, annotate
     id deltas) ride int16; the seq columns delta-encode against a
     per-document base (the least live value) with sentinel codes for
@@ -1260,6 +1399,67 @@ def _narrow_pack(packed: tuple, mx: int) -> tuple:
     return stacked16, n16(d_anno), op32, meta
 
 
+def _check_narrow(packed: tuple, mx: int) -> None:
+    """Raise ValueError unless narrow_pack.cu takes these packed rows at
+    this width: the types, contiguity and shapes first, the CUDA device
+    last."""
+    if len(packed) != 9:
+        raise ValueError(f"narrow_pack: {len(packed)} packed columns, not 9")
+    if packed[0].dim() != 2 or packed[3].dim() != 3:
+        raise ValueError("narrow_pack: the packed rows are not [B, C] "
+                         "planes with a [B, C, A] anno")
+    b, c = packed[0].shape
+    if not 1 <= mx <= c:
+        raise ValueError(f"narrow_pack: the width {mx} is outside 1..{c}")
+    for i, x in enumerate(packed):
+        shape = (b,) if i == 8 else \
+            (b, c, packed[3].shape[2]) if i == 3 else (b, c)
+        if x.dtype != _I32:
+            raise ValueError(f"narrow_pack: column {i} is {x.dtype}, not "
+                             "torch.int32")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"narrow_pack: column {i} has shape "
+                             f"{tuple(x.shape)}, not {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"narrow_pack: column {i} is not contiguous")
+    for i, x in enumerate(packed):
+        if not _on_card(x.device) or x.device != packed[0].device:
+            raise ValueError(f"narrow_pack: column {i} is on {x.device}, "
+                             "not the CUDA device of the packed rows")
+
+
+def narrow_pack(packed: tuple, mx: int) -> tuple:
+    """The narrow wire of an extraction result at width mx (the layout of
+    narrow_pack_plain): the plain version for CPU tensors; for CUDA
+    tensors one launch of kernels/csrc/narrow_pack.cu into new tensors,
+    or ValueError for tensors it does not take. A batch of zero documents
+    launches nothing. Counted in narrow_pack.launches."""
+    if _takes_plain(packed[0]):
+        return narrow_pack_plain(packed, mx)
+    _check_narrow(packed, mx)
+    b, c = packed[0].shape
+    a = packed[3].shape[2]
+    dev = packed[0].device
+    # fluidlint: disable=DTYPE_DRIFT — the narrow wire's int16 outputs
+    # (the host decodes them to int32; the ok bit guards the range)
+    stacked16 = torch.empty((6, b, mx), dtype=torch.int16, device=dev)
+    # fluidlint: disable=DTYPE_DRIFT — the narrow wire's int16 outputs
+    anno16 = torch.empty((b, mx, a), dtype=torch.int16, device=dev)
+    op32 = torch.empty((b, mx), dtype=_I32, device=dev)
+    meta = torch.empty((4, b), dtype=_I32, device=dev)
+    if b == 0:  # a grid of no blocks is an invalid launch
+        return stacked16, anno16, op32, meta
+    ptrs = [x.data_ptr() for x in (*packed, stacked16, anno16, op32, meta)]
+    lib = build.library()
+    narrow_pack.launches += 1
+    note_launch("narrow_pack")
+    with _on_device(dev):
+        build.check(lib.fluid_narrow_pack(
+            (ctypes.c_void_p * len(ptrs))(*ptrs), b, c, mx, a,
+            ctypes.c_void_p(build.stream_handle())), "narrow_pack")
+    return stacked16, anno16, op32, meta
+
+
 def _exact_rows(packed: tuple, idx: torch.Tensor, mx: int) -> tuple:
     """Exact int32 planes of the (rare) documents whose values escape the
     narrow range: one stacked gather per refetch (idx pow2-padded by the
@@ -1293,7 +1493,7 @@ def fetch_extracted(packed: tuple, narrow: bool = True) -> tuple:
     same-dtype 2-D columns ride one stacked copy.
 
     narrow=True (default) rides the bounded columns as int16 with the seq
-    columns delta-encoded per document (_narrow_pack) and decodes back to
+    columns delta-encoded per document (narrow_pack) and decodes back to
     the exact int32 arrays on the host; documents whose values escape
     int16 refetch their exact planes (counted as summarize.wire_refetch).
     Either form gives the same live rows; only the bytes differ. The bytes
@@ -1329,7 +1529,7 @@ def fetch_extracted(packed: tuple, narrow: bool = True) -> tuple:
         counters.increment("summarize.bytes_d2h", nbytes)
         return tuple(fetched[i] for i in range(len(cols))) + (counts,)
 
-    stacked16, anno16, op32, meta = _narrow_pack(packed, mx)
+    stacked16, anno16, op32, meta = narrow_pack(packed, mx)
     s16 = _d2h(stacked16, fresh=True)
     a16 = _d2h(anno16, fresh=True)
     op32 = _d2h(op32)
@@ -1372,3 +1572,14 @@ def fetch_extracted(packed: tuple, narrow: bool = True) -> tuple:
     counters.increment("summarize.bytes_d2h", nbytes)
     return (op32, origin_off, length, anno, ins_seq, ins_client,
             rem_seq, rem_client, counts)
+
+
+def reset_zamboni_launches() -> None:
+    """Zero the zamboni kernel's launch counts (in all and per mode) and
+    narrow_pack's."""
+    zamboni.launches = 0
+    zamboni.mode_launches = dict.fromkeys(ZAMBONI_MODES, 0)
+    narrow_pack.launches = 0
+
+
+reset_zamboni_launches()

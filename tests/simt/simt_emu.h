@@ -2,7 +2,8 @@
 // conformance tests of the port's hand-written kernels
 // (tests/test_torch_fused_emu.py, tests/test_torch_scan_emu.py,
 // tests/test_torch_ticket_emu.py, tests/test_torch_summary_emu.py,
-// tests/test_torch_lww_emu.py, tests/test_torch_window_emu.py). It is
+// tests/test_torch_lww_emu.py, tests/test_torch_window_emu.py,
+// tests/test_torch_zamboni_emu.py). It is
 // not a CUDA implementation: it provides only what the kernels of
 // fluidframework_tpu_torch/kernels/csrc/ use, and no timing means
 // anything. The device it reports has EMU_SMS multiprocessors, each
@@ -220,6 +221,7 @@ inline unsigned __ballot_sync(unsigned m, int p) {
 inline int __ffs(int x) {
   return x == 0 ? 0 : __builtin_ctz(static_cast<unsigned>(x)) + 1;
 }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void __syncwarp(unsigned m = 0xffffffffu) {
   emu_full(m);
   emu_barrier(emu_warp());
@@ -231,6 +233,15 @@ inline int __syncthreads_or(int p) {
   emu_barrier(g);
   int r = 0;
   for (int i = 0; i < g.size; ++i) r |= static_cast<int>(g.vals[i]);
+  emu_barrier(g);
+  return r;
+}
+inline int __syncthreads_and(int p) {
+  EmuGroup& g = emu_cur->blk->block;
+  g.vals[threadIdx.x] = p != 0;
+  emu_barrier(g);
+  int r = 1;
+  for (int i = 0; i < g.size; ++i) r &= static_cast<int>(g.vals[i]);
   emu_barrier(g);
   return r;
 }

@@ -232,12 +232,20 @@ testing/server_runs on TpuLocalServer(mesh=...) bucketed at SERVER_CARD
 and paged at SERVER_SMALL, every digest equal to the JAX golden (and to
 phase 17's at SERVER_CARD), testing/shardcheck.verify_store passing, the
 ticket scan and the scan apply launching on every shard, ops/s beside
-phase 17's and the page copies between shards; (c) the long document of
-tests/test_fused_sp.py (2 x 48 ops at C = 4,096) and a rich schedule
-through apply_ops_fused_shardmap over dp=1 x sp=8 and dp=2 x sp=4,
-bit-exact to scan_apply.cu, with the boundary exchanges per op, and
-gpu_conformance.check_fused_sp; the phase's wall printed against
-PHASE23_BUDGET_S.
+phase 17's and the page copies between shards; (c) the fused apply over
+sp tiles: the long document of tests/test_fused_sp.py (2 x 48 ops at
+C = 4,096) and a rich schedule through apply_ops_fused_shardmap on
+fused_sp.cu over dp=1 x sp=8 and dp=2 x sp=4 (one launch a dp row), the
+INSERT_RUN variant over dp=2 x sp=4 and a mesh of one rank (dp=2 x sp=1
+at C = 2,048), all bit-exact to scan_apply.cu; apply_ops_fused_sp at sp
+4 and 8, one scan_apply.cu launch each; the gen_traces case of each mesh
+shape and the INSERT_RUN case bit-exact to the plain lockstep on the
+card, the one-device form to apply_ops_fused_sp_plain (the named plain
+runs; no other plain sp call on the card's tensors);
+gpu_conformance.check_fused_sp; a wave of 16 documents x 2,048 ops at
+C = 16,384 over sp = 8 (128 blocks) bit-exact to scan_apply.cu and to
+the plain one-device form, both kernels' device ms side by side; the
+phase's wall printed against PHASE23_BUDGET_S.
 Phase 24 runs the port's static gates and its runtime lockset check: (a)
 the port's fluidlint (python -m fluidframework_tpu_torch.analysis over
 fluidframework_tpu_torch/, its baseline applied) and its layer check, in
@@ -368,6 +376,8 @@ ZAMBONI_REPLACES = {"compact": "fluidframework_tpu/mergetree/kernel.py:503",
                         "fluidframework_tpu/mergetree/kernel.py:817"}
 ZAMBONI_KERNELS = ("zamboni_kernel<0>", "zamboni_kernel<1>",
                    "zamboni_kernel<2>", "narrow_pack_kernel")
+# fused_sp.cu's kernels by <runs>: a cluster per document.
+FUSED_SP_KERNELS = ("fused_sp_kernel<0>", "fused_sp_kernel<1>")
 LANE_BUCKET0 = (16_384, 64)
 FOLD_C = 4_096
 # Phase 15: the sequencer's lane stores over a partition (testing/
@@ -895,14 +905,19 @@ def fused_apply_lane_ops(kinds: np.ndarray, slots, k: int, a: int) -> float:
         np.asarray(slots, np.int64), kinds.shape)).sum())
 
 
-def live_slots(state, ops, runs=None) -> np.ndarray:
+def live_slots(state, ops, runs=None, by_kernel: bool = False) -> np.ndarray:
     """[B, T]: the slots op t of document b has to touch, from the plain
     version's count before it: the rows in use and those the op may add
     (count + 2, count + RUN_K + 1 for a run, at most C) when the padding
     past count holds one value per plane, which no op moves or changes
     but an ack (an ack that reaches the padding is counted at these rows
     too); else all C slots. The work of the function on this run's data,
-    where fused_apply_lane_ops(kinds, C, ...) counts every slot."""
+    where fused_apply_lane_ops(kinds, C, ...) counts every slot.
+    by_kernel=True steps the tables with scan_apply.cu one op at a time
+    (a launch an op, which the script holds bit-exact to the plain
+    version) instead of the plain body's few hundred small launches an
+    op: the same counts, for a stream of thousands of ops."""
+    from fluidframework_tpu_torch.mergetree import kernel
     from fluidframework_tpu_torch.mergetree import pallas_apply as pa
     from fluidframework_tpu_torch.mergetree.oppack import OpKind
     k, a = state.overlap_slots, state.anno_slots
@@ -912,6 +927,8 @@ def live_slots(state, ops, runs=None) -> np.ndarray:
     lane = torch.arange(c, device=state.length.device)
     out = []
     for t in range(ops.steps):
+        if by_kernel:
+            st = pa._to_planes(state)
         count = st["count"]
         pad = lane >= count
         at = count.clamp(0, c - 1).long()
@@ -923,8 +940,14 @@ def live_slots(state, ops, runs=None) -> np.ndarray:
         need = 2 if runs is None else torch.where(
             op["kind"] == OpKind.INSERT_RUN, RUN_K + 1, 2)
         out.append(torch.where(uniform, (count + need).clamp(max=c), c))
-        st = pa._apply_one_batched(st, op, k, a, pa.local_lanes(c),
-                                   with_runs=runs is not None)
+        if by_kernel:
+            state = kernel.scan_apply(state, type(ops)(
+                *(x[:, t:t + 1].contiguous() for x in ops)),
+                None if runs is None else type(runs)(
+                    *(x[:, t:t + 1].contiguous() for x in runs)))
+        else:
+            st = pa._apply_one_batched(st, op, k, a, pa.local_lanes(c),
+                                       with_runs=runs is not None)
     return torch.cat(out, 1).cpu().numpy()
 
 
@@ -1088,7 +1111,11 @@ def main(north_star_only: bool = False) -> int:
     require(zamboni == sorted(ZAMBONI_KERNELS), f"expected the zamboni "
             f"and narrow-pack kernels {sorted(ZAMBONI_KERNELS)}, ptxas "
             f"reports {zamboni}")
-    checked = {*apply_kernels, *scan_kernels, *mine, *window, *zamboni}
+    fsp = sorted(k for k in report if k in FUSED_SP_KERNELS)
+    require(fsp == sorted(FUSED_SP_KERNELS), f"expected the fused-sp "
+            f"kernels {sorted(FUSED_SP_KERNELS)}, ptxas reports {fsp}")
+    checked = {*apply_kernels, *scan_kernels, *mine, *window, *zamboni,
+               *fsp}
     spilled = sorted(k for k in checked  # refused after the timings
                      if any(report[k].get(key) for key in
                             ("stack", "spill_stores", "spill_loads")))
@@ -1443,7 +1470,7 @@ def main(north_star_only: bool = False) -> int:
         print_zamboni_launches("22", z0)
         clock.mark("phase 23")
         z0 = zamboni_counts()
-        mesh_phase(dev, card, north, fig17)
+        rows += mesh_phase(dev, card, north, fig17)
         print_zamboni_launches("23", z0)
         clock.mark("phase 24")
         z0 = zamboni_counts()
@@ -4036,7 +4063,10 @@ class PlainGuard:
 
         def counted(fn):
             def call(first, *args, **kwargs):
-                self.cuda_calls += first[0].device.type == "cuda"
+                lead = first[0]
+                if hasattr(lead, "blocks"):  # a Sharded leaf: its tiles
+                    lead = lead.block(0, 0)
+                self.cuda_calls += lead.device.type == "cuda"
                 return fn(first, *args, **kwargs)
             return call
         for n, fn in self.saved.items():
@@ -4067,6 +4097,15 @@ class PlainZamboniGuard(PlainGuard):
     module = "fluidframework_tpu_torch.mergetree.kernel"
     names = ("compact_batched_plain", "extract_visible_batched_plain",
              "compact_extract_batched_plain", "narrow_pack_plain")
+
+
+class PlainFusedSpGuard(PlainGuard):
+    """The fused apply over sp tiles in plain torch (fused_sp.
+    apply_ops_fused_sp_plain and apply_ops_fused_shardmap_plain) on the
+    card's tensors."""
+
+    module = "fluidframework_tpu_torch.mergetree.fused_sp"
+    names = ("apply_ops_fused_sp_plain", "apply_ops_fused_shardmap_plain")
 
 
 def zamboni_counts() -> dict:
@@ -7193,6 +7232,20 @@ MESH_DP = 4                      # (a) and (b): a dp mesh of four entries
 SP_MESHES = ((1, 8), (2, 4))     # (c): (dp, sp), every entry cuda:0
 SP_SHAPE = (2, 48, 4_096, 19)    # (c): tests/test_fused_sp.py's long doc
 SP_RICH_SEED = 7                 # (c): the rich schedule's seed
+SP_ONE_DEVICE_SP = (4, 8)        # (c): apply_ops_fused_sp's sp_shards
+SP_RUNS_MESH = (2, 4)            # (c): the INSERT_RUN variant's mesh
+SP_RUNS_SEED = 31                # (c): its gen_run_traces seed
+# (c): a mesh of one rank (dp, sp, C): a cluster of one block, C within
+# one block's shared memory (pallas_apply.max_fused_capacity, 3,865).
+SP_ONE_RANK = (2, 1, 2_048)
+# (c)'s long-document wave (B, T, C, sp, seed): 16 clusters of 8 blocks,
+# 128 of the card's 132 SMs, each block a 2,048-slot tile (124 KB of
+# shared memory at K = 3, A = 2).
+SP_WAVE = (16, 2_048, 16_384, 8, 23)
+FUSED_SP_SOURCE = "fluidframework_tpu_torch/kernels/csrc/fused_sp.cu"
+FUSED_SP_REPLACES = ("fluidframework_tpu/mergetree/fused_sp.py:166 "
+                     "apply_ops_fused_shardmap (with "
+                     "parallel/seq_scan.py:24)")
 # (b)'s paged layout runs at SERVER_SMALL: at SERVER_CARD both layouts on
 # the mesh would take the phase past its 60 s (PERF.md §4 records the cut
 # and its reason).
@@ -7383,82 +7436,289 @@ def mesh_server_part(dev, card: str, fig17: dict) -> dict:
     return figures
 
 
-def mesh_sp_part(dev, card: str) -> dict:
-    """Phase 23 (c): a long document with the capacity axis sharded:
-    apply_ops_fused_shardmap over SP_MESHES (every entry cuda:0) at
-    SP_SHAPE (gen_traces) and on one rich schedule (inserts and removes
-    from three clients, gpu_conformance's traces) at the same width, each
-    bit-exact to scan_apply.cu's result; then
-    gpu_conformance.check_fused_sp. Prints the apply's wall and its
-    boundary exchanges per op."""
+def fused_sp_launches() -> int:
+    """fused_sp.cu's launches (the mesh form's)."""
+    from fluidframework_tpu_torch.mergetree import fused_sp
+    return fused_sp.launches
+
+
+def fused_sp_row(label: str, card: str, launches: int, fn, state, ops,
+                 plain_ms, err: int, by_kernel: bool = False) -> dict:
+    """A kernel row of fused_sp.cu: the launch fn makes timed back to back
+    (CUDA events) and by the profiler, beside its bound over the rows in
+    use (the fused apply's counts: fused_apply_bytes, fused_apply_lane_ops
+    over live_slots, stepped by scan_apply.cu with by_kernel)."""
+    b, c = state.length.shape
+    k, a = state.overlap_slots, state.anno_slots
+    nbytes = fused_apply_bytes(b, c, ops.steps, k, a, False, False)
+    kinds = ops.kind.cpu().numpy()
+    n_ops = fused_apply_lane_ops(
+        kinds, live_slots(state, ops, by_kernel=by_kernel), k, a)
+    every = fused_apply_lane_ops(kinds, c, k, a)
+    r = dict(name="fused_sp", variant="plain", source=FUSED_SP_SOURCE,
+             replaces=FUSED_SP_REPLACES, on_main_path=True,
+             launches=launches, err=err, ms=ms_of(fn, 3),
+             device_ms=one_kernel_ms(fn, 3, "fused_sp_kernel"),
+             plain_ms=plain_ms, library_ms=None, shape=label, bytes=nbytes,
+             ops=n_ops, ops_every_slot=every)
+    bound = max(nbytes / PEAK_BYTES_PER_S, n_ops / PEAK_OPS_PER_S) * 1e3
+    dev_ms = r["device_ms"]
+    share = f"{bound / dev_ms:.2%}" if dev_ms else "not measured"
+    plain = "not run" if plain_ms is None else f"{plain_ms:.1f} ms"
+    print(f"  fused_sp[plain] {label}: {fmt_ms(dev_ms)} kernel device time "
+          f"a launch (profiler), {r['ms']:.4f} ms a call back to back, "
+          f"plain {plain}; bound {bound:.5f} ms ({nbytes:.0f} "
+          f"bytes, {n_ops:.0f} operations over the rows in use, "
+          f"{every:.0f} over every slot): {share} of the bound; "
+          f"max_abs_err {err}; launches on the main path {launches}; card "
+          f"{card}", flush=True)
+    return r
+
+
+def mesh_sp_part(dev, card: str) -> list:
+    """Phase 23 (c): the fused apply with the capacity axis sharded.
+    apply_ops_fused_shardmap on fused_sp.cu over SP_MESHES (every entry
+    cuda:0) at SP_SHAPE (gen_traces) and on one rich schedule (inserts
+    and removes from three clients, gpu_conformance's traces), one launch
+    per dp row, each bit-exact to scan_apply.cu's result; the INSERT_RUN
+    variant over SP_RUNS_MESH and a mesh of one rank (SP_ONE_RANK, a
+    cluster of one block), each bit-exact to scan_apply.cu; the one-device
+    form apply_ops_fused_sp at SP_ONE_DEVICE_SP on both cases, one
+    scan_apply.cu launch each; gpu_conformance.check_fused_sp. The named
+    plain runs on the card: the gen_traces case of each mesh shape and the
+    INSERT_RUN case against the plain lockstep (apply_ops_fused_shardmap_
+    plain), the one-device form at the first of SP_ONE_DEVICE_SP against
+    apply_ops_fused_sp_plain; no other plain sp call reaches the card's
+    tensors (PlainFusedSpGuard). Then the long-document wave
+    (sp_wave_part). Returns the kernel rows at SP_SHAPE over the first of
+    SP_MESHES and of the wave."""
     from fluidframework_tpu_torch import interop
     from fluidframework_tpu_torch.mergetree import fused_sp, kernel
     from fluidframework_tpu_torch.mergetree.oppack import pack_ops
     from fluidframework_tpu_torch.mergetree.state import make_state
     from fluidframework_tpu_torch.parallel.mesh import gather_tree, make_mesh
-    from fluidframework_tpu_torch.testing.traces import gen_traces
+    from fluidframework_tpu_torch.testing.traces import (gen_run_traces,
+                                                         gen_traces)
     from fluidframework_tpu_torch.tools import gpu_conformance
 
+    t_part = time.perf_counter()
     b, t, cap, seed = SP_SHAPE
     cases = {
         "gen_traces": interop.packed_ops_from_numpy(
             gen_traces(b, t, seed=seed), dev),
         "rich": interop.packed_ops_from_numpy(
             pack_ops(gpu_conformance._traces(b, t, SP_RICH_SEED)), dev)}
+    run_cols, run_np = gen_run_traces(b, t, seed=SP_RUNS_SEED)
+    run_ops = interop.packed_ops_from_numpy(run_cols, dev)
+    runs = interop.run_cols_from_numpy(run_np, dev)
     f = fused_sp.apply_ops_fused_shardmap
-    out = {}
-    for label, ops in cases.items():
+
+    def mesh_of(dp, sp):
+        return make_mesh(dp=dp, sp=sp, devices=[dev] * (dp * sp))
+
+    def on_mesh(what, state, ops, dp, sp, ref, runs=None):
+        n0 = fused_sp_launches()
+        t0 = time.perf_counter()
+        got = gather_tree(f(state, ops, meshes[(dp, sp)], runs=runs))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        n = fused_sp_launches() - n0
+        require(n == dp, f"phase 23 (c) {what} dp={dp} sp={sp}: {n} "
+                f"fused_sp launches, not one per dp row")
+        assert_tuple_equal(got, ref, f"phase 23 (c) {what} dp={dp} sp={sp} "
+                           f"vs scan_apply.cu")
+        print(f"phase 23 (c) {what} over dp={dp} sp={sp}: fused_sp.cu, {dp} "
+              f"launch(es), bit-exact to scan_apply.cu; wall {wall:.1f} ms "
+              f"(host clock, synced, the tiles' placement included); card "
+              f"{card}", flush=True)
+        return got, wall
+
+    meshes = {shape: mesh_of(*shape) for shape in (
+        *SP_MESHES, SP_RUNS_MESH, SP_ONE_RANK[:2])}
+    refs, outs, walls, plain = {}, {}, {}, {}
+    fused_sp.reset_counts()
+    with PlainFusedSpGuard() as guard:
+        for label, ops in cases.items():
+            state = make_state(cap, 2, batch=b, device=dev)
+            refs[label] = ref = kernel.scan_apply(state, ops)
+            torch.cuda.synchronize()
+            for dp, sp in SP_MESHES:
+                outs[(label, dp, sp)], walls[(label, dp, sp)] = on_mesh(
+                    f"{label} {b} x {t} ops at C={cap}", state, ops, dp, sp,
+                    ref)
+            for sp in SP_ONE_DEVICE_SP:
+                n0 = (fused_sp_launches(), kernel.scan_apply.launches)
+                got = fused_sp.apply_ops_fused_sp(state, ops, sp)
+                torch.cuda.synchronize()
+                n = (fused_sp_launches() - n0[0],
+                     kernel.scan_apply.launches - n0[1])
+                require(n == (0, 1), f"phase 23 (c) {label} one device "
+                        f"sp={sp}: (fused_sp, scan_apply) launches {n}")
+                assert_tuple_equal(got, ref, f"phase 23 (c) {label} one "
+                                   f"device sp={sp} vs scan_apply.cu")
+                outs[(label, "one", sp)] = got
+                print(f"phase 23 (c) {label} one device sp={sp}: one "
+                      f"scan_apply.cu launch, bit-exact to the mesh forms; "
+                      f"card {card}", flush=True)
+        main_launches = fused_sp_launches()
         state = make_state(cap, 2, batch=b, device=dev)
+        refs["runs"] = kernel.scan_apply(state, run_ops, runs)
+        outs["runs"], walls["runs"] = on_mesh(
+            f"INSERT_RUN {b} x {t} ops at C={cap}", state, run_ops,
+            *SP_RUNS_MESH, refs["runs"], runs=runs)
+        dp1, sp1, cap1 = SP_ONE_RANK
+        state1 = make_state(cap1, 2, batch=b, device=dev)
+        on_mesh(f"gen_traces {b} x {t} ops at C={cap1} (one rank)", state1,
+                cases["gen_traces"], dp1, sp1,
+                kernel.scan_apply(state1, cases["gen_traces"]))
+        require(gpu_conformance.check_fused_sp(
+            *gpu_conformance.FUSED_SP_SHAPE, device=dev),
+            "phase 23 (c): check_fused_sp failed")
+    require(guard.cuda_calls == 0, f"phase 23 (c): {guard.cuda_calls} plain "
+            "fused-sp call(s) on the card's tensors")
+
+    # The named plain runs on the card.
+    state = make_state(cap, 2, batch=b, device=dev)
+    ops = cases["gen_traces"]
+    for dp, sp in SP_MESHES:
+        fused_sp.reset_counts()
+        t0 = time.perf_counter()
+        want = gather_tree(fused_sp.apply_ops_fused_shardmap_plain(
+            state, ops, meshes[(dp, sp)]))
+        torch.cuda.synchronize()
+        plain[(dp, sp)] = (time.perf_counter() - t0) * 1e3
+        assert_tuple_equal(outs[("gen_traces", dp, sp)], want,
+                           f"phase 23 (c) gen_traces dp={dp} sp={sp} vs the "
+                           f"plain lockstep")
+        print(f"phase 23 (c) gen_traces dp={dp} sp={sp}: fused_sp.cu "
+              f"bit-exact to the plain lockstep on the card; plain wall "
+              f"{plain[(dp, sp)]:.1f} ms ({f.exchanges / f.ops:.2f} boundary "
+              f"exchanges an op) against the kernel's "
+              f"{walls[('gen_traces', dp, sp)]:.1f} ms; card {card}",
+              flush=True)
+    t0 = time.perf_counter()
+    want = gather_tree(fused_sp.apply_ops_fused_shardmap_plain(
+        state, run_ops, meshes[SP_RUNS_MESH], runs=runs))
+    torch.cuda.synchronize()
+    runs_plain = (time.perf_counter() - t0) * 1e3
+    assert_tuple_equal(outs["runs"], want, "phase 23 (c) INSERT_RUN vs the "
+                       "plain lockstep")
+    sp = SP_ONE_DEVICE_SP[0]
+    t0 = time.perf_counter()
+    want = fused_sp.apply_ops_fused_sp_plain(state, ops, sp)
+    torch.cuda.synchronize()
+    one_plain = (time.perf_counter() - t0) * 1e3
+    assert_tuple_equal(outs[("gen_traces", "one", sp)], want,
+                       f"phase 23 (c) gen_traces one device sp={sp} vs "
+                       f"apply_ops_fused_sp_plain")
+    print(f"phase 23 (c) INSERT_RUN dp={SP_RUNS_MESH[0]} "
+          f"sp={SP_RUNS_MESH[1]}: fused_sp.cu bit-exact to the plain "
+          f"lockstep on the card (plain wall {runs_plain:.1f} ms against "
+          f"the kernel's {walls['runs']:.1f} ms); gen_traces one device "
+          f"sp={sp}: scan_apply.cu bit-exact to apply_ops_fused_sp_plain "
+          f"on the card (plain wall {one_plain:.1f} ms); card {card}",
+          flush=True)
+    mesh = meshes[SP_MESHES[0]]
+    rows = [fused_sp_row(
+        f"dp={SP_MESHES[0][0]} sp={SP_MESHES[0][1]}, {b} x {t} ops at "
+        f"C={cap} (gen_traces)", card, main_launches,
+        lambda: f(state, ops, mesh), state, ops, plain[SP_MESHES[0]], 0)]
+    rows.append(sp_wave_part(dev, card))
+    print(f"phase 23 (c): {time.perf_counter() - t_part:.1f} s in all "
+          f"(the plain path took 2,962.7-3,220.0 ms for each of its four "
+          f"cases, PR 17-20); card {card}", flush=True)
+    return rows
+
+
+def sp_wave_part(dev, card: str) -> dict:
+    """Phase 23 (c)'s long-document wave: SP_WAVE's B documents of C slots
+    over dp=1 x sp (every entry cuda:0), T gen_traces ops each, through
+    apply_ops_fused_shardmap: one launch of B clusters of sp blocks (one
+    wave of the card's SMs). Bit-exact to scan_apply.cu at the same shape
+    (its rule takes its own cluster path there), the final counts
+    printed, both kernels' device ms by the profiler side by side beside
+    the bound. The plain lockstep is not run at this shape (several
+    hundred small launches an op, 2,048 ops: the script's time limit); the
+    plain one-device form (apply_ops_fused_sp_plain, the same function of
+    the same inputs) is, once, bit-exact, and its wall is the row's
+    plain_ms. The tiles are placed on the mesh before the timed calls, so
+    a call is the launch and its tile table. Both kernels are also timed
+    by CUDA events (the least of 3 single launches), since a profiler
+    trace of a long kernel can come back empty. Returns the wave's kernel
+    row."""
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.mergetree import fused_sp, kernel
+    from fluidframework_tpu_torch.mergetree.state import make_state
+    from fluidframework_tpu_torch.parallel.mesh import (gather_tree,
+                                                        make_mesh,
+                                                        shard_docs)
+    from fluidframework_tpu_torch.testing.traces import gen_traces
+
+    b, t, cap, sp, seed = SP_WAVE
+    mesh = make_mesh(dp=1, sp=sp, devices=[dev] * sp)
+    state = make_state(cap, 2, batch=b, device=dev)
+    ops = interop.packed_ops_from_numpy(gen_traces(b, t, seed=seed), dev)
+    tiles = shard_docs(mesh, state, seq_sharded=True)
+    rows_ops = shard_docs(mesh, ops)
+    f = fused_sp.apply_ops_fused_shardmap
+    with PlainFusedSpGuard() as guard:
+        n0 = fused_sp_launches()
+        got = gather_tree(f(tiles, rows_ops, mesh))
         ref = kernel.scan_apply(state, ops)
         torch.cuda.synchronize()
-        k, a = state.overlap_slots, state.anno_slots
-        b_ms = fused_apply_bytes(b, cap, t, k, a, False, False) \
-            / PEAK_BYTES_PER_S * 1e3
-        o_ms = fused_apply_lane_ops(ops.kind.cpu().numpy(),
-                                    live_slots(state, ops),
-                                    k, a) / PEAK_OPS_PER_S * 1e3
-        for dp, sp in SP_MESHES:
-            mesh = make_mesh(dp=dp, sp=sp, devices=[dev] * (dp * sp))
-            fused_sp.reset_counts()
-            t0 = time.perf_counter()
-            got = gather_tree(f(state, ops, mesh))
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-            assert_tuple_equal(got, ref, f"phase 23 (c) {label} dp={dp} "
-                               f"sp={sp} vs scan_apply.cu")
-            out[(label, dp, sp)] = {"wall_ms": wall,
-                                    "exchanges_per_op": f.exchanges / f.ops}
-            print(f"phase 23 (c) {label} {b} x {t} ops at C={cap} over "
-                  f"dp={dp} sp={sp}: bit-exact to scan_apply.cu; wall "
-                  f"{wall:.1f} ms (host clock, synced; the apply is plain "
-                  f"torch, no hand kernel) against the fused apply's bound "
-                  f"{max(b_ms, o_ms):.5f} ms (by "
-                  f"{'bytes' if b_ms >= o_ms else 'operations'}); "
-                  f"{f.exchanges} "
-                  f"boundary exchanges over {f.ops} op steps "
-                  f"({f.exchanges / f.ops:.2f} an op), {f.collectives} "
-                  f"collectives, {mesh.copies} block copies; card {card}",
-                  flush=True)
-    require(gpu_conformance.check_fused_sp(*gpu_conformance.FUSED_SP_SHAPE,
-                                           device=dev),
-            "phase 23 (c): check_fused_sp failed")
-    return out
+        n = fused_sp_launches() - n0
+        assert_tuple_equal(got, ref, "phase 23 (c) wave vs scan_apply.cu")
+    t0 = time.perf_counter()
+    want = fused_sp.apply_ops_fused_sp_plain(state, ops, sp)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert_tuple_equal(got, want, "phase 23 (c) wave vs "
+                       "apply_ops_fused_sp_plain")
+    del want
+    with PlainFusedSpGuard() as guard2:
+        row = fused_sp_row(
+            f"wave: {b} documents x {t} ops at C={cap} over dp=1 sp={sp}",
+            card, 1, lambda: f(tiles, rows_ops, mesh), state, ops, plain_ms,
+            0, by_kernel=True)
+        sp_events, _ = long_kernel_ms(lambda: f(tiles, rows_ops, mesh), 3)
+    require(guard.cuda_calls + guard2.cuda_calls == 0 and n == 1,
+            f"phase 23 (c) wave: launches {n}, plain calls "
+            f"{guard.cuda_calls}")
+    geo = kernel.scan_geometry(b, cap, state.overlap_slots,
+                               state.anno_slots)
+    scan_ms = one_kernel_ms(lambda: kernel.scan_apply(state, ops), 3,
+                            "scan_apply_kernel")
+    scan_events, _ = long_kernel_ms(lambda: kernel.scan_apply(state, ops),
+                                    3)
+    print(f"phase 23 (c) wave: final counts {got.count.cpu().tolist()} "
+          f"(of C={cap}); bit-exact to scan_apply.cu ({geo.path}, "
+          f"{geo.blocks} blocks a document, {geo.threads} threads); ms a "
+          f"launch by the profiler: fused_sp.cu {fmt_ms(row['device_ms'])}, "
+          f"scan_apply.cu {fmt_ms(scan_ms)}; by events (least of 3 single "
+          f"launches): fused_sp.cu {sp_events:.4f} ms, scan_apply.cu "
+          f"{scan_events:.4f} ms; the plain one-device form "
+          f"{plain_ms:.1f} ms (host clock, synced), bit-exact; card {card}",
+          flush=True)
+    row.update(scan_apply_device_ms=scan_ms, events_ms=sp_events,
+               scan_apply_events_ms=scan_events)
+    return row
 
 
-def mesh_phase(dev, card: str, north: dict, fig17: dict) -> None:
+def mesh_phase(dev, card: str, north: dict, fig17: dict) -> list:
     """Phase 23: the north-star step on a dp mesh (a), the local server
     on a dp mesh (b) and a long document on sp meshes (c), in the main
     process after phase 22 with no child process beside it; its wall is
-    printed against PHASE23_BUDGET_S."""
+    printed against PHASE23_BUDGET_S. Returns (c)'s kernel rows."""
     t_phase = time.perf_counter()
     figures = {"a": mesh_step_part(dev, card, north)}
     figures["b"] = mesh_server_part(dev, card, fig17)
-    figures["c"] = mesh_sp_part(dev, card)
+    rows = mesh_sp_part(dev, card)
     took = time.perf_counter() - t_phase
     print(f"phase 23: {took:.1f} s ((a) {figures['a']['seconds']:.1f}, (b) "
           f"{sum(f['seconds'] for f in figures['b'].values()):.1f}; "
           f"{'within' if took <= PHASE23_BUDGET_S else 'OVER'} its "
           f"{PHASE23_BUDGET_S:.0f} s); card {card}", flush=True)
+    return rows
 
 
 # -- phase 24: the static gates and the runtime lockset check -------------

@@ -17,9 +17,10 @@ the paged ops (each with its _keep twin), ticket_kernel.scan_tickets,
 the pallas_apply / pallas_ops wrappers, the LWW lane scan's two entry
 points (lww_kernel.apply_lww_batched and apply_lww_window), the
 window's admission and pack wrappers (serve_step.admit_merge_ops and
-_pack_window), and the zamboni and narrow-wire wrappers
-(kernel.compact, compact_batched, extract_visible_batched,
-compact_extract_batched and narrow_pack). The call
+_pack_window), the zamboni and narrow-wire wrappers (kernel.compact,
+compact_batched, extract_visible_batched, compact_extract_batched and
+narrow_pack), and the fused apply over sp tiles
+(fused_sp.apply_ops_fused_sp and apply_ops_fused_shardmap). The call
 graph (callgraph.py) closes the table over resolved callees in the
 analyzed package; the closure does not enter a function named *_plain
 (the plain references the kernels are held to, run on CPU tensors) or
@@ -142,6 +143,8 @@ DEVICE_PATH_ROOTS = (
     "fluidframework_tpu_torch.server.lww_kernel:apply_lww_window",
     "fluidframework_tpu_torch.server.serve_step:admit_merge_ops",
     "fluidframework_tpu_torch.server.serve_step:_pack_window",
+    "fluidframework_tpu_torch.mergetree.fused_sp:apply_ops_fused_sp",
+    "fluidframework_tpu_torch.mergetree.fused_sp:apply_ops_fused_shardmap",
 )
 
 #: The closure does not enter these: the plain references the kernels are

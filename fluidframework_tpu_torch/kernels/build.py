@@ -148,6 +148,12 @@ def library() -> ctypes.CDLL:
                                          i32, i32, i32, i32, i32, i32,
                                          ctypes.c_longlong, vp]
         lib.fluid_scan_apply.restype = i32
+        # ptrs, tiles, batch, capacity, K, A, steps, with_runs, blocks,
+        # threads, smem_bytes, stream
+        lib.fluid_fused_sp.argtypes = [ctypes.POINTER(vp), vp, i32, i32, i32,
+                                       i32, i32, i32, i32, i32,
+                                       ctypes.c_longlong, vp]
+        lib.fluid_fused_sp.restype = i32
         # ptrs, batch, capacity, steps, plane rows, plane cols, stream
         lib.fluid_lww_scan.argtypes = [ctypes.POINTER(vp), i32, i32, i32,
                                        i32, i32, vp]

@@ -87,6 +87,14 @@
 //   (global) and written back from where it lives; the input state is never
 //   written (the _keep semantics: an overflow retry re-applies from it).
 // - Any A >= 1 and 1 <= K <= 8; P x C < 2^31.
+//
+// fused_sp.cu (the fused apply over sp shard tiles) runs the cluster
+// path's document type on tiles of its own layout. It includes this file
+// with FLUID_SCAN_LIVE_ONLY defined, which keeps Live, its primitives and
+// phases, init_live / shared_table / run_ops, load_op, launch_scan and
+// shared_table_bytes, and leaves out this file's kernels, its other
+// geometry formulas and its entry point (this file still compiles alone,
+// as the emulator test builds it).
 
 #define FLUID_APPLY_RULES_ONLY
 #include "fused_apply.cu"
@@ -121,6 +129,7 @@ struct ScanArgs {
   int* scratch;  // [B, 2, C] view planes in device memory, or null
 };
 
+#ifndef FLUID_SCAN_LIVE_ONLY
 // ---------------------------------------------------------------------------
 // global_chunked: the block path on a table in device memory
 // ---------------------------------------------------------------------------
@@ -141,6 +150,7 @@ __device__ void load_table_global(int* W, const Args& a, long long doc,
   for (int e = tid; e < C * A; e += nthr)
     W[(SEG_PLANES + K + e % A) * C + e / A] = __ldg(a.in_anno + row * A + e);
 }
+#endif  // FLUID_SCAN_LIVE_ONLY
 
 __device__ __forceinline__ Op load_op(const Args& a, long long at) {
   Op op;
@@ -157,6 +167,7 @@ __device__ __forceinline__ Op load_op(const Args& a, long long at) {
   return op;
 }
 
+#ifndef FLUID_SCAN_LIVE_ONLY
 template <bool kRuns>
 __global__ void __launch_bounds__(kScanThreads) scan_apply_kernel_chunked(
     ScanArgs s) {
@@ -200,6 +211,7 @@ __global__ void __launch_bounds__(kScanThreads) scan_apply_kernel_chunked(
     a.out_overflow[doc] = overflow ? 1 : 0;
   }
 }
+#endif  // FLUID_SCAN_LIVE_ONLY
 
 // ---------------------------------------------------------------------------
 // the live paths: global, smem and cluster
@@ -604,6 +616,77 @@ __device__ void ack_phase(Live<kMode>& d, const Op& op, int count) {
   __syncthreads();
 }
 
+// d's shape and place: rank `rank` of `nrank` blocks per document (a
+// cluster's, else 1), holding the slots [lo, hi), Cs = ceil(C / nrank).
+template <int kMode>
+__device__ __forceinline__ void init_live(Live<kMode>& d, const Args& a) {
+  d.C = a.capacity;
+  d.K = a.k_slots;
+  d.A = a.a_slots;
+  d.P = SEG_PLANES + a.k_slots + a.a_slots;
+  d.nthr = blockDim.x;
+  d.tid = threadIdx.x;
+  d.warp = threadIdx.x >> 5;
+  d.lane = threadIdx.x & 31;
+  d.nwarps = blockDim.x >> 5;
+  d.par = 0;
+  d.rank = 0;
+  d.nrank = 1;
+  if constexpr (Live<kMode>::kCl) {
+    const cg::cluster_group cl = cg::this_cluster();
+    d.rank = static_cast<int>(cl.block_rank());
+    d.nrank = static_cast<int>(cl.num_blocks());
+  }
+  d.Cs = (d.C + d.nrank - 1) / d.nrank;
+  d.lo = min(d.rank * d.Cs, d.C);
+  d.hi = min(d.lo + d.Cs, d.C);
+}
+
+// The smem and cluster paths' layout of a block's shared memory
+// (shared_table_bytes): the rank's P planes, the two view planes, the
+// scratch, the shift's staging.
+template <int kMode>
+__device__ __forceinline__ void shared_table(Live<kMode>& d, int* smem) {
+  d.S = smem;
+  d.V = smem + d.P * d.Cs;
+  d.red = d.V + 2 * d.Cs;
+  d.xred = d.red + 192;
+  d.stage = d.xred + 8;
+}
+
+// Every op of document `doc` on its loaded table (every rank loaded and
+// joined): the padding check, then apply_one for t = 0..T-1, then a block
+// barrier. The scalars are this rank's copy, the same in every rank.
+template <bool kRuns, int kMode>
+__device__ void run_ops(Live<kMode>& d, const Args& a, long long doc,
+                        int& count, int& min_seq, int& seq, bool& overflow) {
+  // Is every plane's padding one value (that of slot count)?
+  const bool in_range = count >= 0 && count <= d.C;
+  unsigned bad = 0;
+  if (in_range && count < d.C) {  // uniform
+    const int q = count / d.Cs;
+    for (int p = 0; p < d.P; ++p) {
+      const int u = d.remote(d.plane(p), q)[count - q * d.Cs];
+      const int* row = d.plane(p);
+      for (int l = max(count, d.lo) + d.tid; l < d.hi; l += d.nthr)
+        bad |= row[l - d.lo] != u;
+    }
+  }
+  int mn = 0;
+  unsigned s2 = 0;
+  combine(d, mn, bad, s2);
+  d.exact_pad = in_range && bad == 0;
+
+  const long long orow = doc * a.steps;
+  for (int t = 0; t < a.steps; ++t) {
+    d.view_ok = false;
+    apply_one<kRuns>(d, a, (orow + t) * kRunK, load_op(a, orow + t), count,
+                     min_seq, seq, overflow);
+  }
+  __syncthreads();
+}
+
+#ifndef FLUID_SCAN_LIVE_ONLY
 // This rank's slots [lo, hi) of every plane, between the input (kLoad,
 // cp.async, complete for this thread on return) or the output state and
 // the planar shared-memory table S (plane stride Cs).
@@ -642,27 +725,8 @@ __device__ __forceinline__ void live_body(const ScanArgs& s) {
   extern __shared__ int smem[];
   const Args& a = s.a;
   Live<kMode> d;
-  d.C = a.capacity;
-  d.K = a.k_slots;
-  d.A = a.a_slots;
-  d.P = SEG_PLANES + a.k_slots + a.a_slots;
-  d.nthr = blockDim.x;
-  d.tid = threadIdx.x;
-  d.warp = threadIdx.x >> 5;
-  d.lane = threadIdx.x & 31;
-  d.nwarps = blockDim.x >> 5;
-  d.par = 0;
-  d.rank = 0;
-  d.nrank = 1;
-  if constexpr (Live<kMode>::kCl) {
-    const cg::cluster_group cl = cg::this_cluster();
-    d.rank = static_cast<int>(cl.block_rank());
-    d.nrank = static_cast<int>(cl.num_blocks());
-  }
+  init_live(d, a);
   const long long doc = blockIdx.x / d.nrank;
-  d.Cs = (d.C + d.nrank - 1) / d.nrank;
-  d.lo = min(d.rank * d.Cs, d.C);
-  d.hi = min(d.lo + d.Cs, d.C);
   if constexpr (kMode == SCAN_GLOBAL) {
     d.S = s.work + doc * d.P * d.C;
     d.red = smem;
@@ -671,11 +735,7 @@ __device__ __forceinline__ void live_body(const ScanArgs& s) {
     d.V = s.scratch ? s.scratch + doc * 2 * d.C : smem + kLiveScratch;
     load_table_global(d.S, a, doc, d.tid, d.nthr);
   } else {
-    d.S = smem;
-    d.V = smem + d.P * d.Cs;
-    d.red = d.V + 2 * d.Cs;
-    d.xred = d.red + 192;
-    d.stage = d.xred + 8;
+    shared_table(d, smem);
     copy_rows<true>(d.S, d.Cs, a, doc, d.lo, d.hi, d.tid, d.nthr);
   }
   __syncthreads();
@@ -685,30 +745,7 @@ __device__ __forceinline__ void live_body(const ScanArgs& s) {
   int min_seq = a.in_min_seq[doc];
   int seq = a.in_seq[doc];
   bool overflow = a.in_overflow[doc] != 0;
-  // Is every plane's padding one value (that of slot count)?
-  const bool in_range = count >= 0 && count <= d.C;
-  unsigned bad = 0;
-  if (in_range && count < d.C) {  // uniform
-    const int q = count / d.Cs;
-    for (int p = 0; p < d.P; ++p) {
-      const int u = d.remote(d.plane(p), q)[count - q * d.Cs];
-      const int* row = d.plane(p);
-      for (int l = max(count, d.lo) + d.tid; l < d.hi; l += d.nthr)
-        bad |= row[l - d.lo] != u;
-    }
-  }
-  int mn = 0;
-  unsigned s2 = 0;
-  combine(d, mn, bad, s2);
-  d.exact_pad = in_range && bad == 0;
-
-  const long long orow = doc * a.steps;
-  for (int t = 0; t < a.steps; ++t) {
-    d.view_ok = false;
-    apply_one<kRuns>(d, a, (orow + t) * kRunK, load_op(a, orow + t), count,
-                     min_seq, seq, overflow);
-  }
-  __syncthreads();
+  run_ops<kRuns>(d, a, doc, count, min_seq, seq, overflow);
 
   if constexpr (kMode == SCAN_GLOBAL)
     store_table(d.S, d.C, a, doc, d.tid, d.nthr);
@@ -740,11 +777,13 @@ __global__ void __launch_bounds__(kScanThreads) scan_apply_kernel_cluster(
     ScanArgs s) {
   live_body<kRuns, SCAN_CLUSTER>(s);
 }
+#endif  // FLUID_SCAN_LIVE_ONLY
 
 // One launch of B documents x `blocks` blocks, a cluster of `blocks` per
-// document when blocks > 1; every CUDA call's error is returned.
-template <class Kernel>
-cudaError_t launch_scan(Kernel kern, const ScanArgs& s, int blocks,
+// document when blocks > 1 (S: the kernel's parameters, whose member a
+// is the launch's Args); every CUDA call's error is returned.
+template <class Kernel, class S>
+cudaError_t launch_scan(Kernel kern, const S& s, int blocks,
                         int threads, size_t smem, bool shared_table,
                         cudaStream_t stream) {
   cudaError_t err;
@@ -790,6 +829,14 @@ cudaError_t launch_scan(Kernel kern, const ScanArgs& s, int blocks,
 
 }  // namespace
 
+// smem (blocks = 1) and cluster: this rank's P planes and two view planes
+// of Cs slots, the shift's staging (kRunK slots of each), the scratch.
+static long long shared_table_bytes(int capacity, int planes, int blocks) {
+  const long long cs = (capacity + blocks - 1) / blocks;
+  return ((planes + 2LL) * (cs + kRunK) + kLiveScratch) * 4;
+}
+
+#ifndef FLUID_SCAN_LIVE_ONLY
 // The geometry formulas; the Python wrapper (mergetree/kernel.py
 // scan_geometry, _forced_geometry) uses the same.
 static int chunked_threads(int capacity) {
@@ -807,13 +854,6 @@ static long long chunked_smem_bytes(int capacity) {
 static long long global_smem_bytes(int capacity) {
   const long long planes = capacity <= kMaxSharedSlots ? 2 : 0;
   return (kLiveScratch + planes * capacity) * 4;
-}
-
-// smem (blocks = 1) and cluster: this rank's P planes and two view planes
-// of Cs slots, the shift's staging (kRunK slots of each), the scratch.
-static long long shared_table_bytes(int capacity, int planes, int blocks) {
-  const long long cs = (capacity + blocks - 1) / blocks;
-  return ((planes + 2LL) * (cs + kRunK) + kLiveScratch) * 4;
 }
 
 // ptrs: as fused_apply.cu's args_from_ptrs takes them without the narrow
@@ -911,3 +951,4 @@ extern "C" int fluid_scan_apply(void** ptrs, int batch, int capacity,
   }
   return static_cast<int>(err);
 }
+#endif  // FLUID_SCAN_LIVE_ONLY

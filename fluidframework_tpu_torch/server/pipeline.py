@@ -13,9 +13,10 @@ On a mesh (the step's trees placed by parallel/mesh.shard_docs) each dp
 shard's documents run the ticket scan, the apply and the summary length on
 that shard's device, one launch of each kernel per shard. With the
 capacity axis sharded over 'sp' (shard_docs(seq_sharded=True) on a mesh
-with sp > 1) the apply is the fused-sp body over per-shard lane tiles
-(mergetree/fused_sp.apply_ops_fused_shardmap), and each tile's summary
-length is summed across its row.
+with sp > 1) the apply is the fused apply over per-shard lane tiles
+(mergetree/fused_sp.apply_ops_fused_shardmap: one launch of
+kernels/csrc/fused_sp.cu per dp row on CUDA entries), and each tile's
+summary length is summed across its row.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ import torch
 
 from ..mergetree import kernel
 from ..mergetree.fused_sp import (apply_ops_fused_shardmap,
-                                  apply_ops_fused_sp)
+                                  apply_ops_fused_shardmap_plain,
+                                  apply_ops_fused_sp,
+                                  apply_ops_fused_sp_plain)
 from ..mergetree.oppack import OpKind, PackedOps
 from ..mergetree.pallas_apply import (apply_ops_fused, apply_ops_fused_plain,
                                       max_fused_capacity)
@@ -58,16 +61,20 @@ def make_full_step(sp_shards: int = 1, fused_apply: bool = True,
     fused apply; above it, or without fused_apply, the scan apply
     (mergetree/kernel.py, kernels/csrc/scan_apply.cu), whose prefix sums
     take the sp_shards formulation. fused_apply with sp_shards > 1 takes
-    the fused-sp body (mergetree/fused_sp.apply_ops_fused_sp, plain torch),
-    as the JAX step does. Trees placed on a mesh run per shard (module
-    docstring)."""
+    the fused-sp form (mergetree/fused_sp.apply_ops_fused_sp, which
+    launches kernels/csrc/scan_apply.cu for CUDA tensors), as the JAX
+    step does. Trees placed on a
+    mesh run per shard (module docstring)."""
     fused = apply_ops_fused_plain if plain else apply_ops_fused
+    fused_sp = apply_ops_fused_sp_plain if plain else apply_ops_fused_sp
+    fused_shardmap = apply_ops_fused_shardmap_plain if plain \
+        else apply_ops_fused_shardmap
     summary = summary_lengths_plain if plain else summary_lengths
     ticket = tk.scan_tickets_plain if plain else tk.scan_tickets
 
     def apply(mstate: DocState, ops: PackedOps) -> DocState:
         if fused_apply and sp_shards > 1:
-            return apply_ops_fused_sp(mstate, ops, sp_shards)
+            return fused_sp(mstate, ops, sp_shards)
         limit = max_fused_capacity(mstate.overlap_slots, mstate.anno_slots)
         if fused_apply and mstate.capacity <= limit:
             return fused(mstate, ops)
@@ -113,7 +120,7 @@ def make_full_step(sp_shards: int = 1, fused_apply: bool = True,
             return map_dp(local_step, mesh, tstate, mstate, raw, ops)
         tstate, ticketed, ops2 = map_dp(ticket_admit, mesh, tstate, raw,
                                         ops)
-        mstate = apply_ops_fused_shardmap(mstate, ops2, mesh)
+        mstate = fused_shardmap(mstate, ops2, mesh)
         return tstate, mstate, ticketed, tile_lengths(mstate)
 
     return full_step

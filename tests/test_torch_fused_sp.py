@@ -32,10 +32,14 @@ from fluidframework_tpu.mergetree.state import DocState as JaxDocState
 from fluidframework_tpu.mergetree.state import make_state as jax_make_state
 
 from fluidframework_tpu_torch import interop
+from fluidframework_tpu_torch.kernels import build
 from fluidframework_tpu_torch.mergetree import fused_sp, kernel
 from fluidframework_tpu_torch.mergetree import pallas_apply as tpa
+from fluidframework_tpu_torch.mergetree.state import make_state
 from fluidframework_tpu_torch.parallel.mesh import (gather_tree, make_mesh,
-                                                    shard_docs)
+                                                    reset_shard_launches,
+                                                    shard_docs,
+                                                    shard_launches)
 from fluidframework_tpu_torch.server import pipeline
 from fluidframework_tpu_torch.server import ticket_kernel as tk
 from fluidframework_tpu_torch.testing import golden
@@ -347,3 +351,104 @@ class TestScanSpShards:
         for f in JaxDocState._fields:
             np.testing.assert_array_equal(out[f], g[f"apply_out.{f}"],
                                           err_msg=f)
+
+
+class TestKernelWrappers:
+    """The routing of the two wrappers around kernels/csrc/fused_sp.cu
+    (the kernel itself runs on the CPU in tests/test_torch_fused_sp_emu.py):
+    CPU tensors take the plain forms, CUDA ones the kernel, anything else
+    raises; the launch counts and their reset."""
+
+    def test_cpu_tensors_take_the_plain_forms(self, monkeypatch):
+        calls = []
+        for name in ("apply_ops_fused_sp_plain",
+                     "apply_ops_fused_shardmap_plain"):
+            real = getattr(fused_sp, name)
+            monkeypatch.setattr(
+                fused_sp, name,
+                lambda *a, _n=name, _f=real, **k: calls.append(_n)
+                or _f(*a, **k))
+        monkeypatch.setattr(build, "library", lambda: pytest.fail(
+            "a CPU tensor reached the kernel library"))
+        fused_sp.reset_counts()
+        case = traces(4, 12, 64, 3)
+        st, ops, _ = case.port()
+        assert_states_equal(fused_sp.apply_ops_fused_sp(st, ops, 4),
+                            jax_scan(case))
+        assert_states_equal(fused_sp.apply_ops_fused_shardmap(
+            st, ops, cpu_mesh(2, 2)), jax_scan(case))
+        assert calls == ["apply_ops_fused_sp_plain",
+                         "apply_ops_fused_shardmap_plain"]
+        assert fused_sp.launches == 0
+
+    def test_other_devices_raise(self):
+        st_cpu, ops_cpu, _ = traces(2, 4, 64, 0).port()
+        st = make_state(64, 2, batch=2, device="meta")
+        with pytest.raises(ValueError, match="meta"):
+            fused_sp.apply_ops_fused_sp(st, ops_cpu, 2)
+        meta = make_mesh(dp=1, sp=2, devices=["meta", "meta"])
+        with pytest.raises(ValueError, match="all be CUDA devices"):
+            fused_sp.apply_ops_fused_shardmap(st_cpu, ops_cpu, meta)
+        mixed = make_mesh(dp=1, sp=2, devices=["cpu", "cuda:0"])
+        with pytest.raises(ValueError, match="all be CUDA devices"):
+            fused_sp.apply_ops_fused_shardmap(st_cpu, ops_cpu, mixed)
+
+    def test_mesh_row_over_two_cards_raises(self):
+        """No cluster spans cards: a dp row whose sp entries lie on two
+        CUDA devices is refused before anything is placed."""
+        st, ops, _ = traces(2, 4, 64, 0).port()
+        mesh = make_mesh(dp=1, sp=2, devices=["cuda:0", "cuda:1"])
+        with pytest.raises(ValueError, match="dp row 0 lies on"):
+            fused_sp.apply_ops_fused_shardmap(st, ops, mesh)
+        assert mesh.copies == 0
+
+    def test_launch_counts_and_reset(self, monkeypatch):
+        """The mesh form's kernel path launches once per dp row (counted
+        under the row's first shard) with the rule's geometry;
+        reset_counts zeroes the count."""
+        seen = []
+
+        class Lib:
+            @staticmethod
+            def fluid_fused_sp(*args):
+                seen.append(args[2:])
+                return 0
+
+        monkeypatch.setattr(build, "library", lambda: Lib)
+        monkeypatch.setattr(build, "stream_handle", lambda: 0)
+        fused_sp.reset_counts()
+        reset_shard_launches()
+        st, ops, _ = traces(4, 6, 96, 1).port()
+        fused_sp.launch_shardmap(st, ops, cpu_mesh(2, 4))
+        assert fused_sp.launches == 2
+        assert shard_launches["fused_sp"] == {0: 1, 4: 1}
+        geo = fused_sp.sp_geometry(96, 3, 2, 4)
+        assert geo == (4, 24, 32, kernel.shared_table_bytes(96, 3, 2, 4))
+        # batch, C, K, A, T, runs, blocks, threads, smem
+        assert [s[:-1] for s in seen] == [
+            (2, 96, 3, 2, 6, 0, 4, 32, geo.smem_bytes)] * 2
+        fused_sp.reset_counts()
+        assert fused_sp.launches == 0
+
+    @pytest.mark.card
+    def test_cuda_tensors_launch_the_kernels(self):
+        """On the card: the mesh form launches fused_sp.cu once per dp
+        row, the one-device form scan_apply.cu once, and both equal their
+        plain versions (chip_smoke.py phase 23 (c) runs the same checks at
+        the main path's shapes)."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card")
+        case = traces(2, 12, 256, 4)
+        st = interop.doc_state_from_numpy(case.state_np, "cuda")
+        ops = interop.packed_ops_from_numpy(case.cols, "cuda")
+        fused_sp.reset_counts()
+        kernel.reset_launches()
+        mesh = make_mesh(dp=2, sp=4, devices=["cuda"] * 8)
+        got = gather_tree(fused_sp.apply_ops_fused_shardmap(st, ops, mesh))
+        assert fused_sp.launches == 2
+        assert_states_equal(got, gather_tree(
+            fused_sp.apply_ops_fused_shardmap_plain(st, ops, mesh)))
+        got = fused_sp.apply_ops_fused_sp(st, ops, 4)
+        assert kernel.scan_apply.launches == 1
+        assert_states_equal(got, fused_sp.apply_ops_fused_sp_plain(st, ops,
+                                                                   4))

@@ -4,6 +4,8 @@ one NVIDIA GPU.
     python3 calibrate_fused_apply.py                  # the fused apply
     python3 calibrate_fused_apply.py --scan           # the scan apply
     python3 calibrate_fused_apply.py --scan --paged   # at paged shapes
+    python3 calibrate_fused_apply.py --zamboni        # zamboni's paths
+    python3 calibrate_fused_apply.py --zamboni --rule-only [--package DIR]
 
 
 Times the kernel (torch.profiler device time, the median of three
@@ -39,6 +41,22 @@ paged serving shapes: SCAN_PAGED_DOCS x SCAN_PAGED_CAPACITIES x
 SCAN_PAGED_FILLS (chip_smoke.py phase 12's hot page groups are 64
 documents at C = 4,096 and 8,192), with the same op mix and with plain
 inserts and removes (gen_traces: the paged burst's and apply's ops).
+
+With --zamboni: zamboni.cu (mergetree/kernel.py zamboni over kernels/csrc/
+zamboni.cu). First the compiler's report of its nine kernels (no stack or
+spill) and every path bit-exact to the plain versions, in all three modes
+with stats, on fuzzed tables (testing/traces.fuzz_tables) at ZAMBONI_CHECK
+shapes, an anno plane off its 16-byte alignment too. Then, by events over
+a CUDA graph (chip_smoke.graph_ms: no host launch between the kernels),
+every geometry of zamboni_geometries at the ZAMBONI_SHAPES (three modes)
+and over ZAMBONI_GRID_DOCS x ZAMBONI_GRID_CAPACITIES (the compact mode) on
+tables filled on the card (zamboni_table). These are the tables behind
+mergetree/kernel.zamboni_geometry; it prints one {"zamboni_calibration":
+...} line. --rule-only times the three modes through their wrappers at
+the ZAMBONI_SHAPES alone, with only what every version of the port has,
+so that `--package DIR` (a checkout of another version of the port, put
+first on the import path) times that version's kernel in the same way;
+it prints one {"zamboni_rule": ...} line.
 """
 
 from __future__ import annotations
@@ -50,8 +68,9 @@ import numpy as np
 import torch
 
 from chip_smoke import (A_SLOTS, K_SLOTS, SCAN_STEP, SmokeFailure,
-                        assert_trees_equal, card_line, fmt_ms, long_table,
-                        long_kernel_ms, one_kernel_ms)
+                        assert_trees_equal, card_line, fmt_ms, graph_ms,
+                        long_table, long_kernel_ms, ms_of, one_kernel_ms,
+                        ptxas_report, zamboni_path_label)
 
 WARP_DOCS = (1, 2, 4, 8)
 GRID_DOCS = (128, 256, 512, 768, 1024, 4096, 16384)
@@ -75,6 +94,35 @@ SCAN_PAGED_FILLS = (0.02, 0.15, 0.35, 0.6, 0.9)
 SCAN_REPS = 3
 SCAN_THREADS = (128, 256, 512)   # global and smem
 SCAN_CATCHUP = (100_000, 12)     # chip_smoke.py's catch-up: keystroke_trace
+# --zamboni: the check's fuzzed shapes (B, C, A); the shapes timed in all
+# three modes (label, B, C, A, the share of C in use, the share of those
+# rows removed at or before min_seq): chip_smoke.py phase 14's four (the
+# north-star state, the lane store's first bucket, the paged hot view,
+# the catch-up fold) and the capacity soak's lane-store buckets; the grid
+# (the compact mode, half-full tables, a fifth of the rows freed; at most
+# ZAMBONI_GRID_MAX_ROWS rows a cell); the geometries timed
+# (zamboni_geometries: the warp path at W documents a block, the block
+# path, clusters of n ranks at t threads a block where t is at most a
+# rank's slots rounded up to 32, or the rule's threads); calls a graph
+# holds.
+ZAMBONI_CHECK = ((9, 300, 4), (5, 1100, 1), (3, 4096, 4), (1, 4096, 1),
+                 (61, 8192, 4), (132, 64, 4))
+ZAMBONI_SHAPES = (("NS-like", 10_000, 256, 1, 0.5, 0.2),
+                  ("L-like", 16_384, 64, 4, 0.8, 0.2),
+                  ("L-like, every other document empty", 16_384, 64, 4,
+                   0.8, 0.2),
+                  ("P-like", 61, 8_192, 4, 0.5, 0.2),
+                  ("F-like", 1, 4_096, 1, 0.95, 0.05),
+                  ("lane 256 x 64", 256, 64, 4, 0.8, 0.2),
+                  ("lane 64 x 256", 64, 256, 4, 0.8, 0.2),
+                  ("lane 16 x 1024", 16, 1_024, 4, 0.8, 0.2))
+ZAMBONI_GRID_DOCS = (1, 4, 16, 61, 132, 512, 2_048, 10_000)
+ZAMBONI_GRID_CAPACITIES = (64, 256, 1_024, 2_048, 4_096, 8_192, 16_384)
+ZAMBONI_GRID_MAX_ROWS = 1 << 24
+ZAMBONI_WARP_DOCS = (1, 2, 4, 8)
+ZAMBONI_RANKS = (2, 4, 8, 16)
+ZAMBONI_THREADS = (128, 256, 512)
+ZAMBONI_REPS = 20
 
 
 def geometries(capacity: int, k: int, a: int) -> dict:
@@ -114,6 +162,8 @@ def report(what: str, times: dict, rule: str) -> None:
 
 
 def main() -> int:
+    if "--package" in sys.argv[1:]:   # another checkout's port, first
+        sys.path.insert(0, sys.argv[sys.argv.index("--package") + 1])
     card = card_line()
     print(card, flush=True)
     if not torch.cuda.is_available():
@@ -129,6 +179,8 @@ def main() -> int:
                                                          gen_traces)
     if "--scan" in sys.argv[1:]:
         return scan_main(card)
+    if "--zamboni" in sys.argv[1:]:
+        return zamboni_main(card)
     dev = torch.device("cuda")
     build.library()
 
@@ -329,6 +381,216 @@ def scan_main(card: str) -> int:
                                            "card": card,
                                            "steps": SCAN_GRID_STEPS}}),
           flush=True)
+    return 0
+
+
+def zamboni_geometries(capacity: int) -> dict:
+    """{label: ZamboniGeometry} of the geometries timed at capacity C: the
+    warp path at each of ZAMBONI_WARP_DOCS, the block path, and each
+    cluster of ZAMBONI_RANKS whose ranks hold a strip, at each of
+    ZAMBONI_THREADS up to its slots and at the rule's threads."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    geos = [kernel._forced_zamboni_geometry("warp", capacity,
+                                            docs_per_block=w)
+            for w in ZAMBONI_WARP_DOCS]
+    geos.append(kernel._forced_zamboni_geometry("block", capacity))
+    for n in ZAMBONI_RANKS:
+        if capacity < 32 * n:
+            break
+        rule = kernel._forced_zamboni_geometry("cluster", capacity, ranks=n)
+        rows = -(-capacity // n // 32) * 32
+        geos += [kernel._forced_zamboni_geometry("cluster", capacity,
+                                                 ranks=n, threads=t)
+                 for t in sorted({rule.threads, *(t for t in ZAMBONI_THREADS
+                                                  if t <= rows)})]
+    return {zamboni_path_label(g): g for g in geos}
+
+
+def zamboni_table(dev, b: int, c: int, a: int, fill: float, freed: float,
+                  seed: int, half_empty: bool = False):
+    """A [B, C] state filled on the card: round(fill C) rows a document of
+    1-4 chars at seqs 0-8, a `freed` share of them removed at seqs 1-4
+    (under min_seq 4, with an overlap client), the rest never removed,
+    every anno slot set; K = K_SLOTS. half_empty: every other document's
+    count is 0 (its rows stay, as stale rows past the count)."""
+    from fluidframework_tpu_torch.mergetree.constants import DEV_NO_REMOVE
+    from fluidframework_tpu_torch.mergetree.state import make_state
+    st = make_state(c, a, K_SLOTS, batch=b, device=dev)
+    rows = min(c, round(c * fill))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rnd(lo, hi, *shape):
+        return torch.randint(lo, hi, (b, rows, *shape), generator=gen,
+                             device=dev, dtype=torch.int32)
+    gone = torch.rand((b, rows), generator=gen, device=dev) < freed
+    st.length[:, :rows] = rnd(1, 5)
+    st.ins_seq[:, :rows] = rnd(0, 9)
+    st.ins_client[:, :rows] = rnd(0, 4)
+    st.origin_op[:, :rows] = torch.arange(rows, dtype=torch.int32,
+                                          device=dev)
+    st.origin_off[:, :rows] = rnd(0, 4)
+    st.rem_seq[:, :rows] = torch.where(gone, rnd(1, 5), DEV_NO_REMOVE)
+    st.rem_clients[:, :rows, 0] = torch.where(gone, rnd(0, 4), -1)
+    st.anno[:, :rows] = rnd(0, 1000, a)
+    st.count.fill_(rows)
+    if half_empty:   # as the lane store's buckets and fuzz_tables hold
+        st.count[::2] = 0
+    st.min_seq.fill_(4)
+    return st
+
+
+def zamboni_modes(kernel) -> dict:
+    """{mode: the wrapper's call} with what every version of the port has."""
+    return {"compact": kernel.compact_batched,
+            "compact_extract": lambda s: kernel.compact_extract_batched(
+                s, stats=True),
+            "extract": kernel.extract_visible_batched}
+
+
+def to_cpu(tree):
+    """A (nested) tuple or NamedTuple of tensors, copied to the host."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(to_cpu(x) for x in tree))
+    return tuple(to_cpu(x) for x in tree)
+
+
+def zamboni_check(dev) -> None:
+    """The ptxas report of zamboni.cu's kernels (no stack or spill), then
+    every geometry of every mode (stats=True) against the plain versions
+    on CPU copies of fuzzed tables, an anno plane off its 16-byte
+    alignment too (the anno span's int path at A = 4)."""
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.kernels import build
+    from fluidframework_tpu_torch.mergetree import kernel
+    from fluidframework_tpu_torch.testing.traces import fuzz_tables
+    log = build.BUILD_ROOT / build.source_hash() / "ptxas.log"
+    report = {k: r for k, r in ptxas_report(log.read_text()).items()
+              if k.startswith("zamboni_kernel_")}
+    for k, r in sorted(report.items()):
+        print(f"  ptxas: {k}: {r.get('registers')} registers, "
+              f"{r.get('stack')} bytes stack, {r.get('spill_stores')} / "
+              f"{r.get('spill_loads')} bytes spill stores / loads",
+              flush=True)
+    bad = [k for k, r in report.items()
+           if r.get("stack") or r.get("spill_stores") or r.get("spill_loads")]
+    if len(report) != 9 or bad:
+        raise SmokeFailure(f"zamboni.cu: {len(report)} kernels, stack or "
+                           f"spill in {bad}")
+    plains = {"compact": kernel.compact_batched_plain,
+              "compact_extract":
+                  lambda s: kernel.compact_extract_batched_plain(s, True),
+              "extract": kernel.extract_visible_batched_plain}
+    pick = {"compact": lambda o: o[0], "compact_extract": lambda o: o,
+            "extract": lambda o: o[1]}
+    checked = 0
+    for b, c, a in ZAMBONI_CHECK:
+        tab = fuzz_tables(b, c, K_SLOTS, a, seed=b + c + a, free=c // 4)
+        tab["min_seq"] = np.random.default_rng(b + c).integers(
+            0, 9, b).astype(np.int32)
+        states = {"aligned": interop.doc_state_from_numpy(tab, dev)}
+        if a % 4 == 0:
+            st = states["aligned"]
+            buf = torch.empty(st.anno.numel() + 1, dtype=torch.int32,
+                              device=dev)
+            off = buf[1:].view(st.anno.shape)
+            off.copy_(st.anno)
+            states["anno off 16-byte alignment"] = st._replace(anno=off)
+        aligned = states["aligned"]
+        cpu_state = type(aligned)(*(x.cpu() for x in aligned))
+        want = {m: f(cpu_state) for m, f in plains.items()}
+        for what, st in states.items():
+            for label, geo in zamboni_geometries(c).items():
+                for mode in kernel.ZAMBONI_MODES:
+                    out = kernel._zamboni_launch(st, mode, True, geo)
+                    name = f"zamboni {mode} B={b} C={c} A={a} {what} {label}"
+                    assert_trees_equal(to_cpu(pick[mode](out)), want[mode],
+                                       name)
+                    assert_trees_equal(out[2].cpu(), cpu_state.count,
+                                       f"{name}: pre-compaction counts")
+                    checked += 1
+    torch.cuda.synchronize()
+    print(f"zamboni check: {checked} launches over {len(ZAMBONI_CHECK)} "
+          "shapes, every path and mode bit-exact to the plain versions",
+          flush=True)
+
+
+def zamboni_reps(state) -> int:
+    """ZAMBONI_REPS calls a graph, fewer where the outputs of that many
+    calls would pass 4 GB."""
+    out_bytes = sum(x.numel() for x in state) * 4 * 2
+    return max(3, min(ZAMBONI_REPS, int(4e9 // max(out_bytes, 1))))
+
+
+def zamboni_rule_times(dev, kernel) -> list:
+    """The three modes through their wrappers at the ZAMBONI_SHAPES: events
+    over a CUDA graph, and back to back (chip_smoke.ms_of)."""
+    out = []
+    for i, (label, b, c, a, fill, freed) in enumerate(ZAMBONI_SHAPES):
+        st = zamboni_table(dev, b, c, a, fill, freed, seed=i,
+                           half_empty="empty" in label)
+        reps = zamboni_reps(st)
+        times = {}
+        for mode, fn in zamboni_modes(kernel).items():
+            times[mode] = {"graph_ms": graph_ms(lambda: fn(st), reps),
+                           "b2b_ms": ms_of(lambda: fn(st), 10)}
+        print(f"  zamboni rule {label} [{b} x C {c}], A {a}: " + ", ".join(
+            f"{m} {t['graph_ms']:.4f} ms graph events / {t['b2b_ms']:.4f} "
+            f"back to back" for m, t in times.items()), flush=True)
+        out.append({"name": label, "docs": b, "capacity": c, "anno": a,
+                    "times": times})
+        del st
+    return out
+
+
+def zamboni_main(card: str) -> int:
+    from fluidframework_tpu_torch.kernels import build
+    from fluidframework_tpu_torch.mergetree import kernel
+    dev = torch.device("cuda")
+    build.library()
+    if "--rule-only" in sys.argv[1:]:
+        print(json.dumps({"zamboni_rule": {
+            "package": kernel.__file__, "card": card,
+            "shapes": zamboni_rule_times(dev, kernel)}}), flush=True)
+        return 0
+    zamboni_check(dev)
+    shapes = []
+    for i, (label, b, c, a, fill, freed) in enumerate(ZAMBONI_SHAPES):
+        st = zamboni_table(dev, b, c, a, fill, freed, seed=i,
+                           half_empty="empty" in label)
+        reps = zamboni_reps(st)
+        rule = zamboni_path_label(kernel.zamboni_geometry(b, c, K_SLOTS, a))
+        for mode in kernel.ZAMBONI_MODES:
+            times = {lb: graph_ms(lambda geo=geo: kernel._zamboni_launch(
+                st, mode, mode == "compact_extract", geo), reps)
+                for lb, geo in zamboni_geometries(c).items()}
+            report(f"zamboni {mode} {label} [{b} x C {c}], A {a}", times,
+                   rule)
+            shapes.append({"name": label, "mode": mode, "docs": b,
+                           "capacity": c, "anno": a, "times": times,
+                           "rule": rule, "best": min(times, key=times.get)})
+        del st
+    grid = []
+    for c in ZAMBONI_GRID_CAPACITIES:
+        geos = zamboni_geometries(c)
+        for b in ZAMBONI_GRID_DOCS:
+            if b * c > ZAMBONI_GRID_MAX_ROWS:
+                continue
+            st = zamboni_table(dev, b, c, A_SLOTS, 0.5, 0.2, seed=b + c)
+            reps = zamboni_reps(st)
+            times = {lb: graph_ms(lambda geo=geo: kernel._zamboni_launch(
+                st, "compact", False, geo), reps) for lb, geo in geos.items()}
+            rule = zamboni_path_label(kernel.zamboni_geometry(b, c, K_SLOTS,
+                                                         A_SLOTS))
+            report(f"zamboni grid compact B={b} C={c}", times, rule)
+            grid.append({"docs": b, "capacity": c, "times": times,
+                         "rule": rule, "best": min(times, key=times.get)})
+            del st
+    print(json.dumps({"zamboni_calibration": {
+        "shapes": shapes, "grid": grid, "card": card,
+        "rule_shapes": zamboni_rule_times(dev, kernel)}}), flush=True)
     return 0
 
 

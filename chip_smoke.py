@@ -94,7 +94,11 @@ zamboni.cu in each mode and narrow_pack.cu (on the fused mode's packed
 rows) are held bit-exact to their plain versions on CPU copies of their
 inputs at four shapes (the north-star state, the lane store's first
 bucket of 16,384 x 64, the paged view of (3), one document at C =
-4,096), each a row timed against its bound.
+4,096), each a row timed against its bound on the rule's path
+(kernel.zamboni_geometry); every other path of zamboni.cu (warp, block,
+clusters of 2-16 ranks) is held bit-exact to the same plain outputs and
+timed beside it (events over a CUDA graph). After phase 22 the same rows
+are taken at the shape phase 22 compacted most.
 Phase 15 drives the sequencer's lane stores (server/tpu_sequencer.py):
 first testing/lanes.golden_run against the committed JAX golden, then a
 partition of HOT_RING's size (10,000 merge channels over 8 windows,
@@ -109,7 +113,8 @@ version on the card's tensors, and the merge stores must launch zamboni.cu
 (compaction and the fused compaction + extraction) and narrow_pack.cu and
 never run the plain compaction, extraction or narrow pack on the card's
 tensors. Phases 16, 17, 22, 23 and 24 each print zamboni.cu's launches by
-mode and narrow_pack.cu's.
+mode and narrow_pack.cu's, and with phases 11, 14 and 15 zamboni.cu's by
+(mode, path, B, C).
 Phase 16 drives the sequencer lambda (server/tpu_sequencer.
 TpuSequencerLambda, testing/lambda_runs.py scenarios) on the card: the
 serving-ingest fleet at its full width (4,096 documents x 32 ops a wave)
@@ -374,8 +379,11 @@ ZAMBONI_REPLACES = {"compact": "fluidframework_tpu/mergetree/kernel.py:503",
                     "extract": "fluidframework_tpu/mergetree/kernel.py:697",
                     "narrow_pack":
                         "fluidframework_tpu/mergetree/kernel.py:817"}
-ZAMBONI_KERNELS = ("zamboni_kernel<0>", "zamboni_kernel<1>",
-                   "zamboni_kernel<2>", "narrow_pack_kernel")
+ZAMBONI_KERNELS = tuple(f"zamboni_kernel_{p}<{m}>"
+                        for p in ("warp", "block", "cluster")
+                        for m in range(3)) + ("narrow_pack_kernel",)
+# The zamboni rows' timing of every path: calls a CUDA graph holds.
+ZAMBONI_GRAPH_REPS = 10
 # fused_sp.cu's kernels by <runs>: a cluster per document.
 FUSED_SP_KERNELS = ("fused_sp_kernel<0>", "fused_sp_kernel<1>")
 LANE_BUCKET0 = (16_384, 64)
@@ -1426,7 +1434,7 @@ def main(north_star_only: bool = False) -> int:
             else "had finished"
         print(f"phase 22 (a)'s CPU twin {state} when phase 16 began",
               flush=True)
-        z0 = zamboni_counts()
+        z0 = zamboni_snapshot()
         rows += lambda_phase(
             dev, card, lambda_twins,
             after_card=lambda: server_twins.update(start_server_twins()))
@@ -1434,7 +1442,7 @@ def main(north_star_only: bool = False) -> int:
         clock.mark("phase 17")
         decay_twin = start_operator_twin("decay")
         try:
-            z0 = zamboni_counts()
+            z0 = zamboni_snapshot()
             server_rows, fig17 = server_phase(dev, card, server_twins)
             rows += server_rows
             print_zamboni_launches("17", z0)
@@ -1465,15 +1473,17 @@ def main(north_star_only: bool = False) -> int:
         clock.mark("phase 21")
         rows += services_phase(dev, card)
         clock.mark("phase 22")
-        z0 = zamboni_counts()
+        z0 = zamboni_snapshot()
         rows += capacity_phase(dev, card, capacity_twin)
-        print_zamboni_launches("22", z0)
+        by_shape = print_zamboni_launches("22", z0)
+        rows += phase22_zamboni_rows(
+            dev, card, by_shape, zamboni_since(z0[0])["narrow_pack"])
         clock.mark("phase 23")
-        z0 = zamboni_counts()
+        z0 = zamboni_snapshot()
         rows += mesh_phase(dev, card, north, fig17)
         print_zamboni_launches("23", z0)
         clock.mark("phase 24")
-        z0 = zamboni_counts()
+        z0 = zamboni_snapshot()
         lint_lock_phase(dev, card, gates_twin)
         print_zamboni_launches("24", z0)
     del north
@@ -1510,7 +1520,8 @@ def main(north_star_only: bool = False) -> int:
         if "sms" in r:  # the scan rows: the bound on the SMs it can use
             row["bound_ms_sms"] = max(b_ms, r["ops"] / (
                 PEAK_OPS_PER_S * r["sms"] / SM_COUNT) * 1e3)
-        row.update({key: r[key] for key in ("path", "paths", "shape",
+        row.update({key: r[key] for key in ("path", "paths", "graph_ms",
+                                            "shape",
                                             "device_ms_by", "sms",
                                             "blocks", "threads", "cold_ms",
                                             "cold_device_ms")
@@ -2444,7 +2455,8 @@ def catchup_phases(dev, card: str):
           f"visible length {digest['visible_length']}, entries and text "
           f"sha256); scan_apply launches {launches} by kernel {by_kernel}, "
           f"each on the rule's path; zamboni.cu launches {folds} (one a "
-          f"fold compaction, none plain on the card); first run "
+          f"fold compaction, none plain on the card), by (mode, path, B, "
+          f"C) {zamboni_shapes_since({})}; first run "
           f"{first_ms:.1f} ms", flush=True)
     small_n, small_seed, small_clients = g["small"]["trace"]
     small = catchup.device_apply_tail(
@@ -3289,7 +3301,8 @@ def summarize_phase(dev, card: str, hot, catchup_entries) -> list:
     require(zguard.cuda_calls == 0, f"phase 14: the plain compaction, "
             f"extraction or narrow pack ran {zguard.cuda_calls} times on "
             f"the card's tensors")
-    print(f"phase 14: the summarize path's counted run launched {launches}",
+    print(f"phase 14: the summarize path's counted run launched {launches};"
+          f" zamboni.cu by (mode, path, B, C) {zamboni_shapes_since({})}",
           flush=True)
 
     # -- (1) full extraction: card vs CPU copies, narrow vs wide -----------
@@ -3471,18 +3484,73 @@ def summarize_phase(dev, card: str, hot, catchup_entries) -> list:
     return rows
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of fn: `reps` calls captured in a CUDA
+    graph, the graph replayed between CUDA events, the median of three
+    replays (after a warm-up call and one replay). The kernels run back to
+    back with no host launch between them; the calls' allocations come
+    from the graph's pool."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return float(np.median(times))
+
+
+def zamboni_path_label(geo) -> str:
+    if geo.path == "warp":
+        return f"warp W={geo.docs_per_block}"
+    if geo.path == "cluster":
+        return f"cluster n={geo.ranks} t={geo.threads}"
+    return f"block t={geo.threads}"
+
+
+def zamboni_path_geometries(capacity: int) -> dict:
+    """{label: geometry} of every zamboni.cu path at capacity C: the warp
+    path at the rule's documents a block, the block path, and a cluster of
+    2, 4, 8 and 16 ranks (at the rule's threads) wherever each rank holds
+    at least one strip of 32 rows."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    geos = [kernel._forced_zamboni_geometry("warp", capacity),
+            kernel._forced_zamboni_geometry("block", capacity)]
+    geos += [kernel._forced_zamboni_geometry("cluster", capacity, ranks=n)
+             for n in (2, 4, 8, 16) if capacity >= 32 * n]
+    return {zamboni_path_label(g): g for g in geos}
+
+
 def zamboni_rows(card: str, shapes: dict, counts: dict) -> list:
     """Rows of zamboni.cu (each mode) and narrow_pack.cu (on the fused
     mode's packed rows, at the width fetch_extracted picks) at `shapes`
-    ({label: a [B, C] state on the card}): each held bit-exact to its
+    ({label: a [B, C] state on the card}). Each mode through its wrapper
+    (the rule's path, kernel.zamboni_geometry) is held bit-exact to its
     plain version on CPU copies of its inputs, timed back to back, by the
-    profiler and, for the plain version, on the card's tensors, and
-    printed beside its bound. The bound counts the bytes this data needs:
-    count and min_seq, rem_seq of each live row (index below min(count,
-    C)), the other planes of each kept row (8 + K + A ints compacting, 7 +
-    A extracting, and the last row of a document with padding), and every
-    output written once; the narrow pack reads mx slots of 7 + A planes
-    and writes the wire. `counts` are phase 14's counted-run launches."""
+    profiler and, for the plain version, on the card's tensors; then every
+    path zamboni_path_geometries allows is held to the same plain outputs
+    (on the card) and timed by events over a CUDA graph (graph_ms), the
+    rule's path through the wrapper too. Printed beside the bound, which
+    counts the bytes this data needs: count and min_seq, rem_seq of each
+    live row (index below min(count, C)), the other planes of each kept
+    row (8 + K + A ints compacting, 7 + A extracting, and the last row of
+    a document with padding), and every output written once; the narrow
+    pack reads mx slots of 7 + A planes and writes the wire. `counts` are
+    the launches of the run the shape comes from, by mode."""
     from fluidframework_tpu_torch.mergetree import kernel
     modes = {
         "compact": (kernel.compact_batched, kernel.compact_batched_plain),
@@ -3491,11 +3559,15 @@ def zamboni_rows(card: str, shapes: dict, counts: dict) -> list:
             lambda s: kernel.compact_extract_batched_plain(s, stats=True)),
         "extract": (kernel.extract_visible_batched,
                     kernel.extract_visible_batched_plain)}
+    # the wrapper's output out of _zamboni_launch's (comp, packed, pre)
+    pick = {"compact": lambda o: o[0], "compact_extract": lambda o: o,
+            "extract": lambda o: o[1]}
     rows = []
     for label, st in shapes.items():
         cpu = type(st)(*(x.cpu() for x in st))
         b, c = st.length.shape
         k, a = st.overlap_slots, st.anno_slots
+        rule = kernel.zamboni_geometry(b, c, k, a)
         scanned = int(cpu.count.clamp(0, c).sum())
         outs = {}
         for mode, (fn, plain) in modes.items():
@@ -3513,6 +3585,25 @@ def zamboni_rows(card: str, shapes: dict, counts: dict) -> list:
             + 4 * b * c * (9 + k + a) + 8 * b,
             "extract": head + 4 * kept * (6 + a) + 4 * padded * (7 + a)
             + 4 * b * c * (7 + a) + 4 * b}
+        # every path against the plain outputs, on the card
+        geos = zamboni_path_geometries(c)
+        path_ms = {mode: {} for mode in modes}
+        for plabel, geo in geos.items():
+            for mode in modes:
+                want = [x.to(st.length.device)
+                        for x in flat_tree(outs[mode][1])]
+
+                def run(mode=mode, geo=geo):
+                    return kernel._zamboni_launch(
+                        st, mode, mode == "compact_extract", geo)
+                got = flat_tree(pick[mode](run()))
+                require(len(got) == len(want) and all(
+                    x.dtype == y.dtype and x.shape == y.shape
+                    and bool(torch.equal(x, y)) for x, y in zip(got, want)),
+                    f"zamboni[{mode}] {label}: the {plabel} path differs "
+                    "from the plain version")
+                path_ms[mode][plabel] = graph_ms(run, ZAMBONI_GRAPH_REPS)
+        rule_label = zamboni_path_label(rule)
         packed = outs["compact_extract"][0][1]
         cpu_packed = outs["compact_extract"][1][1]
         mx = min((max(int(cpu_packed[-1].max()), 1) + 31) // 32 * 32, c)
@@ -3527,7 +3618,11 @@ def zamboni_rows(card: str, shapes: dict, counts: dict) -> list:
         calls["narrow_pack"] = lambda: kernel.narrow_pack(packed, mx)
         plains = {m: (lambda p=p: p(st)) for m, (_f, p) in modes.items()}
         plains["narrow_pack"] = lambda: kernel.narrow_pack_plain(packed, mx)
-        trace = kernel_device_ms(lambda: [f() for f in calls.values()], 10)
+        for _ in range(2):   # a trace with no kernel in it is taken again
+            trace = kernel_device_ms(lambda: [f() for f in calls.values()],
+                                     10)
+            if any("zamboni_kernel" in key for key in trace):
+                break
         for i, mode in enumerate(calls):
             got, want = outs[mode]
             g = [x.cpu() for x in flat_tree(got)]
@@ -3538,7 +3633,8 @@ def zamboni_rows(card: str, shapes: dict, counts: dict) -> list:
                 "outputs differ in dtype or shape from the plain version's")
             err = max_abs_err(g, w)
             name = "narrow_pack" if mode == "narrow_pack" else "zamboni"
-            ident = ZAMBONI_KERNELS[i]
+            ident = "narrow_pack_kernel" if name == "narrow_pack" \
+                else f"zamboni_kernel_{rule.path}<{i}>"
             mangled = ident.replace("<", "ILi").replace(">", "E")
             hits = [(ms, n) for key, (ms, n) in trace.items()
                     if ident in key or mangled in key]
@@ -3555,19 +3651,63 @@ def zamboni_rows(card: str, shapes: dict, counts: dict) -> list:
                      shape=label + (f", mx {mx}" if name == "narrow_pack"
                                     else ""),
                      bytes=nbytes[mode], ops=n_ops[mode])
+            if name == "zamboni":
+                r["path"] = rule_label
+                r["paths"] = path_ms[mode]
+                r["graph_ms"] = graph_ms(calls[mode], ZAMBONI_GRAPH_REPS)
             bound = max(r["bytes"] / PEAK_BYTES_PER_S,
                         r["ops"] / PEAK_OPS_PER_S) * 1e3
             share = f"{bound / dev_ms:.1%}" if dev_ms else "not measured"
+            paths = "" if name != "zamboni" else (
+                f"; the rule's path {rule_label}, {r['graph_ms']:.4f} ms by "
+                f"events over a CUDA graph of {ZAMBONI_GRAPH_REPS} calls "
+                f"({bound / r['graph_ms']:.1%} of the bound); every path "
+                "(graph events ms, each bit-exact to the plain version) "
+                + ", ".join(f"{p} {ms:.4f}" for p, ms in r["paths"].items()))
             print(f"  {name}[{mode}] {r['shape']}: {fmt_ms(dev_ms)} kernel "
                   f"device time, {r['ms']:.4f} ms back to back, plain "
                   f"{r['plain_ms']:.3f} ms on the card; bound {bound:.5f} ms "
                   f"({r['bytes']} bytes, {r['ops']} operations): {share} of "
-                  f"the bound; max_abs_err {err} against the plain version "
-                  f"on CPU copies; launches in phase 14's counted run "
-                  f"{r['launches']}; card {card}", flush=True)
+                  f"the bound{paths}; max_abs_err {err} against the plain "
+                  f"version on CPU copies; launches {r['launches']}; card "
+                  f"{card}", flush=True)
             require(err == 0, f"{name}[{mode}] {label}: kernel vs plain "
                     "differ")
             rows.append(r)
+    return rows
+
+
+def phase22_zamboni_rows(dev, card: str, by_shape: dict,
+                         narrow_n: int) -> list:
+    """zamboni_rows at the shape at which phase 22 launched the compact
+    mode most (by_shape: its launches by (mode, path, B, C)), on fuzzed
+    tables of the lane stores' K and A (fuzz_tables' documents that hold
+    rows: 3/4 C to C of them, a fifth removed at seqs 1-8 under min_seq
+    0-8), with phase 22's
+    zamboni launches at that shape and its narrow_pack launches in all
+    (narrow_n); none when phase 22 launched no compaction."""
+    from fluidframework_tpu_torch import interop
+    from fluidframework_tpu_torch.testing.traces import fuzz_tables
+    by_bc = {}
+    for (mode, _path, b, c), n in by_shape.items():
+        by_bc.setdefault((b, c), dict.fromkeys(ZAMBONI_REPLACES, 0))
+        by_bc[(b, c)][mode] += n
+    compacts = {bc: n["compact"] for bc, n in by_bc.items() if n["compact"]}
+    if not compacts:
+        print("phase 22: no compact launch, no zamboni row", flush=True)
+        return []
+    b, c = max(compacts, key=lambda bc: (compacts[bc], bc))
+    by_bc[(b, c)]["narrow_pack"] = narrow_n
+    tab = fuzz_tables(2 * b, c, K_SLOTS, A_SLOTS, seed=22, free=c // 4)
+    tab = {f: v[1::2] for f, v in tab.items()}   # the documents with rows
+    tab["min_seq"] = np.random.default_rng(22).integers(
+        0, 9, b).astype(np.int32)
+    t0 = time.perf_counter()
+    rows = zamboni_rows(card, {
+        f"phase 22's most compacted shape [{b} x C {c}], A {A_SLOTS}":
+            interop.doc_state_from_numpy(tab, dev)}, by_bc[(b, c)])
+    print(f"phase 22: the zamboni rows at [{b} x C {c}] took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return rows
 
 
@@ -3840,6 +3980,7 @@ def lane_store_phase(dev, card: str, cpu_procs: dict,
             f"launched the lane scan {lww_n} times and ran its plain "
             f"version {guard.cuda_calls} times on the card's tensors")
     z_counts = zamboni_counts()
+    z_shapes = zamboni_shapes_since({})
     require(z_counts["compact"] > 0 and z_counts["compact_extract"] > 0
             and z_counts["narrow_pack"] > 0 and zguard.cuda_calls == 0,
             f"phase 15: the lane stores launched zamboni.cu and "
@@ -3889,7 +4030,8 @@ def lane_store_phase(dev, card: str, cpu_procs: dict,
           f"event ms) {path_ms}; shapes (B, C, T, variant): launches "
           f"{dict(sorted(shapes.items()))}; serve.paged_burst calls "
           f"{n_bursts}; zamboni.cu launches by mode and narrow_pack.cu "
-          f"launches {z_counts}; card {card}", flush=True)
+          f"launches {z_counts}, zamboni.cu's by (mode, path, B, C) "
+          f"{z_shapes}; card {card}", flush=True)
     for store in ("bucketed", "paged"):
         t = times[store]
         wins = [(lb, t[lb]) for lb, _ in labels if lb.startswith("window")]
@@ -4120,9 +4262,30 @@ def zamboni_since(before: dict) -> dict:
     return {k: n - before.get(k, 0) for k, n in zamboni_counts().items()}
 
 
-def print_zamboni_launches(phase: str, before: dict) -> None:
+def zamboni_snapshot() -> tuple:
+    """(zamboni_counts(), zamboni.cu's launches by (mode, path, B, C))."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    return zamboni_counts(), dict(kernel.zamboni.shape_launches)
+
+
+def zamboni_shapes_since(before: dict) -> dict:
+    """zamboni.cu's launches by (mode, path, B, C) since `before`."""
+    from fluidframework_tpu_torch.mergetree import kernel
+    return {key: n - before.get(key, 0) for key, n in
+            sorted(kernel.zamboni.shape_launches.items())
+            if n != before.get(key, 0)}
+
+
+def print_zamboni_launches(phase: str, before: tuple) -> dict:
+    """Print the phase's zamboni.cu launches by mode (and narrow_pack.cu's)
+    and by (mode, path, B, C) since `before` (a zamboni_snapshot()); return
+    the latter."""
+    counts, shapes = before
+    by_shape = zamboni_shapes_since(shapes)
     print(f"phase {phase}: zamboni.cu launches by mode and narrow_pack.cu "
-          f"launches in the phase {zamboni_since(before)}", flush=True)
+          f"launches in the phase {zamboni_since(counts)}; zamboni.cu "
+          f"launches by (mode, path, B, C) {by_shape}", flush=True)
+    return by_shape
 
 
 def counts_since(before: dict) -> dict:

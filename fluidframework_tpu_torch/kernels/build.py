@@ -170,9 +170,10 @@ def library() -> ctypes.CDLL:
                                           ctypes.POINTER(i32), i32, i32,
                                           i32, i32, i32, i32, vp]
         lib.fluid_window_pack.restype = i32
-        # ptrs, mode, batch, capacity, K, A, stream
+        # ptrs, mode, batch, capacity, K, A, path, ranks, threads,
+        # docs_per_block, stream
         lib.fluid_zamboni.argtypes = [ctypes.POINTER(vp), i32, i32, i32,
-                                      i32, i32, vp]
+                                      i32, i32, i32, i32, i32, i32, vp]
         lib.fluid_zamboni.restype = i32
         # ptrs, batch, capacity, mx, A, stream
         lib.fluid_narrow_pack.argtypes = [ctypes.POINTER(vp), i32, i32, i32,

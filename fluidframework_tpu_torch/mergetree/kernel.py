@@ -753,8 +753,126 @@ def apply_if_any(apply_fn, state: DocState, active) -> DocState:
 # zamboni: compaction and extraction (kernels/csrc/zamboni.cu)
 # ---------------------------------------------------------------------------
 
-# The kernel's modes, by the code fluid_zamboni takes.
+# The kernel's modes and paths, by the codes fluid_zamboni takes.
 ZAMBONI_MODES = ("compact", "compact_extract", "extract")
+ZAMBONI_PATHS = ("warp", "block", "cluster")
+# The rule (zamboni_geometry), measured on the H100 by
+# `calibrate_fused_apply.py --zamboni` (PERF.md §6; every path's kernels
+# hold 128 registers a thread, so 512 threads fill an SM's registers):
+# - from C = ZAMBONI_CLUSTER_MIN_C on, a cluster of the most ranks (16, 8,
+#   4 or 2 blocks a document) whose blocks fit one wave of the card's
+#   SM_COUNT SMs (B x ranks <= SM_COUNT) and whose ranks hold at least
+#   ZAMBONI_RANK_MIN_ROWS slots each, with ZAMBONI_CLUSTER_THREADS threads
+#   a block (ZAMBONI_PAIR_THREADS in a cluster of two; fewer where a rank
+#   has fewer slots). One document at C = 4,096-16,384: 16 ranks of 256
+#   threads 0.0089-0.0095 ms against 0.0121-0.0430 on the block path; 61
+#   at C = 8,192: 2 ranks of 512 threads 0.0232 against 0.0385; at C =
+#   2,048 the block path won for every B (0.0076 against 0.0083 at best),
+#   and at B = 132 every C measured;
+# - else the warp path (ZAMBONI_WARP_DOCS documents a block) for tables of
+#   at most ZAMBONI_WARP_MAX_C slots whose launch holds at least
+#   ZAMBONI_WARP_MIN_ROWS rows (B x C): 10,000 x 256 0.0915 against 0.1689
+#   on the block path, 512 x 256 0.0071 against 0.0086; at 512 x 64 and at
+#   C = 1,024 for every B the block path won;
+# - else the block path (the first design's geometry).
+ZAMBONI_CLUSTER_MIN_C = 4096
+ZAMBONI_RANK_MIN_ROWS = 256
+ZAMBONI_CLUSTER_THREADS = 256
+ZAMBONI_PAIR_THREADS = 512
+ZAMBONI_WARP_MAX_C = 512
+ZAMBONI_WARP_MIN_ROWS = 1 << 17
+ZAMBONI_WARP_DOCS = 4
+_ZAMBONI_BLOCK_THREADS = 256   # zamboni.cu kBlockThreads
+_ZAMBONI_MAX_RANKS = 16        # 8 portable; 16 with the non-portable attribute
+_ZAMBONI_MAX_THREADS = 512       # zamboni.cu kMaxThreads
+
+
+class ZamboniGeometry(NamedTuple):
+    """How one zamboni launch is laid out on the card."""
+    path: str             # one of ZAMBONI_PATHS
+    ranks: int            # blocks a document (the cluster's size; else 1)
+    threads: int          # per block
+    docs_per_block: int   # documents a block (the warp path; else 1)
+
+
+def _check_zamboni_shape(batch: int, capacity: int, k_slots: int,
+                         a_slots: int) -> None:
+    if batch < 0 or capacity < 1 or k_slots < 1 or a_slots < 0:
+        raise ValueError(
+            f"zamboni takes B >= 0, C >= 1, K >= 1 and A >= 0 (got B={batch}, "
+            f"C={capacity}, K={k_slots}, A={a_slots})")
+
+
+def _forced_zamboni_geometry(path: str, capacity: int,
+                             ranks: Optional[int] = None,
+                             threads: Optional[int] = None,
+                             docs_per_block: Optional[int] = None
+                             ) -> ZamboniGeometry:
+    """The geometry of `path` at capacity C whatever the rule says (the
+    warp path's documents a block default to ZAMBONI_WARP_DOCS, the
+    cluster's ranks to 2 and its threads to the rule's for that many
+    ranks): for tests and measurements. Raises ValueError for a geometry
+    zamboni.cu refuses."""
+    if path not in ZAMBONI_PATHS:
+        raise ValueError(f"unknown zamboni path {path!r} (one of "
+                         f"{ZAMBONI_PATHS})")
+    if capacity < 1:
+        raise ValueError(f"zamboni takes C >= 1 (got {capacity})")
+    rounded = -(-capacity // 32) * 32
+    if path == "warp":
+        dpb = docs_per_block or ZAMBONI_WARP_DOCS
+        geo = ZamboniGeometry(path, 1, threads or 32 * dpb, dpb)
+        ok = ranks in (None, 1) and 1 <= dpb <= _ZAMBONI_MAX_THREADS // 32 \
+            and geo.threads == 32 * dpb
+    elif path == "block":
+        geo = ZamboniGeometry(path, 1, threads
+                              or min(rounded, _ZAMBONI_BLOCK_THREADS), 1)
+        ok = ranks in (None, 1) and docs_per_block in (None, 1) \
+            and geo.threads == min(rounded, _ZAMBONI_BLOCK_THREADS)
+    else:
+        n = ranks or 2
+        rows = -(-capacity // max(n, 1) // 32) * 32
+        most = ZAMBONI_PAIR_THREADS if n == 2 else ZAMBONI_CLUSTER_THREADS
+        geo = ZamboniGeometry(path, n, threads or min(rows, most), 1)
+        ok = 2 <= n <= _ZAMBONI_MAX_RANKS and docs_per_block in (None, 1) \
+            and geo.threads % 32 == 0 \
+            and 32 <= geo.threads <= _ZAMBONI_MAX_THREADS
+    if not ok:
+        raise ValueError(f"zamboni.cu does not take the {path} path with "
+                         f"ranks={ranks}, threads={threads}, "
+                         f"docs_per_block={docs_per_block} at C={capacity}")
+    return geo
+
+
+def zamboni_cluster_ranks(batch: int, capacity: int) -> int:
+    """The rule's cluster size at B documents of capacity C: the most ranks
+    (16, 8, 4, 2) with B x ranks <= SM_COUNT and C >= ranks x
+    ZAMBONI_RANK_MIN_ROWS, from C = ZAMBONI_CLUSTER_MIN_C on; 1 (no
+    cluster) where none."""
+    if capacity < ZAMBONI_CLUSTER_MIN_C:
+        return 1
+    n = _ZAMBONI_MAX_RANKS
+    while n >= 2 and (batch * n > SM_COUNT
+                      or capacity < n * ZAMBONI_RANK_MIN_ROWS):
+        n //= 2
+    return max(n, 1)
+
+
+def zamboni_geometry(batch: int, capacity: int, k_slots: int,
+                     a_slots: int) -> ZamboniGeometry:
+    """The path, ranks, threads and documents a block of a zamboni launch
+    over B documents of capacity C (K overlap and A annotate slots): one
+    fixed rule, measured on the H100 (PERF.md §6; zamboni.cu checks the
+    geometry against its own formulas). Pure: the same arguments give the
+    same geometry. Raises ValueError for B < 0, C < 1, K < 1 or A < 0."""
+    _check_zamboni_shape(batch, capacity, k_slots, a_slots)
+    n = zamboni_cluster_ranks(batch, capacity)
+    if n >= 2:
+        return _forced_zamboni_geometry("cluster", capacity, ranks=n)
+    if capacity <= ZAMBONI_WARP_MAX_C \
+            and batch * capacity >= ZAMBONI_WARP_MIN_ROWS:
+        return _forced_zamboni_geometry("warp", capacity)
+    return _forced_zamboni_geometry("block", capacity)
 
 
 def _on_card(device: torch.device) -> bool:
@@ -868,16 +986,27 @@ def _check_zamboni(state: DocState, mode: str) -> None:
 
 def zamboni(state: DocState, mode: str, stats: bool = False) -> tuple:
     """One launch of kernels/csrc/zamboni.cu over a [B, C] batch of CUDA
-    tensors in `mode` ("compact", "compact_extract" or "extract"), into
-    new tensors; the input is left as it was. Returns (compacted state or
-    None, packed rows or None, pre-compaction counts or None): the
-    compacted state keeps the input's min_seq, seq and overflow tensors,
-    as the plain version does, and the fused mode's packed rows are the
-    compacted state's planes plus a rem_client plane. stats=True also
-    writes the pre-compaction counts. Tensors the kernel does not take
-    raise ValueError, a launch error RuntimeError. A batch of zero
-    documents launches nothing. Counted in zamboni.launches and
-    zamboni.mode_launches[mode]."""
+    tensors in `mode` ("compact", "compact_extract" or "extract"), on the
+    path zamboni_geometry names, into new tensors; the input is left as it
+    was. Returns (compacted state or None, packed rows or None,
+    pre-compaction counts or None): the compacted state keeps the input's
+    min_seq, seq and overflow tensors, as the plain version does, and the
+    fused mode's packed rows are the compacted state's planes plus a
+    rem_client plane. stats=True also writes the pre-compaction counts.
+    Tensors the kernel does not take raise ValueError, a launch error
+    RuntimeError. A batch of zero documents launches nothing. Counted in
+    zamboni.launches, zamboni.mode_launches[mode], zamboni.path_launches
+    [path] and zamboni.shape_launches[(mode, path, B, C)]."""
+    _check_zamboni(state, mode)
+    b, c = state.length.shape
+    return _zamboni_launch(state, mode, stats, zamboni_geometry(
+        b, c, state.overlap_slots, state.anno_slots))
+
+
+def _zamboni_launch(state: DocState, mode: str, stats: bool,
+                    geo: ZamboniGeometry) -> tuple:
+    """One zamboni launch with an explicit geometry (zamboni takes the
+    rule's; tests and measurements force others)."""
     _check_zamboni(state, mode)
     b, c = state.length.shape
     dev = state.length.device
@@ -916,13 +1045,17 @@ def zamboni(state: DocState, mode: str, stats: bool = False) -> tuple:
     lib = build.library()
     zamboni.launches += 1
     zamboni.mode_launches[mode] += 1
+    zamboni.path_launches[geo.path] += 1
+    key = (mode, geo.path, b, c)
+    zamboni.shape_launches[key] = zamboni.shape_launches.get(key, 0) + 1
     note_launch("zamboni")
     with _on_device(dev):
         build.check(lib.fluid_zamboni(
             (ctypes.c_void_p * len(ptrs))(*ptrs),
             ZAMBONI_MODES.index(mode), b, c, state.overlap_slots,
-            state.anno_slots, ctypes.c_void_p(build.stream_handle())),
-            "zamboni")
+            state.anno_slots, ZAMBONI_PATHS.index(geo.path), geo.ranks,
+            geo.threads, geo.docs_per_block,
+            ctypes.c_void_p(build.stream_handle())), "zamboni")
     return comp, packed, pre
 
 
@@ -1575,10 +1708,12 @@ def fetch_extracted(packed: tuple, narrow: bool = True) -> tuple:
 
 
 def reset_zamboni_launches() -> None:
-    """Zero the zamboni kernel's launch counts (in all and per mode) and
-    narrow_pack's."""
+    """Zero the zamboni kernel's launch counts (in all, per mode, per path
+    and per (mode, path, B, C)) and narrow_pack's."""
     zamboni.launches = 0
     zamboni.mode_launches = dict.fromkeys(ZAMBONI_MODES, 0)
+    zamboni.path_launches = dict.fromkeys(ZAMBONI_PATHS, 0)
+    zamboni.shape_launches = {}
     narrow_pack.launches = 0
 
 
